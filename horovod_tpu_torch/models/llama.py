@@ -11,10 +11,11 @@ JAX tree stacks the layers on a leading ``[L, ...]`` axis for ``lax.scan``,
 ``params["layers"]`` here is a list of per-layer dicts, so each layer's
 gradient lands in its own tensor (``convert.py`` splits and restacks).
 
-This slice is the dense, data-parallel model.  What it does not cover
+This slice is the dense, data-parallel model; ``fused_xent=True`` takes
+the loss through the fused cross-entropy kernels.  What it does not cover
 raises ``NotImplementedError`` naming its ROADMAP.md item: MoE
-(``n_experts > 0``), tensor/sequence/pipeline/expert parallel axes
-(including ``vocab_parallel`` over tp) and ``fused_xent=True``.
+(``n_experts > 0``) and tensor/sequence/pipeline/expert parallel axes
+(including ``vocab_parallel`` over tp).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import DeviceLike, resolve_device
+from ..ops import fused_xent
 from ..parallel.ring_attention import ring_attention
 
 _log = logging.getLogger("horovod_tpu_torch")
@@ -290,26 +292,40 @@ def _warn_unchunked(chunk: int, T: int) -> None:
         "logits WILL be materialized", chunk, T)
 
 
+def _oneshot_xent(h, w_embed, targets):
+    """Mean cross-entropy through the full ``[B, T, V]`` logits."""
+    logits = h @ w_embed.T.to(h.dtype)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+
+
 def loss_fn(params, tokens, targets, cfg: LlamaConfig,
             par: ParallelSpec = ParallelSpec(), n_microbatches: int = 0):
     """Mean next-token cross-entropy over the local tokens.
 
     Keeps the JAX dispatch order: vocab-parallel (refused here with tp),
-    then the fused kernel, then chunked, then one-shot.
+    then the fused kernels, then chunked, then one-shot.  With
+    ``fused_xent`` on and ``HOROVOD_FUSED_XENT`` not 0, inputs the fused
+    kernels do not take fall through on the CPU, as in JAX, and raise on
+    the card.
     """
-    if cfg.fused_xent:
-        raise NotImplementedError(
-            "fused_xent=True needs the fused cross-entropy kernels, which "
-            "are not ported yet (ROADMAP.md B4-B6)")
     h, _ = hidden(params, tokens, cfg, par, n_microbatches)
+    w = params["embed"]
+    if cfg.fused_xent and fused_xent.enabled():
+        reason = fused_xent.unsupported_reason(h, w, targets)
+        if reason is None:
+            return fused_xent.fused_xent_mean(h, w, targets)
+        if h.device.type == "cuda":
+            raise ValueError(
+                f"the fused cross-entropy kernels do not take this input: "
+                f"{reason}; set HOROVOD_FUSED_XENT=0 to run the chunked or "
+                f"one-shot loss on the card")
     T = h.shape[1]
     if cfg.loss_chunk > 0 and T % cfg.loss_chunk == 0:
-        return _chunked_xent(h, params["embed"], targets, cfg.loss_chunk)
+        return _chunked_xent(h, w, targets, cfg.loss_chunk)
     if cfg.loss_chunk > 0:
         _warn_unchunked(cfg.loss_chunk, T)
-    logits = h @ params["embed"].T.to(h.dtype)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+    return _oneshot_xent(h, w, targets)
 
 
 def count_params(cfg: LlamaConfig) -> int:

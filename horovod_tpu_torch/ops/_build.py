@@ -40,6 +40,11 @@ _SIGNATURES = {
         "hvd_flash_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
         "hvd_flash_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     },
+    "fused_xent": {
+        "hvd_xent_fwd": [_P] * 5 + [_I] * 3 + [_P],
+        "hvd_xent_dh": [_P] * 5 + [_I] * 3 + [_P],
+        "hvd_xent_dw": [_P] * 5 + [_I] * 3 + [_P],
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

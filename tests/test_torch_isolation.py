@@ -26,6 +26,7 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert "horovod_tpu_torch.ops.flash_attention" in mods
+    assert "horovod_tpu_torch.ops.fused_xent" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -179,7 +179,6 @@ def test_convert_round_trip_and_count_params():
 
 @pytest.mark.parametrize("over,par", [
     ({"n_experts": 4}, tl.ParallelSpec()),
-    ({"fused_xent": True}, tl.ParallelSpec()),
     ({"vocab_parallel": True}, tl.ParallelSpec(tp_axis="tp")),
     ({}, tl.ParallelSpec(sp_axis="sp")),
     ({}, tl.ParallelSpec(pp_axis="pp")),
