@@ -10,14 +10,16 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
   device   the card's name, count and power limit (no card: exit 1)
   build    nvcc builds every csrc/*.cu in parallel; the -Xptxas -v lines
   kernels  each flash-attention kernel at the training shapes (plus a
-           non-causal and an H == Hkv case) against its plain PyTorch
+           non-causal case, an H == Hkv case and a ragged T = 960, a
+           multiple of 64 but not of 128) against its plain PyTorch
            version on the same inputs, with its time, the plain version's,
            the least time the card could take, one
            scaled_dot_product_attention call as the forward's yardstick,
            and one call of PyTorch's flash-attention backward operator
-           (dq, dk and dv at once) beside dq and dkv; then each
-           fused cross-entropy kernel at the loss head's shapes (N 8192,
-           V 32768, D 2048) likewise, with no library call
+           (dq, dk and dv at once) beside dq and dkv as the pair's
+           (library_pair_ms); then each fused cross-entropy kernel at the
+           loss head's shapes (N 8192, V 32768, D 2048) likewise, with no
+           library call
   oneshot  context for the cross-entropy kernels: the port's one-shot loss,
            forward and forward + backward, on the same inputs (each of 10
            calls), and the fused loss's peak extra allocation
@@ -32,8 +34,10 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            the CPU, from the same weights
   parity_fused   the same with fused_xent=True
 
-Then three lines: the kernels summary, the card's name and power limit as
-nvidia-smi prints them, and {"ok": true, "device": {...}}.  The script
+Then three lines: the kernels summary (each kernel's contract numbers,
+its TF/s, and for dq and dkv the flash backward operator's time as
+library_pair_ms, since it gives both at once), the card's name and power
+limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.  The script
 imports no jax and nothing of horovod_tpu.
 """
 
@@ -52,12 +56,16 @@ import torch
 # H100 SXM peaks (NVIDIA's data sheet, dense, at a 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# cycles the card spins for each call time_ms queues behind the spin:
+# about 1 ms at the H100's 1.98 GHz
+SPIN_CYCLES_PER_CALL = 2_000_000
 
 # (B, T, H, Hkv, D, causal): the training shapes first
 KERNEL_CASES = [
     ("main", (8, 1024, 16, 8, 128, True)),
     ("noncausal", (8, 1024, 16, 8, 128, False)),
     ("mha", (8, 1024, 16, 16, 128, True)),
+    ("ragged", (8, 960, 16, 8, 128, True)),
 ]
 # out is bf16 (|out| <= ~2 with N(0,1) inputs): a few bf16 steps; lse is
 # fp32 from the kernels' fast exp/log and another summation order; the
@@ -122,12 +130,17 @@ def emit(phase: str, **fields) -> None:
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds of ``fn()`` on the card, from CUDA events around
-    ``iters`` calls after ``warmup`` calls."""
+    ``iters`` calls after ``warmup`` calls.  The card first spins for about
+    a millisecond per call while the host queues the calls, so the events
+    time the card running them back to back: the host's cores are shared,
+    and a stall there would otherwise leave the card idle inside the timed
+    window and be counted as the kernel's time."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(iters * SPIN_CYCLES_PER_CALL)
     start.record()
     for _ in range(iters):
         fn()
@@ -265,14 +278,13 @@ def kernels_phase(fa, dev):
             ms = time_ms(runs[kernel][0], iters=20)
             plain_ms = time_ms(runs[kernel][1], iters=3, warmup=1)
             library_ms = sdpa_ms if kernel == "fwd" else None
-            if kernel != "fwd":
-                detail = {**detail, "flash_bwd_op_ms": flash_bwd_op_ms}
+            library_pair_ms = None if kernel == "fwd" else flash_bwd_op_ms
             bound_ms, bound_by, flops, nbytes = bound(kernel, shape)
             row = {"case": case, "kernel": kernel, "shape": list(shape),
                    "max_abs_err": max_abs_err, **detail, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "flops": flops, "bytes": nbytes,
+                   "library_pair_ms": library_pair_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "flops": flops, "bytes": nbytes,
                    "tflops": flops / ms / 1e9}
             emit("kernels", **row)
             require(ok, f"{kernel} kernel disagrees with its plain version "
@@ -353,8 +365,9 @@ def xent_kernels_phase(fx, llama, dev):
         row = {"case": "main", "kernel": kernel, "shape": [N, V, D],
                "max_abs_err": max_abs_err, **detail, "ms": ms,
                "plain_ms": plain_ms, "library_ms": None,
-               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-               "bytes": nbytes, "tflops": flops / ms / 1e9}
+               "library_pair_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               "tflops": flops / ms / 1e9}
         emit("kernels", **row)
         require(ok, f"{kernel} kernel disagrees with its plain version: "
                     f"{detail}")
@@ -603,7 +616,9 @@ def main() -> int:
             "replaces": replaces, "launches": n,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_pair_ms": row["library_pair_ms"],
+            "tflops": row["tflops"]})
         require(n > 0, f"{label} never ran on its path")
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

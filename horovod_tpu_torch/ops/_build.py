@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, under
 ``build/horovod_tpu_torch/`` at the root of the checkout, and loaded with
-``ctypes``.  A library's file name carries a hash of its source, the flags
-and the compiler, so an edited source is rebuilt and an unchanged one is
-reused.  A file lock keeps concurrent processes from building the same
-library twice.  Only sources in the repository are compiled.
+``ctypes``.  A library's file name carries a hash of its source, of the
+shared headers ``csrc/*.cuh``, of the flags and of the compiler, so an
+edited source or header is rebuilt and an unchanged one is reused.  A file
+lock keeps concurrent processes from building the same library twice.
+Only sources in the repository are compiled.
 
 ``build_all()`` starts one ``nvcc`` for every source at once and waits for
 all of them, which is how ``chip_smoke.py`` builds everything up front.
@@ -67,10 +68,14 @@ def nvcc() -> str:
 
 
 def _library_path(name: str, compiler: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(
-        src + " ".join(NVCC_FLAGS + [compiler]).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` is built: the name carries a hash of the
+    source, of every ``csrc/*.cuh`` header it may include, and of the
+    flags (include paths among them) and the compiler."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS + [compiler]).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -81,3 +81,20 @@ def test_xent_bound_at_the_1b_loss_head():
         assert by == "operations" and abs(bound_ms - ms) < 0.01
         assert got_bytes == nbytes
         assert flops == (2 if kernel == "xent_fwd" else 4) * N * V * D
+
+
+def test_flash_bound_at_the_main_shape():
+    """Operations bound the three flash kernels at B 8, T 1024, H 16, Hkv 8,
+    D 128, causal: 0.0348 ms for 2 products (fwd), 0.0522 for 3 (dq),
+    0.0696 for 4 (dkv), at 989 TF/s."""
+    shape = chip_smoke.KERNEL_CASES[0][1]
+    assert shape == (8, 1024, 16, 8, 128, True)
+    B, T, H, _, D, _ = shape
+    pairs = B * H * T * (T + 1) // 2  # score entries the causal mask keeps
+    want = {"fwd": (0.0348, 2, 101187584), "dq": (0.0522, 3, 135266304),
+            "dkv": (0.0696, 4, 135266304)}
+    for kernel, (ms, products, nbytes) in want.items():
+        bound_ms, by, flops, got_bytes = chip_smoke.bound(kernel, shape)
+        assert by == "operations" and abs(bound_ms - ms) < 1e-4
+        assert flops == 2 * products * pairs * D
+        assert got_bytes == nbytes

@@ -67,6 +67,9 @@ CASES = [  # (B, T, Tk, H, Hkv, D, causal)
     (1, 256, 256, 4, 4, 128, False),
     (1, 192, 192, 4, 1, 128, True),
     (2, 128, 256, 8, 2, 64, False),
+    (1, 64, 64, 2, 1, 128, True),      # one 64-row tile: zero fill past T
+    (2, 320, 320, 8, 2, 128, True),    # ragged 128-row tiles, g = 4
+    (1, 384, 384, 4, 4, 64, False),    # D 64, three full 128-row tiles
 ]
 
 
