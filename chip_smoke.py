@@ -8,7 +8,10 @@ Run from the root of a checkout, with no arguments:
 Each phase prints one JSON line; any failure raises and exits non-zero.
 
   device   the card's name, count and power limit (no card: exit 1)
-  build    nvcc builds every csrc/*.cu in parallel; the -Xptxas -v lines
+  build    nvcc builds every csrc/*.cu in parallel; the -Xptxas -v lines,
+           and the spill bytes of every kernel: the wgmma kernels (flash
+           fwd, dq and dkv at head_dim 64 and 128, xent dW at every
+           d_model) must spill none, or the phase fails
   kernels  each flash-attention kernel at the training shapes (plus a
            non-causal case, an H == Hkv case and a ragged T = 960, a
            multiple of 64 but not of 128) against its plain PyTorch
@@ -19,7 +22,8 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            (dq, dk and dv at once) beside dq and dkv as the pair's
            (library_pair_ms); then each fused cross-entropy kernel at the
            loss head's shapes (N 8192, V 32768, D 2048) likewise, with no
-           library call
+           library call; then dW at d_model 256, 512 and 1024 (clusters of
+           1, 2 and 4 blocks) on the same tokens and vocabulary
   oneshot  context for the cross-entropy kernels: the port's one-shot loss,
            forward and forward + backward, on the same inputs (each of 10
            calls), and the fused loss's peak extra allocation
@@ -43,6 +47,7 @@ imports no jax and nothing of horovod_tpu.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -84,6 +89,16 @@ EXPECTED_LAUNCHES = {"fwd": 30, "dq": 16, "dkv": 16}
 PARITY_LOSS_REL = 5e-3
 PARITY_NORM_REL = 2e-2
 PARITY_COS = 0.99
+
+# the wgmma kernels, by library, and the template values (head_dim,
+# d_model) each is built for: their accumulators live in registers, and a
+# spill would put them in local memory around every product
+WGMMA_KERNELS = {
+    "flash_attention": {"flash_fwd_kernel": (64, 128),
+                        "flash_dq_kernel": (64, 128),
+                        "flash_dkv_kernel": (64, 128)},
+    "fused_xent": {"xent_dw_kernel": (128, 256, 512, 1024, 2048)},
+}
 
 SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
 REPLACES = {
@@ -186,6 +201,38 @@ def softmax_rel(a, b, soft) -> float:
     """:func:`err` of a gradient ``a`` against its plain result ``b``, over
     the largest entry of ``soft``, the softmax term of ``b``."""
     return err(a, b) / soft.float().abs().max().item()
+
+
+def spill_check(report):
+    """Spill bytes of the kernels in a ``-Xptxas -v`` ``report`` (lines by
+    library): ``(wgmma, others, problems)``.  ``wgmma`` maps each kernel
+    of WGMMA_KERNELS, as ``name<value>``, to its (store, load) spill bytes;
+    ``others`` maps every other function's mangled name to them;
+    ``problems`` names each wgmma kernel that spills or is missing."""
+    from horovod_tpu_torch.ops import _build
+    wgmma, others, problems = {}, {}, []
+    for lib, lines in report.items():
+        spills = _build.spill_bytes(lines)
+        kernels = WGMMA_KERNELS.get(lib, {})
+        tags = {f"{len(k)}{k}ILi{v}E": f"{k}<{v}>"
+                for k, values in kernels.items() for v in values}
+        for fn, spill in spills.items():
+            label = next((lab for tag, lab in tags.items() if tag in fn), None)
+            if label is None:
+                others[fn] = spill
+            else:
+                wgmma[label] = spill
+    for lib, kernels in WGMMA_KERNELS.items():
+        for k, values in kernels.items():
+            for v in values:
+                spill = wgmma.get(f"{k}<{v}>")
+                if spill is None:
+                    problems.append(f"{k}<{v}> is not in the ptxas report of "
+                                    f"{lib}")
+                elif spill != (0, 0):
+                    problems.append(f"{k}<{v}> spills {spill[0]} bytes of "
+                                    f"stores and {spill[1]} of loads")
+    return wgmma, others, problems
 
 
 def attention_work(B, T, H, Hkv, D, causal):
@@ -373,6 +420,22 @@ def xent_kernels_phase(fx, llama, dev):
                     f"{detail}")
         results[kernel] = row
     del runs
+    torch.cuda.empty_cache()
+
+    # the dW kernel at the other d_model values it is built for, on the
+    # first D columns of the same inputs: its cluster has D / 256 blocks
+    # (one below 512), so the time per token tile shows what the exchange
+    # between a cluster's blocks costs
+    depths = {}
+    for d in (256, 512, 1024):
+        hd, wd = h[:, :d].contiguous(), w[:, :d].contiguous()
+        ms = time_ms(lambda: fx._dw(hd, wd, y, ref_lse), iters=5, warmup=1)
+        bound_ms, _, flops, _ = xent_bound("xent_dw", N, V, d)
+        depths[d] = {"blocks_per_cluster": max(1, d // 256), "ms": ms,
+                     "bound_ms": bound_ms, "tflops": flops / ms / 1e9}
+        del hd, wd
+    emit("xent_dw_depths", shape=[N, V], main_ms=results["xent_dw"]["ms"],
+         depths=depths)
     torch.cuda.empty_cache()
 
     # context, not a library time: the port's one-shot loss (full logits)
@@ -593,7 +656,18 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     build_s = _build.build_all()
-    emit("build", seconds=build_s, ptxas=_build.PTXAS_REPORT)
+    wgmma_spills, other_spills, problems = spill_check(_build.PTXAS_REPORT)
+    xent_lib = _build.library("fused_xent")
+    xent_lib.hvd_xent_dw_active_clusters.argtypes = [ctypes.c_int]
+    xent_lib.hvd_xent_dw_active_clusters.restype = ctypes.c_int
+    active = {D: xent_lib.hvd_xent_dw_active_clusters(D)
+              for D in (128, 256, 512, 1024, 2048)}
+    emit("build", seconds=build_s, ptxas=_build.PTXAS_REPORT,
+         wgmma_spills=wgmma_spills, other_spills=other_spills,
+         dw_active_clusters=active)
+    require(not problems, f"wgmma kernels must not spill: {problems}")
+    require(all(n > 0 for n in active.values()),
+            f"the dW kernel's clusters do not fit on the card: {active}")
 
     kernels = kernels_phase(fa, dev)
     xent = xent_kernels_phase(fx, llama, dev)

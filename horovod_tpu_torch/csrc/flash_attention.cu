@@ -16,13 +16,13 @@
 // device memory, skip causal tiles above the diagonal and launch the
 // heaviest causal tiles first.
 //
-// flash_fwd_kernel and flash_dkv_kernel reach the tensor cores the only way
-// Hopper offers at full rate, wgmma, with the pieces of hopper.cuh.  One
-// block has three warpgroups: warpgroup 0 gives up its registers
-// (setmaxnreg 24) and one of its threads streams tiles by TMA into a
-// 2-stage ring of shared memory guarded by full/empty mbarriers, so loads
-// overlap the products; warpgroups 1 and 2 (240 registers each) own 64
-// rows apiece and keep every accumulator in registers.  Scores leave their
+// All three kernels reach the tensor cores the only way Hopper offers at
+// full rate, wgmma, with the pieces of hopper.cuh.  One block has three
+// warpgroups: warpgroup 0 gives up its registers (setmaxnreg 24) and one
+// of its threads streams tiles by TMA into a ring of shared memory (2
+// slots, 3 in dq) guarded by full/empty mbarriers, so loads overlap the
+// products; warpgroups 1 and 2 (240 registers each) own 64 rows apiece
+// and keep every accumulator in registers.  Scores leave their
 // product as accumulators, the softmax runs on them in place (a row spans
 // the 4 lanes of a quad), and the bf16 probabilities feed the next product
 // as its register A operand, so no score, probability or output tile goes
@@ -32,6 +32,15 @@
 //        128-row tiles; S = Q.K^T (K-major K), then O += P.V (V read
 //        MN-major from the same TMA tile through the descriptor's
 //        transpose bit); O / l goes out through the Q tile's shared memory.
+//   dq:  one block per (128 query rows, head, batch); Q, dO (TMA) and the
+//        rows' lse and delta (registers) stay resident; K and V stream in
+//        64-row tiles; S = Q.K^T and dP = dO.V^T (both K-major), then
+//        dS = P (dP - delta) scale in the accumulators, rounded in place
+//        to the register A operand of dQ += dS.K, K read MN-major from the
+//        same TMA tile, as V is in the forward's P.V.  Accumulators per
+//        consumer thread: dQ 64 (at D = 128), S 32, dP 32.  A consumer
+//        whose 64 rows the causal mask hides from a key tile, or whose
+//        rows all lie past T, only releases the tile.
 //   dkv: one block per (128 kv rows, kv head, batch); K and V stay
 //        resident; Q, dO, lse and delta of the GQA group's heads stream in
 //        16-row tiles from the causal bound; each consumer forms the
@@ -48,12 +57,6 @@
 // or past T (o, lse) or Tk (dK, dV) is stored.  In dK/dV a kv row at or
 // past Tk only reaches its own, unstored, output row.
 //
-// flash_dq_kernel still runs nvcuda::wmma 16x16x16 on 64-row tiles in
-// four warps.  Not yet done there: wgmma, TMA and a producer/consumer
-// pipeline, so its loads do not overlap its products inside one block
-// (two blocks per SM overlap each other instead), and its score tiles go
-// through fp32 shared memory.
-//
 // Numerics follow the TPU kernels: scores, softmax statistics and all
 // accumulators are fp32; masked scores are -1e30 (not -inf); the forward
 // rounds P to bf16 before P.V, and dq rounds dS to bf16 before dS.K.  dkv
@@ -66,63 +69,19 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using hopper::align1024;
+using hopper::pack_bf16;
 
-constexpr int BQ = 64;          // query rows per tile (dq)
-constexpr int BK = 64;          // key rows per tile (dq)
-constexpr int PAD_H = 8;        // bf16 row padding: 16 bytes against bank conflicts
-constexpr int PAD_F = 4;        // fp32 row padding: 16 bytes
+constexpr int SEQ_MULTIPLE = 64;  // T and Tk: whole 64-row tiles (dq's key tiles)
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-constexpr int LDS = BK + PAD_F;   // fp32 score tile row stride
-constexpr int LDP = BK + PAD_H;   // bf16 probability tile row stride
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-
-// Copy ROWS contiguous rows of D bf16 from device memory into shared memory
-// with row stride D + PAD_H, 16 bytes per thread and step.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
-                                          int tid) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  constexpr int TOTAL = ROWS * PER_ROW;
-#pragma unroll 4
-  for (int idx = tid; idx < TOTAL; idx += NT) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * VEC;
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD_H) + c) =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + c);
-  }
-}
-
-// 16 x 16 block of A.B^T over depth DEPTH, A rows at a, B rows at b (both
-// row-major with stride ld): the shape of Q.K^T and dO.V^T.
-template <int DEPTH>
-__device__ __forceinline__ void mma_abt(FragC& acc, const bf16* a, const bf16* b,
-                                        int ld) {
-#pragma unroll
-  for (int kk = 0; kk < DEPTH; kk += 16) {
-    FragA fa;
-    FragBT fb;
-    wmma::load_matrix_sync(fa, a + kk, ld);
-    wmma::load_matrix_sync(fb, b + kk, ld);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-}
 
 // ------------------------------------------- warp-specialised pieces
 
@@ -135,16 +94,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                    ~static_cast<uintptr_t>(1023));
 }
 
 // A fragments of the product over an accumulator's N columns: fp32 pairs
@@ -406,120 +355,180 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap q_map,
 
 // ----------------------------------------------------------------------- dQ
 
+constexpr int DQ_BM = 128;  // query rows per block
+constexpr int DQ_BN = 64;   // key rows per streamed tile
+constexpr int DQ_STAGES = 3;  // slots of the K/V ring (2 ran slower)
+
 template <int D>
 struct DqSmem {
-  static constexpr int LDH = D + PAD_H;
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = q + sizeof(bf16) * BQ * LDH;
-  static constexpr size_t k = dout + sizeof(bf16) * BQ * LDH;
-  static constexpr size_t v = k + sizeof(bf16) * BK * LDH;
-  static constexpr size_t s = v + sizeof(bf16) * BK * LDH;   // fp32 scores, then dq staging
-  static constexpr size_t dp = s + sizeof(float) * BQ * LDS;
-  static constexpr size_t ds = dp + sizeof(float) * BQ * LDS;
-  static constexpr size_t stats = ds + sizeof(bf16) * BQ * LDP;
-  static constexpr size_t bytes = stats + sizeof(float) * 2 * BQ;
-  // the dq staging tile [BQ][D + PAD_F] fp32 overlays the two fp32 tiles
-  static_assert(sizeof(float) * BQ * (D + PAD_F) <= ds - s, "dq staging overflows");
+  static constexpr int HALVES = D / 64;
+  static constexpr uint32_t q_half = DQ_BM * HALF_ROW;
+  static constexpr uint32_t kv_half = DQ_BN * HALF_ROW;
+  static constexpr uint32_t kv_tile = HALVES * kv_half;
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t dout = q + HALVES * q_half;
+  static constexpr uint32_t k = dout + HALVES * q_half;  // slot s at k + s * kv_tile
+  static constexpr uint32_t v = k + DQ_STAGES * kv_tile;
+  static constexpr uint32_t bars = v + DQ_STAGES * kv_tile;  // qdo_full, full[S], empty[S]
+  static constexpr size_t bytes = bars + 8 * (1 + 2 * DQ_STAGES) + 1024;  // + alignment
 };
 
-// One block of 4 warps per (query tile, head, batch); warp w owns query rows
-// 16w..16w+15 and keeps their dQ in registers.
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dq, int H, int Hkv, int T, int Tk, float scale,
-                int causal) {
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_dq_kernel(__grid_constant__ const CUtensorMap q_map,
+                __grid_constant__ const CUtensorMap k_map,
+                __grid_constant__ const CUtensorMap v_map,
+                __grid_constant__ const CUtensorMap do_map, const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Hkv,
+                int B, int T, int Tk, float scale, int causal) {
   typedef DqSmem<D> L;
-  constexpr int LDH = L::LDH, LDO = D + PAD_F;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds);
-  float* lse_s = reinterpret_cast<float*>(smem + L::stats);
-  float* delta_s = lse_s + BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t qdo_full = base + L::bars, full0 = qdo_full + 8;
+  const uint32_t empty0 = full0 + 8 * DQ_STAGES;
 
-  const int nq = T / BQ, nkv = Tk / BK;
-  const int i = nq - 1 - static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = warp * 16;
+  // block -> (query tile, head, batch), every (head, batch) of the
+  // heaviest causal tile first
+  const int nq = (T + DQ_BM - 1) / DQ_BM, nkv = Tk / DQ_BN;
+  const int i = nq - 1 - static_cast<int>(blockIdx.x) / (H * B);
+  const int hb = static_cast<int>(blockIdx.x) % (H * B);
+  const int h = hb % H, b = hb / H;
+  const int bh = b * H + h, bhk = b * Hkv + h / (H / Hkv);
+  const int hi = causal ? min(((i + 1) * DQ_BM + DQ_BN - 1) / DQ_BN, nkv) : nkv;
 
-  const size_t bh = static_cast<size_t>(b) * H + h;
-  const size_t row0 = bh * T + static_cast<size_t>(i) * BQ;
-  const bf16* kp = k + (static_cast<size_t>(b) * Hkv + hk) * Tk * D;
-  const bf16* vp = v + (static_cast<size_t>(b) * Hkv + hk) * Tk * D;
-
-  load_tile<D, BQ, 128>(Qs, q + row0 * D, tid);
-  load_tile<D, BQ, 128>(dOs, dout + row0 * D, tid);
-  if (tid < BQ) {
-    lse_s[tid] = lse[row0 + tid];
-    delta_s[tid] = delta[row0 + tid];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qdo_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1);
+      hopper::mbar_init(empty0 + 8 * s, 128 * CONSUMERS);
+    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const int hi = causal ? min(((i + 1) * BQ + BK - 1) / BK, nkv) : nkv;
-  for (int j = 0; j < hi; ++j) {
-    __syncthreads();
-    load_tile<D, BK, 128>(Ks, kp + static_cast<size_t>(j) * BK * D, tid);
-    load_tile<D, BK, 128>(Vs, vp + static_cast<size_t>(j) * BK * D, tid);
-    __syncthreads();
-
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      FragC s, dp;
-      wmma::fill_fragment(s, 0.f);
-      wmma::fill_fragment(dp, 0.f);
-      mma_abt<D>(s, Qs + r0 * LDH, Ks + c * 16 * LDH, LDH);
-      mma_abt<D>(dp, dOs + r0 * LDH, Vs + c * 16 * LDH, LDH);
-      wmma::store_matrix_sync(Ss + r0 * LDS + c * 16, s, LDS, wmma::mem_row_major);
-      wmma::store_matrix_sync(dPs + r0 * LDS + c * 16, dp, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // dS = P * (dP - delta) * scale with P = exp(S * scale - lse)
-    for (int idx = lane; idx < 16 * BK; idx += 32) {
-      const int r = r0 + idx / BK, c = idx % BK;
-      float s = Ss[r * LDS + c] * scale;
-      if (causal && j * BK + c > i * BQ + r) s = NEG_INF;
-      const float p = __expf(s - lse_s[r]);
-      dSs[r * LDP + c] = __float2bfloat16(p * (dPs[r * LDS + c] - delta_s[r]) * scale);
-    }
-    __syncwarp();
-
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, dSs + r0 * LDP + kk, LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, Ks + kk * LDH + n * 16, LDH);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {  // producer: Q and dO once, then the ring of K/V tiles
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(qdo_full, 2 * DQ_BM * D * 2);
+      for (int hh = 0; hh < L::HALVES; ++hh) {
+        hopper::tma_load_3d(base + L::q + hh * L::q_half, &q_map, qdo_full, 64 * hh,
+                            i * DQ_BM, bh);
+        hopper::tma_load_3d(base + L::dout + hh * L::q_half, &do_map, qdo_full, 64 * hh,
+                            i * DQ_BM, bh);
+      }
+      for (int j = 0; j < hi; ++j) {
+        const int s = j % DQ_STAGES;
+        hopper::mbar_wait(empty0 + 8 * s, ((j / DQ_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(full0 + 8 * s, 2 * DQ_BN * D * 2);
+        for (int hh = 0; hh < L::HALVES; ++hh) {
+          const uint32_t off = s * L::kv_tile + hh * L::kv_half;
+          hopper::tma_load_3d(base + L::k + off, &k_map, full0 + 8 * s, 64 * hh,
+                              j * DQ_BN, bhk);
+          hopper::tma_load_3d(base + L::v + off, &v_map, full0 + 8 * s, 64 * hh,
+                              j * DQ_BN, bhk);
+        }
       }
     }
-  }
-
-  __syncthreads();  // the staging tile overlays other warps' score rows
-  float* stage = Ss;
+  } else {  // consumer warpgroup: query rows 64 w .. 64 w + 63 of the tile
+    hopper::reg_alloc<240>();
+    const int w = wg - 1, t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, quad = lane % 4;
+    const int min_row = i * DQ_BM + 64 * w;
+    const int row_a = min_row + 16 * warp + lane / 4;  // rows row_a, row_a + 8
+    const float scale_log2 = scale * LOG2E;
+    // T is a multiple of 64, so the 64 rows lie all below T or all past it;
+    // rows past T (a ragged last tile) take part in no product
+    const bool live = min_row < T;
+    // key tiles this warpgroup's rows reach: the causal diagonal is tile
+    // min_row / 64
+    const int hi_w = !live ? 0 : causal ? min(min_row / DQ_BN + 1, nkv) : nkv;
+    float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // lse in log2 units, delta
+    if (live) {
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(stage + r0 * LDO + n * 16, acc[n], LDO, wmma::mem_row_major);
-  __syncwarp();
-  bf16* dqp = dq + row0 * D;
-  for (int idx = lane; idx < 16 * D; idx += 32) {
-    const int r = r0 + idx / D, c = idx % D;
-    dqp[static_cast<size_t>(r) * D + c] = __float2bfloat16(stage[r * LDO + c]);
+      for (int rr = 0; rr < 2; ++rr) {
+        const size_t row = static_cast<size_t>(bh) * T + row_a + 8 * rr;
+        lse2[rr] = lse[row] * LOG2E;
+        dl[rr] = delta[row];
+      }
+    }
+
+    float acc_dq[D / 2];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc_dq[x] = 0.f;
+    float acc_s[DQ_BN / 2], acc_dp[DQ_BN / 2];
+
+    hopper::mbar_wait(qdo_full, 0);
+    for (int j = 0; j < hi; ++j) {
+      const int s = j % DQ_STAGES;
+      hopper::mbar_wait(full0 + 8 * s, (j / DQ_STAGES) & 1);
+      if (j < hi_w) {
+        const uint32_t kb = base + L::k + s * L::kv_tile;
+        const uint32_t vb = base + L::v + s * L::kv_tile;
+
+        // S = Q K^T and dP = dO V^T over D, all operands K-major
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a_off = (kk / 4) * L::q_half + 64 * w * HALF_ROW + (kk % 4) * 32;
+          const uint32_t b_off = (kk / 4) * L::kv_half + (kk % 4) * 32;
+          const uint64_t da = hopper::make_desc(base + L::q + a_off, 16, 1024);
+          const uint64_t db = hopper::make_desc(kb + b_off, 16, 1024);
+          if (kk == 0)
+            hopper::wgmma_ss_n64<0, false>(acc_s, da, db);
+          else
+            hopper::wgmma_ss_n64<0, true>(acc_s, da, db);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a_off = (kk / 4) * L::q_half + 64 * w * HALF_ROW + (kk % 4) * 32;
+          const uint32_t b_off = (kk / 4) * L::kv_half + (kk % 4) * 32;
+          const uint64_t da = hopper::make_desc(base + L::dout + a_off, 16, 1024);
+          const uint64_t db = hopper::make_desc(vb + b_off, 16, 1024);
+          if (kk == 0)
+            hopper::wgmma_ss_n64<0, false>(acc_dp, da, db);
+          else
+            hopper::wgmma_ss_n64<0, true>(acc_dp, da, db);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc_s);
+        hopper::fence_regs(acc_dp);
+
+        // P = exp(S scale - lse), dS = P (dP - delta) scale; the causal
+        // mask (P = 0 above the diagonal) only on the diagonal tile
+        const bool mask = causal && j * DQ_BN + DQ_BN - 1 > min_row;
+#pragma unroll
+        for (int n = 0; n < DQ_BN / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = fast_exp2(acc_s[4 * n + e] * scale_log2 - lse2[e >> 1]);
+            if (mask && j * DQ_BN + 8 * n + 2 * quad + (e & 1) > row_a + 8 * (e >> 1))
+              p = 0.f;
+            acc_dp[4 * n + e] = p * (acc_dp[4 * n + e] - dl[e >> 1]) * scale;
+          }
+        }
+        uint32_t dsa[DQ_BN / 16][4];
+        to_a_frags<DQ_BN>(acc_dp, dsa);
+
+        // dQ += dS K: K MN-major from the same slot
+        hopper::fence_regs(acc_dq);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_BN / 16; ++kk)
+          wgmma_rs<D, 1>(acc_dq, dsa[kk],
+                         hopper::make_desc(kb + kk * 16 * HALF_ROW, L::kv_half, 1024));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc_dq);
+      }
+      hopper::mbar_arrive(empty0 + 8 * s);
+    }
+
+    // epilogue: this warpgroup's Q rows are free; stage dQ there
+    store_rows<D>(acc_dq, smem + L::q, L::q_half, 64 * w, T - min_row,
+                  dq + (static_cast<size_t>(bh) * T + min_row) * D, t, 1 + w);
   }
 }
 
@@ -752,14 +761,20 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
               int T, int Tk, float scale, int causal, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  int err = hopper::encode_map_3d(&q_map, q, D, T, B * H, DQ_BM);
+  if (!err) err = hopper::encode_map_3d(&k_map, k, D, Tk, B * Hkv, DQ_BN);
+  if (!err) err = hopper::encode_map_3d(&v_map, v, D, Tk, B * Hkv, DQ_BN);
+  if (!err) err = hopper::encode_map_3d(&do_map, dout, D, T, B * H, DQ_BM);
+  if (err) return err;
   const size_t smem = DqSmem<D>::bytes;
-  cudaError_t err = configure(flash_dq_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dq_kernel<D><<<dim3(T / BQ, H, B), 128, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), H, Hkv, T, Tk, scale, causal);
+  cudaError_t cerr = configure(flash_dq_kernel<D>, smem);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int grid = (T + DQ_BM - 1) / DQ_BM * H * B;
+  flash_dq_kernel<D><<<grid, WS_THREADS, smem, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Hkv, B, T, Tk, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -785,11 +800,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 bool shape_ok(int B, int H, int Hkv, int T, int Tk) {
-  // dq's grid y and z (heads, batch) are limited to 65535; fwd and dkv put
-  // (tile, head, batch) into grid x
-  return B > 0 && B <= 65535 && H > 0 && H <= 65535 && Hkv > 0 && H % Hkv == 0 &&
-         T > 0 && Tk > 0 && T % BQ == 0 && Tk % BK == 0 &&
-         static_cast<long long>(T / BQ) * H * B < (1ll << 31);
+  // every kernel puts (tile, head, batch) into grid x
+  return B > 0 && H > 0 && Hkv > 0 && H % Hkv == 0 && T > 0 && Tk > 0 &&
+         T % SEQ_MULTIPLE == 0 && Tk % SEQ_MULTIPLE == 0 &&
+         static_cast<long long>(T / SEQ_MULTIPLE) * H * B < (1ll << 31);
 }
 
 }  // namespace

@@ -11,6 +11,12 @@ Only sources in the repository are compiled.
 
 ``build_all()`` starts one ``nvcc`` for every source at once and waits for
 all of them, which is how ``chip_smoke.py`` builds everything up front.
+
+``nvcc`` runs with ``-Xptxas -v``: each kernel's registers, shared memory
+and spills.  The build keeps those lines in a sidecar beside the library
+(``lib<name>-<hash>.ptxas.txt``), and a process that loads a library built
+earlier reads them back, so ``PTXAS_REPORT`` holds them for every loaded
+library; :func:`spill_bytes` parses them.
 """
 
 from __future__ import annotations
@@ -19,11 +25,12 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
@@ -49,9 +56,30 @@ _SIGNATURES = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# -Xptxas -v lines (registers, shared memory, spills) of the builds this
-# process ran, by library
+#: -Xptxas -v lines (registers, shared memory, spills) of every library
+#: this process loaded, by library
 PTXAS_REPORT: Dict[str, List[str]] = {}
+
+_FUNCTION = re.compile(r"Function properties for (\S+)")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def spill_bytes(lines: Iterable[str]) -> Dict[str, Tuple[int, int]]:
+    """(spill store bytes, spill load bytes) by mangled function name, from
+    ``-Xptxas -v`` lines: each "Function properties for <name>" line is
+    followed by the line that counts its stack frame and spills."""
+    out: Dict[str, Tuple[int, int]] = {}
+    current = None
+    for line in lines:
+        found = _FUNCTION.search(line)
+        if found:
+            current = found.group(1)
+            continue
+        found = _SPILLS.search(line)
+        if found and current is not None:
+            out[current] = (int(found.group(1)), int(found.group(2)))
+            current = None
+    return out
 
 
 def nvcc() -> str:
@@ -78,6 +106,11 @@ def _library_path(name: str, compiler: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _report_path(library: Path) -> Path:
+    """The sidecar that keeps a library's ``-Xptxas -v`` lines."""
+    return library.with_suffix(".ptxas.txt")
+
+
 def _start(name: str):
     """Begin building ``name`` unless its library exists; returns
     ``(path, process or None, lock file)``."""
@@ -86,7 +119,7 @@ def _start(name: str):
     path = _library_path(name, compiler)
     lock = open(BUILD_DIR / f"{name}.lock", "w")
     fcntl.flock(lock, fcntl.LOCK_EX)
-    if path.exists():
+    if path.exists() and _report_path(path).exists():
         return path, None, lock
     tmp = path.with_suffix(f".tmp{os.getpid()}")
     cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -96,8 +129,12 @@ def _start(name: str):
 
 
 def _finish(name: str, path: Path, job, lock) -> None:
+    """Wait for the build ``job`` (None: the library was built earlier) and
+    record the library's ``-Xptxas -v`` lines in ``PTXAS_REPORT``."""
     try:
+        report = _report_path(path)
         if job is None:
+            PTXAS_REPORT[name] = report.read_text().splitlines()
             return
         proc, tmp = job
         out, _ = proc.communicate()
@@ -105,8 +142,10 @@ def _finish(name: str, path: Path, job, lock) -> None:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed to build {name}.cu "
                                f"(exit {proc.returncode}):\n{out}")
-        PTXAS_REPORT[name] = [ln for ln in out.splitlines()
-                              if "ptxas info" in ln or "spill" in ln]
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("ptxas") or "spill" in ln]
+        report.write_text("".join(ln + "\n" for ln in lines))
+        PTXAS_REPORT[name] = lines
         os.replace(tmp, path)
     finally:
         fcntl.flock(lock, fcntl.LOCK_UN)

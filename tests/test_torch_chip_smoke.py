@@ -98,3 +98,49 @@ def test_flash_bound_at_the_main_shape():
         assert by == "operations" and abs(bound_ms - ms) < 1e-4
         assert flops == 2 * products * pairs * D
         assert got_bytes == nbytes
+
+
+def _ptxas_report(spilling=None):
+    """-Xptxas -v lines of every wgmma kernel chip_smoke gates, plus a wmma
+    kernel that spills; ``spilling`` names one wgmma kernel that spills."""
+    report = {}
+    for lib, kernels in chip_smoke.WGMMA_KERNELS.items():
+        lines = []
+        names = [(k, v) for k, values in kernels.items() for v in values]
+        if lib == "fused_xent":
+            names.append(("xent_dh_kernel", 2048))
+        for k, v in names:
+            fn = f"_ZN12_GLOBAL__N_1{len(k)}{k}ILi{v}EEEvPKS0_"
+            spill = 8 if (k, v) in (spilling, ("xent_dh_kernel", 2048)) else 0
+            lines += [f"ptxas info    : Function properties for {fn}",
+                      f"    0 bytes stack frame, {spill} bytes spill stores, "
+                      f"{spill} bytes spill loads",
+                      "ptxas info    : Used 168 registers"]
+        report[lib] = lines
+    return report
+
+
+def test_spill_gate_passes_when_no_wgmma_kernel_spills():
+    wgmma, others, problems = chip_smoke.spill_check(_ptxas_report())
+    assert problems == []
+    assert len(wgmma) == 11 and set(wgmma.values()) == {(0, 0)}
+    assert wgmma["flash_dq_kernel<64>"] == (0, 0)
+    # a wmma kernel's spill is reported, not gated
+    assert list(others.values()) == [(8, 8)]
+
+
+@pytest.mark.parametrize("spilling", [("flash_dq_kernel", 128),
+                                      ("xent_dw_kernel", 2048),
+                                      ("flash_fwd_kernel", 64)])
+def test_spill_gate_fails_a_spilling_wgmma_kernel(spilling):
+    _, _, problems = chip_smoke.spill_check(_ptxas_report(spilling))
+    assert problems == [f"{spilling[0]}<{spilling[1]}> spills 8 bytes of "
+                        f"stores and 8 of loads"]
+
+
+def test_spill_gate_fails_a_missing_report():
+    report = _ptxas_report()
+    report["fused_xent"] = []  # a library whose lines were lost
+    _, _, problems = chip_smoke.spill_check(report)
+    assert len(problems) == 5 and all("not in the ptxas report" in p
+                                      for p in problems)

@@ -68,8 +68,11 @@ CASES = [  # (B, T, Tk, H, Hkv, D, causal)
     (1, 192, 192, 4, 1, 128, True),
     (2, 128, 256, 8, 2, 64, False),
     (1, 64, 64, 2, 1, 128, True),      # one 64-row tile: zero fill past T
+    (2, 64, 64, 4, 2, 64, True),       # the same at D 64: dq's second warpgroup idle
     (2, 320, 320, 8, 2, 128, True),    # ragged 128-row tiles, g = 4
     (1, 384, 384, 4, 4, 64, False),    # D 64, three full 128-row tiles
+    (1, 960, 960, 2, 1, 128, True),    # ragged T 960: 7 full query tiles and a half
+    (1, 320, 192, 4, 2, 128, False),   # non-causal, ragged T != Tk
 ]
 
 
@@ -133,12 +136,13 @@ def _xent_inputs(dev, N, V, D, seed=0):
     return h, w, y
 
 
-XENT_CASES = [  # (N, V, D)
+XENT_CASES = [  # (N, V, D); dW's cluster has D / 256 blocks (1 below 512)
     (128, 256, 128),
     (256, 384, 2048),
     (192, 512, 512),
     (64, 1024, 256),
     (128, 128, 1024),
+    (512, 640, 2048),  # 5 clusters of 8 blocks, each walking 8 token tiles
 ]
 
 
