@@ -10,8 +10,10 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
   device   the card's name, count and power limit (no card: exit 1)
   build    nvcc builds every csrc/*.cu in parallel; the -Xptxas -v lines,
            and the spill bytes of every kernel: the wgmma kernels (flash
-           fwd, dq and dkv at head_dim 64 and 128, xent dW at every
-           d_model) must spill none, or the phase fails
+           fwd, dq and dkv at head_dim 64 and 128, the xent forward, xent
+           dh and dW at every d_model) must spill none, or the phase
+           fails; and the clusters of each xent kernel the card runs at
+           once, which must be at least one
   kernels  each flash-attention kernel at the training shapes (plus a
            non-causal case, an H == Hkv case and a ragged T = 960, a
            multiple of 64 but not of 128) against its plain PyTorch
@@ -22,8 +24,10 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            (dq, dk and dv at once) beside dq and dkv as the pair's
            (library_pair_ms); then each fused cross-entropy kernel at the
            loss head's shapes (N 8192, V 32768, D 2048) likewise, with no
-           library call; then dW at d_model 256, 512 and 1024 (clusters of
-           1, 2 and 4 blocks) on the same tokens and vocabulary
+           library call, and at a ragged full-width shape (N 8128, V
+           32640: half a 128-token tile, half a 256-row vocab tile); then
+           each xent kernel at d_model 256, 512 and 1024 (dh and dW
+           clusters of 1, 2 and 4 blocks) on the same tokens and vocabulary
   oneshot  context for the cross-entropy kernels: the port's one-shot loss,
            forward and forward + backward, on the same inputs (each of 10
            calls), and the fused loss's peak extra allocation
@@ -47,7 +51,6 @@ imports no jax and nothing of horovod_tpu.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import json
 import math
@@ -90,6 +93,8 @@ PARITY_LOSS_REL = 5e-3
 PARITY_NORM_REL = 2e-2
 PARITY_COS = 0.99
 
+# the d_model values the xent kernels are built for
+XENT_DIMS = (128, 256, 512, 1024, 2048)
 # the wgmma kernels, by library, and the template values (head_dim,
 # d_model) each is built for: their accumulators live in registers, and a
 # spill would put them in local memory around every product
@@ -97,7 +102,9 @@ WGMMA_KERNELS = {
     "flash_attention": {"flash_fwd_kernel": (64, 128),
                         "flash_dq_kernel": (64, 128),
                         "flash_dkv_kernel": (64, 128)},
-    "fused_xent": {"xent_dw_kernel": (128, 256, 512, 1024, 2048)},
+    "fused_xent": {"xent_fwd_kernel": None,  # not a template
+                   "xent_dh_kernel": XENT_DIMS,
+                   "xent_dw_kernel": XENT_DIMS},
 }
 
 SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
@@ -109,6 +116,12 @@ REPLACES = {
 
 # the loss head of the 1B step: N = batch 8 x seq 1024 tokens, V, D
 XENT_SHAPE = (8192, 32768, 2048)
+# the same width with half a 128-token tile (dh's clusters, the forward's
+# blocks) and half a 256-row vocab tile (the forward's) at the end
+XENT_RAGGED = (8192 - 64, 32768 - 128, 2048)
+# d_model values of the xent_*_depths lines, on the first columns of the
+# main inputs
+XENT_DEPTHS = (256, 512, 1024)
 # lse and tgt are fp32 sums of D = 2048 bf16 products in another order
 # (and fast exp/log in the kernels): |lse| ~ 11, so 1e-3 is ~1e-4
 # relative.  dh = (P - onehot)·W and dW = (P - onehot)ᵀ·h are fp32 sums
@@ -203,19 +216,31 @@ def softmax_rel(a, b, soft) -> float:
     return err(a, b) / soft.float().abs().max().item()
 
 
+def wgmma_labels(kernels):
+    """``{mangled-name tag: label}`` of a library's wgmma kernels: a
+    template instance is ``name<value>`` (tag ``<len>nameILi<value>E``),
+    a plain kernel (values None) its name (tag ``<len>nameE``)."""
+    tags = {}
+    for k, values in kernels.items():
+        if values is None:
+            tags[f"{len(k)}{k}E"] = k
+        else:
+            tags.update({f"{len(k)}{k}ILi{v}E": f"{k}<{v}>" for v in values})
+    return tags
+
+
 def spill_check(report):
     """Spill bytes of the kernels in a ``-Xptxas -v`` ``report`` (lines by
     library): ``(wgmma, others, problems)``.  ``wgmma`` maps each kernel
-    of WGMMA_KERNELS, as ``name<value>``, to its (store, load) spill bytes;
-    ``others`` maps every other function's mangled name to them;
-    ``problems`` names each wgmma kernel that spills or is missing."""
+    of WGMMA_KERNELS, by its label (:func:`wgmma_labels`), to its (store,
+    load) spill bytes; ``others`` maps every other function's mangled name
+    to them; ``problems`` names each wgmma kernel that spills or is
+    missing."""
     from horovod_tpu_torch.ops import _build
     wgmma, others, problems = {}, {}, []
     for lib, lines in report.items():
         spills = _build.spill_bytes(lines)
-        kernels = WGMMA_KERNELS.get(lib, {})
-        tags = {f"{len(k)}{k}ILi{v}E": f"{k}<{v}>"
-                for k, values in kernels.items() for v in values}
+        tags = wgmma_labels(WGMMA_KERNELS.get(lib, {}))
         for fn, spill in spills.items():
             label = next((lab for tag, lab in tags.items() if tag in fn), None)
             if label is None:
@@ -223,15 +248,13 @@ def spill_check(report):
             else:
                 wgmma[label] = spill
     for lib, kernels in WGMMA_KERNELS.items():
-        for k, values in kernels.items():
-            for v in values:
-                spill = wgmma.get(f"{k}<{v}>")
-                if spill is None:
-                    problems.append(f"{k}<{v}> is not in the ptxas report of "
-                                    f"{lib}")
-                elif spill != (0, 0):
-                    problems.append(f"{k}<{v}> spills {spill[0]} bytes of "
-                                    f"stores and {spill[1]} of loads")
+        for label in wgmma_labels(kernels).values():
+            spill = wgmma.get(label)
+            if spill is None:
+                problems.append(f"{label} is not in the ptxas report of {lib}")
+            elif spill != (0, 0):
+                problems.append(f"{label} spills {spill[0]} bytes of "
+                                f"stores and {spill[1]} of loads")
     return wgmma, others, problems
 
 
@@ -359,17 +382,34 @@ def xent_bound(kernel: str, N: int, V: int, D: int):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def xent_kernels_phase(fx, llama, dev):
-    """Each cross-entropy kernel against its plain version at the loss
-    head's shapes; then the ``oneshot`` context line."""
-    N, V, D = XENT_SHAPE
+def xent_depth_row(kernel: str, N: int, V: int, d: int, ms: float):
+    """One entry of an ``xent_*_depths`` line: ``kernel`` at d_model ``d``
+    on N tokens and V vocabulary rows took ``ms``; its blocks per cluster
+    (two for the forward, d / 256 for dh and dW, one below 512), its bound
+    and its TF/s."""
+    bound_ms, _, flops, _ = xent_bound(kernel, N, V, d)
+    blocks = 2 if kernel == "xent_fwd" else max(1, d // 256)
+    return {"blocks_per_cluster": blocks, "ms": ms, "bound_ms": bound_ms,
+            "tflops": flops / ms / 1e9}
+
+
+def xent_inputs(N, V, D, dev):
+    """bf16 h, fp32 W and int32 targets from seed 0: unit-variance logits,
+    as the random tied embedding gives the model."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    # unit-variance logits, as the random tied embedding gives the model
     h = torch.randn(N, D, generator=gen, device=dev).to(torch.bfloat16)
     w = torch.randn(V, D, generator=gen, device=dev).mul_(D ** -0.5)
     y = torch.randint(0, V, (N,), generator=gen, device=dev,
                       dtype=torch.int32)
+    return h, w, y
+
+
+def xent_case(fx, case, shape, dev):
+    """Each cross-entropy kernel against its plain version at ``shape``:
+    emits a ``kernels`` line per kernel, returns them by kernel."""
+    N, V, D = shape
+    h, w, y = xent_inputs(N, V, D, dev)
     lse, tgt = fx._xent_fwd(h, w, y)
     ref_lse, ref_tgt = fx._fwd_reference(h, w, y)
     dh = fx._dh(h, w, y, ref_lse)
@@ -409,33 +449,50 @@ def xent_kernels_phase(fx, llama, dev):
         ms = time_ms(runs[kernel][0], iters=5, warmup=1)
         plain_ms = time_ms(runs[kernel][1], iters=3, warmup=1)
         bound_ms, bound_by, flops, nbytes = xent_bound(kernel, N, V, D)
-        row = {"case": "main", "kernel": kernel, "shape": [N, V, D],
+        row = {"case": case, "kernel": kernel, "shape": [N, V, D],
                "max_abs_err": max_abs_err, **detail, "ms": ms,
                "plain_ms": plain_ms, "library_ms": None,
                "library_pair_ms": None, "bound_ms": bound_ms,
                "bound_by": bound_by, "flops": flops, "bytes": nbytes,
                "tflops": flops / ms / 1e9}
         emit("kernels", **row)
-        require(ok, f"{kernel} kernel disagrees with its plain version: "
-                    f"{detail}")
+        require(ok, f"{kernel} kernel disagrees with its plain version on "
+                    f"{case}: {detail}")
         results[kernel] = row
-    del runs
+    del h, w, y, ref_lse, runs
     torch.cuda.empty_cache()
+    return results
 
-    # the dW kernel at the other d_model values it is built for, on the
-    # first D columns of the same inputs: its cluster has D / 256 blocks
-    # (one below 512), so the time per token tile shows what the exchange
-    # between a cluster's blocks costs
-    depths = {}
-    for d in (256, 512, 1024):
+
+def xent_kernels_phase(fx, llama, dev):
+    """Each cross-entropy kernel against its plain version at the loss
+    head's shape and at the ragged one; each at the XENT_DEPTHS; then the
+    ``oneshot`` context line."""
+    results = xent_case(fx, "main", XENT_SHAPE, dev)
+    xent_case(fx, "ragged", XENT_RAGGED, dev)
+
+    # each kernel at the other d_model values it is built for, on the
+    # first d columns of the main inputs: the dh and dW clusters have
+    # d / 256 blocks (one below 512), so the time per streamed tile shows
+    # what the exchange between a cluster's blocks costs
+    N, V, D = XENT_SHAPE
+    h, w, y = xent_inputs(N, V, D, dev)
+    ref_lse = fx._fwd_reference(h, w, y)[0]
+    depth_runs = {
+        "xent_fwd": lambda hd, wd: fx._xent_fwd(hd, wd, y),
+        "xent_dh": lambda hd, wd: fx._dh(hd, wd, y, ref_lse),
+        "xent_dw": lambda hd, wd: fx._dw(hd, wd, y, ref_lse),
+    }
+    depths = {kernel: {} for kernel in depth_runs}
+    for d in XENT_DEPTHS:
         hd, wd = h[:, :d].contiguous(), w[:, :d].contiguous()
-        ms = time_ms(lambda: fx._dw(hd, wd, y, ref_lse), iters=5, warmup=1)
-        bound_ms, _, flops, _ = xent_bound("xent_dw", N, V, d)
-        depths[d] = {"blocks_per_cluster": max(1, d // 256), "ms": ms,
-                     "bound_ms": bound_ms, "tflops": flops / ms / 1e9}
+        for kernel, run in depth_runs.items():
+            ms = time_ms(lambda: run(hd, wd), iters=5, warmup=1)
+            depths[kernel][d] = xent_depth_row(kernel, N, V, d, ms)
         del hd, wd
-    emit("xent_dw_depths", shape=[N, V], main_ms=results["xent_dw"]["ms"],
-         depths=depths)
+    for kernel, rows in depths.items():
+        emit(f"{kernel}_depths", shape=[N, V], main_ms=results[kernel]["ms"],
+             depths=rows)
     torch.cuda.empty_cache()
 
     # context, not a library time: the port's one-shot loss (full logits)
@@ -658,16 +715,18 @@ def main() -> int:
     build_s = _build.build_all()
     wgmma_spills, other_spills, problems = spill_check(_build.PTXAS_REPORT)
     xent_lib = _build.library("fused_xent")
-    xent_lib.hvd_xent_dw_active_clusters.argtypes = [ctypes.c_int]
-    xent_lib.hvd_xent_dw_active_clusters.restype = ctypes.c_int
-    active = {D: xent_lib.hvd_xent_dw_active_clusters(D)
-              for D in (128, 256, 512, 1024, 2048)}
+    active = {f"{k}_active_clusters": {
+        D: getattr(xent_lib, f"hvd_xent_{k}_active_clusters")(D)
+        for D in XENT_DIMS} for k in ("dh", "dw")}
+    active["fwd_active_clusters"] = xent_lib.hvd_xent_fwd_active_clusters()
     emit("build", seconds=build_s, ptxas=_build.PTXAS_REPORT,
-         wgmma_spills=wgmma_spills, other_spills=other_spills,
-         dw_active_clusters=active)
+         wgmma_spills=wgmma_spills, other_spills=other_spills, **active)
     require(not problems, f"wgmma kernels must not spill: {problems}")
-    require(all(n > 0 for n in active.values()),
-            f"the dW kernel's clusters do not fit on the card: {active}")
+    for key, n in active.items():
+        counts = n.values() if isinstance(n, dict) else [n]
+        require(all(x > 0 for x in counts),
+                f"{key}: the xent kernel's clusters do not fit on the card: "
+                f"{n}")
 
     kernels = kernels_phase(fa, dev)
     xent = xent_kernels_phase(fx, llama, dev)

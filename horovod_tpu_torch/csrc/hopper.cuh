@@ -104,6 +104,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// tma_load_3d into the same shared-memory offset `dst` of every block of
+// the cluster whose rank is set in `mask`, counting the bytes on each
+// receiver's mbarrier at offset `bar`.
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) of
 // contiguous device memory into shared memory; completion counted on `bar`.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -163,6 +176,12 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   uint32_t r;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
   return r;
+}
+
+// Arrive on the mbarrier at `bar` of any block of the cluster (an address
+// from map_rank).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 // Store `lo, hi` (8 bytes) at `addr` of another block's shared memory
@@ -359,10 +378,11 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
   }
 }
 
-// accumulates only (the dW product, whose accumulator starts at zero)
+// adds to D, or with `accumulate` 0 overwrites it (the scale-d predicate
+// at run time, so that one instruction serves both without a branch)
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a,
-                                              uint64_t desc_b) {
+                                              uint64_t desc_b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %131, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -397,7 +417,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a,
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "n"(TRANS_B), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "n"(TRANS_B), "r"(accumulate));
 }
 
 template <int TRANS_B>

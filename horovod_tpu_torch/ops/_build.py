@@ -40,8 +40,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of every launcher, by library: pointers and the stream are
-# c_void_p so that 64-bit addresses are not cut to 32 bits
+# argtypes of every exported function (each returns an int), by library:
+# pointers and the stream are c_void_p so that 64-bit addresses are not cut
+# to 32 bits
 _SIGNATURES = {
     "flash_attention": {
         "hvd_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
@@ -52,6 +53,10 @@ _SIGNATURES = {
         "hvd_xent_fwd": [_P] * 5 + [_I] * 3 + [_P],
         "hvd_xent_dh": [_P] * 5 + [_I] * 3 + [_P],
         "hvd_xent_dw": [_P] * 5 + [_I] * 3 + [_P],
+        # clusters the card runs at once: dh and dW at a d_model, the forward
+        "hvd_xent_dh_active_clusters": [_I],
+        "hvd_xent_dw_active_clusters": [_I],
+        "hvd_xent_fwd_active_clusters": [],
     },
 }
 

@@ -38,8 +38,8 @@ from . import _build
 _ROW_BLOCKS = (256, 128, 64, 32, 16, 8)
 _VOCAB_BLOCKS = (512, 256, 128)
 _DIMS = (128, 256, 512, 1024, 2048)  # d_model values the CUDA kernels are built for
-_KERNEL_ROWS = 64    # token rows per block of the forward kernel
-_KERNEL_VOCAB = 128  # vocab rows per score tile of the forward kernel
+_KERNEL_ROWS = 64    # tokens: whole halves of the kernels' 128-token tiles
+_KERNEL_VOCAB = 128  # vocab: whole 128-row clusters of the dW kernel
 
 #: kernel launches since the last :func:`reset_launches`, by kernel
 LAUNCHES: Dict[str, int] = {"xent_fwd": 0, "xent_dh": 0, "xent_dw": 0}
@@ -94,8 +94,9 @@ def unsupported_reason(h, w, targets) -> Optional[str]:
 def _kernel_reason(N: int, D: int, V: int, dtype) -> Optional[str]:
     """Why the CUDA kernels cannot take ``N`` tokens of d_model ``D`` in
     ``dtype`` against vocab ``V``, or None: the d_model values they are
-    built for, bf16 hidden states, whole 64-row token blocks and 128-row
-    vocab tiles.  ``csrc/fused_xent.cu``'s ``shape_ok`` guards the same."""
+    built for, bf16 hidden states, tokens a multiple of 64 and vocab a
+    multiple of 128.  ``csrc/fused_xent.cu``'s ``shape_ok`` guards the
+    same."""
     if D not in _DIMS:
         return f"d_model {D} is not one of {_DIMS}"
     if dtype != torch.bfloat16:

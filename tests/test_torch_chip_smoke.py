@@ -100,18 +100,38 @@ def test_flash_bound_at_the_main_shape():
         assert got_bytes == nbytes
 
 
-def _ptxas_report(spilling=None):
-    """-Xptxas -v lines of every wgmma kernel chip_smoke gates, plus a wmma
-    kernel that spills; ``spilling`` names one wgmma kernel that spills."""
+# a kernel outside WGMMA_KERNELS, whose spills are reported, not gated
+_OTHER = "_ZN12_GLOBAL__N_112other_kernelEPKfPfi"
+
+
+def _label(kernel):
+    """chip_smoke's label of ``(name, template value or None)``."""
+    name, value = kernel
+    return name if value is None else f"{name}<{value}>"
+
+
+def _ptxas_report(spilling=None, missing=None):
+    """-Xptxas -v lines of every wgmma kernel chip_smoke gates, plus a
+    kernel outside them that spills; ``spilling`` names one wgmma kernel
+    that spills and ``missing`` one whose lines are absent, each as
+    ``(name, template value or None)``."""
     report = {}
     for lib, kernels in chip_smoke.WGMMA_KERNELS.items():
         lines = []
-        names = [(k, v) for k, values in kernels.items() for v in values]
+        functions = []
+        for tag, lab in chip_smoke.wgmma_labels(kernels).items():
+            if missing is not None and lab == _label(missing):
+                continue
+            # the rest of a mangled name: a template's closing and return
+            # type, or a plain kernel's parameters
+            rest = ("EEvPKS0_" if "ILi" in tag
+                    else "14CUtensorMap_stS0_PKiPfS3_iii")
+            functions.append((f"_ZN12_GLOBAL__N_1{tag}{rest}",
+                              8 if spilling is not None
+                              and lab == _label(spilling) else 0))
         if lib == "fused_xent":
-            names.append(("xent_dh_kernel", 2048))
-        for k, v in names:
-            fn = f"_ZN12_GLOBAL__N_1{len(k)}{k}ILi{v}EEEvPKS0_"
-            spill = 8 if (k, v) in (spilling, ("xent_dh_kernel", 2048)) else 0
+            functions.append((_OTHER, 8))
+        for fn, spill in functions:
             lines += [f"ptxas info    : Function properties for {fn}",
                       f"    0 bytes stack frame, {spill} bytes spill stores, "
                       f"{spill} bytes spill loads",
@@ -123,24 +143,68 @@ def _ptxas_report(spilling=None):
 def test_spill_gate_passes_when_no_wgmma_kernel_spills():
     wgmma, others, problems = chip_smoke.spill_check(_ptxas_report())
     assert problems == []
-    assert len(wgmma) == 11 and set(wgmma.values()) == {(0, 0)}
+    # flash fwd/dq/dkv at 2 head dims; xent dh and dW at 5 d_models, fwd
+    assert len(wgmma) == 17 and set(wgmma.values()) == {(0, 0)}
     assert wgmma["flash_dq_kernel<64>"] == (0, 0)
-    # a wmma kernel's spill is reported, not gated
-    assert list(others.values()) == [(8, 8)]
+    assert wgmma["xent_dh_kernel<2048>"] == (0, 0)
+    assert wgmma["xent_fwd_kernel"] == (0, 0)
+    # a kernel outside WGMMA_KERNELS: its spill is reported, not gated
+    assert others == {_OTHER: (8, 8)}
 
 
 @pytest.mark.parametrize("spilling", [("flash_dq_kernel", 128),
                                       ("xent_dw_kernel", 2048),
-                                      ("flash_fwd_kernel", 64)])
+                                      ("flash_fwd_kernel", 64),
+                                      ("xent_dh_kernel", 2048),
+                                      ("xent_dh_kernel", 128),
+                                      ("xent_fwd_kernel", None)])
 def test_spill_gate_fails_a_spilling_wgmma_kernel(spilling):
     _, _, problems = chip_smoke.spill_check(_ptxas_report(spilling))
-    assert problems == [f"{spilling[0]}<{spilling[1]}> spills 8 bytes of "
-                        f"stores and 8 of loads"]
+    assert problems == [f"{_label(spilling)} spills 8 bytes of stores and 8 "
+                        f"of loads"]
+
+
+@pytest.mark.parametrize("missing", [("xent_dh_kernel", 2048),
+                                     ("xent_fwd_kernel", None),
+                                     ("xent_dw_kernel", 512)])
+def test_spill_gate_fails_a_missing_wgmma_kernel(missing):
+    """A gated kernel absent from the report (not built, or renamed) fails
+    the gate as a spill would."""
+    _, _, problems = chip_smoke.spill_check(_ptxas_report(missing=missing))
+    assert problems == [f"{_label(missing)} is not in the ptxas report of "
+                        f"fused_xent"]
 
 
 def test_spill_gate_fails_a_missing_report():
     report = _ptxas_report()
     report["fused_xent"] = []  # a library whose lines were lost
     _, _, problems = chip_smoke.spill_check(report)
-    assert len(problems) == 5 and all("not in the ptxas report" in p
-                                      for p in problems)
+    # the forward, and dh and dW at 5 d_models each
+    assert len(problems) == 11 and all("not in the ptxas report" in p
+                                       for p in problems)
+
+
+def test_wgmma_labels_tell_plain_kernels_from_templates():
+    """A plain kernel's tag ends its name (<len>nameE), so it cannot match
+    a template instance of a longer name, nor the instance tag match it."""
+    tags = chip_smoke.wgmma_labels({"k": None, "k_t": (64,)})
+    assert tags == {"1kE": "k", "3k_tILi64E": "k_t<64>"}
+
+
+@pytest.mark.parametrize("d", chip_smoke.XENT_DEPTHS)
+@pytest.mark.parametrize("kernel", ["xent_fwd", "xent_dh", "xent_dw"])
+def test_xent_depth_rows_are_bound_by_operations(kernel, d):
+    """The xent_*_depths lines at d_model 256-1024 (the loss head's N and
+    V): each bound is xent_bound's operations term, one product for the
+    forward and two for dh and dW at 989 TF/s, above the bytes term."""
+    N, V, _ = chip_smoke.XENT_SHAPE
+    row = chip_smoke.xent_depth_row(kernel, N, V, d, ms=0.5)
+    bound_ms, by, flops, _ = chip_smoke.xent_bound(kernel, N, V, d)
+    products = 1 if kernel == "xent_fwd" else 2
+    assert by == "operations" and flops == 2 * products * N * V * d
+    assert row["bound_ms"] == bound_ms
+    assert bound_ms == pytest.approx(
+        1e3 * flops / chip_smoke.PEAK_BF16_FLOPS, rel=1e-12)
+    assert row["tflops"] == flops / 0.5 / 1e9
+    assert row["blocks_per_cluster"] == (2 if kernel == "xent_fwd"
+                                         else max(1, d // 256))

@@ -143,6 +143,7 @@ XENT_CASES = [  # (N, V, D); dW's cluster has D / 256 blocks (1 below 512)
     (64, 1024, 256),
     (128, 128, 1024),
     (512, 640, 2048),  # 5 clusters of 8 blocks, each walking 8 token tiles
+    (320, 384, 2048),  # half a 128-token tile (dh, fwd); half a 256-row vocab tile (fwd)
 ]
 
 
