@@ -41,6 +41,22 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            it with the kernels on the card against the plain versions on
            the CPU, from the same weights
   parity_fused   the same with fused_xent=True
+  collectives    hvd.init() at world 1 over NCCL: every op of the API on
+           fp32, bf16 and int64 CUDA tensors against its plain expectation,
+           and 64 small tensors submitted in one call, which the engine
+           must fuse into fewer buckets
+  train_dp, profile_dp   the train step under hvd.init() at world 1: the
+           gradients go through the engine's fused buckets and NCCL; the
+           losses must equal train's bit for bit, with the same launches;
+           buckets and bytes a step, the device ms of packing, NCCL and
+           unpacking, peak memory; train_dp_vs_train puts its losses,
+           step ms, device busy ms and peak beside train's
+  train_dp2      two processes (this script with --dp2-rank) share the card
+           over gloo (HOROVOD_CONTROLLER=gloo): 2 layers at full width with
+           fused_xent=True, batch 8 x 1024 split 4 + 4, rank 1 submitting
+           its gradients in another order; both ranks' weights must be
+           bit-identical after each step, and agree with one process on
+           the whole batch within the parity gates
 
 Then three lines: the kernels summary (each kernel's contract numbers,
 its TF/s, and for dq and dkv the flash backward operator's time as
@@ -54,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -92,6 +109,13 @@ EXPECTED_LAUNCHES = {"fwd": 30, "dq": 16, "dkv": 16}
 PARITY_LOSS_REL = 5e-3
 PARITY_NORM_REL = 2e-2
 PARITY_COS = 0.99
+
+# per-step launches on train_dp2: 2 layers, neither rematerialized
+# (remat_skip_layers=2), with the fused loss
+EXPECTED_DP2_LAUNCHES = {"fwd": 2, "dq": 2, "dkv": 2,
+                         "xent_fwd": 1, "xent_dh": 1, "xent_dw": 1}
+# the two train_dp2 processes together, build of the kernels included
+DP2_TIMEOUT_S = 420
 
 # the d_model values the xent kernels are built for
 XENT_DIMS = (128, 256, 512, 1024, 2048)
@@ -537,10 +561,14 @@ def bench_config(llama, **over):
         remat_policy="full", loss_chunk=2048, remat_skip_layers=2), **over)
 
 
-def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool):
+def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool,
+                engine=None):
     """The 1B step (``train``), or with ``fused_xent=True``
-    (``train_fused``); returns the kernel launches of its timed steps."""
-    phase = "train_fused" if fused else "train"
+    (``train_fused``), or under the runtime whose ``engine`` reduces the
+    gradients (``train_dp``); returns the kernel launches of its timed
+    steps and the line it emitted, with its profiled step's."""
+    phase = "train_dp" if engine is not None else (
+        "train_fused" if fused else "train")
     cfg = bench_config(llama, fused_xent=fused)
     batch, seq, steps = 8, 1024, 3
     expected = {**EXPECTED_LAUNCHES,
@@ -567,9 +595,10 @@ def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool):
 
     fa.reset_launches()  # the path's run starts here
     fx.reset_launches()
-    step_ms, per_step = [], []
+    step_ms, per_step, plane = [], [], []
     for _ in range(steps):
         before = counts()
+        stats0 = engine.stats() if engine is not None else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt_state, loss = ts.step_fn(params, opt_state, toks, tgts)
@@ -578,16 +607,36 @@ def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool):
         losses.append(loss.item())
         after = counts()
         per_step.append({n: after[n] - before[n] for n in before})
+        if engine is not None:
+            stats1 = engine.stats()
+            plane.append({k: stats1[k] - stats0[k] for k in
+                          ("tensors", "buckets", "bytes", "dispatch_ms")})
     launches = counts()  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     mean_ms = sum(step_ms) / len(step_ms)
-    emit(phase, params=llama.count_params(cfg), batch=batch, seq=seq,
-         fused_xent=fused, losses=losses, warmup_ms=warmup_ms,
-         step_ms=step_ms, tokens_per_sec=batch * seq / (mean_ms / 1e3),
-         max_memory_allocated=peak, launches_per_step=per_step,
-         launches=launches)
-    emit(phase.replace("train", "profile"), **profile_step(
-        lambda: ts.step_fn(params, opt_state, toks, tgts)))
+    extra = {}
+    if engine is not None:
+        # one more step with the engine's events around each phase of
+        # every bucket: the gradient plane's device time, apart.  The card
+        # first spins for about half a second, so the host has queued the
+        # whole step, buckets included, before the card reaches them: the
+        # events then time the card's work, not the engine thread's pace
+        engine.time_device = True
+        torch.cuda.synchronize()
+        torch.cuda._sleep(500 * SPIN_CYCLES_PER_CALL)
+        ts.step_fn(params, opt_state, toks, tgts)
+        extra = {"gradient_plane": plane,
+                 "plane_device_ms": engine.device_ms()}
+        engine.time_device = False
+    row = dict(params=llama.count_params(cfg), batch=batch, seq=seq,
+               fused_xent=fused, losses=losses, warmup_ms=warmup_ms,
+               step_ms=step_ms, tokens_per_sec=batch * seq / (mean_ms / 1e3),
+               max_memory_allocated=peak, launches_per_step=per_step,
+               launches=launches, **extra)
+    emit(phase, **row)
+    row["profile"] = profile_step(
+        lambda: ts.step_fn(params, opt_state, toks, tgts))
+    emit(phase.replace("train", "profile"), **row["profile"])
     require(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     # random tied embeddings give logits of unit variance: ln V + 1/2
     require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
@@ -599,7 +648,7 @@ def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool):
                 f"{phase}: launches per step {step}, expected {expected}")
     del params, opt_state, ts
     torch.cuda.empty_cache()
-    return launches
+    return launches, row
 
 
 def profile_step(step, top: int = 12):
@@ -625,11 +674,239 @@ def profile_step(step, top: int = 12):
 
     busy_ms = sum(device_ms(e) for e in kernels)
     kernels.sort(key=device_ms, reverse=True)
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "nccl_ms": sum(device_ms(e) for e in nccl),
+            "nccl_calls": sum(e.count for e in nccl),
             "annotated_ms": {e.key: device_ms(e) for e in ranges},
             "top_kernels": [{"name": e.key[:90], "ms": device_ms(e),
                              "calls": e.count} for e in kernels[:top]]}
+
+
+def collectives_phase(hvd, dev):
+    """Every op of the API on fp32, bf16 and int64 tensors on ``dev``, each
+    against its plain expectation; returns the emitted line.  The inputs
+    are multiples of 1/4 (integers for int64), so every result is exact at
+    any world size the runtime has; at one rank each reduction is its
+    input, scaled."""
+    n, r = hvd.size(), hvd.rank()
+    checks = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int64):
+        name = str(dt).removeprefix("torch.")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        x = torch.randint(-16, 16, (64 * n, 96), generator=gen, device=dev)
+        x = (x / 4).to(dt) if dt.is_floating_point else x
+        # (op, prescale, postscale): a factor is cast to the tensor's dtype
+        op, pre, post = ((hvd.Average, 0.5, 4.0) if dt.is_floating_point
+                         else (hvd.Sum, 2.0, 3.0))
+        red = x * n                       # every rank holds the same x
+        scaled = (x * 2 if op == hvd.Average else x * 6 * n)
+        h = hvd.allreduce_async(x, op=hvd.Sum, name=f"{name}.async")
+        y = x.clone()
+        z = torch.zeros_like(x)
+        g0, g1 = hvd.grouped_allreduce([x, x[:8] * 2], op=hvd.Sum,
+                                       name=f"{name}.grouped")
+        pairs = {
+            "sum": (hvd.allreduce(x, op=hvd.Sum, name=f"{name}.sum"), red),
+            "average": (hvd.allreduce(x, name=f"{name}.avg"), x),
+            "scaled": (hvd.allreduce(x, op=op, prescale_factor=pre,
+                                     postscale_factor=post,
+                                     name=f"{name}.scaled"), scaled),
+            "min": (hvd.allreduce(x, op=hvd.Min, name=f"{name}.min"), x),
+            "max": (hvd.allreduce(x, op=hvd.Max, name=f"{name}.max"), x),
+            "grouped": (torch.cat([g0, g1]), torch.cat([red, x[:8] * 2 * n])),
+            "async": (hvd.synchronize(h), red),
+            "inplace": (hvd.allreduce_(y, op=hvd.Sum, name=f"{name}.ip"),
+                        red),
+            "allgather": (hvd.allgather(x, name=f"{name}.ag"),
+                          torch.cat([x] * n)),
+            "broadcast": (hvd.broadcast(x, 0, name=f"{name}.bc"), x),
+            "broadcast_": (hvd.broadcast_(z.copy_(x), 0, name=f"{name}.bc_"),
+                           x),
+            "alltoall": (hvd.alltoall(x, splits=[64] * n,
+                                      name=f"{name}.a2a"),
+                         torch.cat([x[64 * r:64 * (r + 1)]] * n)),
+            "reducescatter": (hvd.reducescatter(x, op=hvd.Sum,
+                                                name=f"{name}.rs"),
+                              red[64 * r:64 * (r + 1)]),
+        }
+        checks[name] = {k: bool(got.device == dev and torch.equal(got, want))
+                        for k, (got, want) in pairs.items()}
+        checks[name]["poll"] = hvd.poll(h)
+        checks[name]["inplace_is_input"] = pairs["inplace"][0] is y
+    objects = {"broadcast_object": hvd.broadcast_object({"a": [1, 2]})
+               == {"a": [1, 2]},
+               "allgather_object": hvd.allgather_object(7) == [7] * n}
+    hvd.barrier()
+    joined = hvd.join()
+    # 64 small tensors in one call: the engine plans them into buckets
+    engine = hvd.runtime._state().engine
+    before = engine.stats()
+    small = [torch.full((3,), float(i), device=dev) for i in range(64)]
+    for hd in hvd.api._allreduce_each_async_(
+            small, [f"small.{i}" for i in range(64)], op=hvd.Sum):
+        hd.synchronize()
+    after = engine.stats()
+    small_ok = all(torch.equal(t, torch.full_like(t, i * n))
+                   for i, t in enumerate(small))
+    row = {"world": n, "backend": hvd.runtime._state().backend,
+           "device": str(dev), "checks": checks, "objects": objects,
+           "join": joined, "small_tensors": after["tensors"] -
+           before["tensors"], "small_buckets": after["buckets"] -
+           before["buckets"], "small_ok": small_ok,
+           "engine": engine.stats()}
+    emit("collectives", **row)
+    bad = [f"{d}.{k}" for d, c in checks.items() for k, ok in c.items()
+           if not ok] + [k for k, ok in objects.items() if not ok]
+    require(not bad, f"collectives disagree with their expectation: {bad}")
+    require(joined == n - 1, f"join returned {joined}")
+    require(small_ok and row["small_tensors"] == 64
+            and row["small_buckets"] < 64,
+            f"64 small tensors: {row['small_buckets']} buckets, ok "
+            f"{small_ok}")
+    return row
+
+
+def _reversed_keys(tree):
+    if isinstance(tree, dict):
+        return {k: _reversed_keys(tree[k]) for k in reversed(list(tree))}
+    if isinstance(tree, list):
+        return [_reversed_keys(v) for v in tree]
+    return tree
+
+
+def dp2_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``train_dp2`` (``--dp2-rank``): 2 steps at dp 2 on its
+    half of the batch through the engine over gloo on ``cuda:0``; after
+    each step rank 0's weights are broadcast and held against this rank's
+    bit for bit.  Rank 1 builds its parameter dicts in reverse key order,
+    so it submits its gradients in another order.  Then rank 0, without
+    the runtime, runs the same 2 steps from the same weights on the whole
+    batch at dp 1 and prints both runs' losses and weight updates as
+    JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_xent as fx
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    cfg = bench_config(llama, n_layers=2, fused_xent=True)
+    rng = np.random.RandomState(2)
+    batch = [torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                         (8, cfg.max_seq_len)),
+                             dtype=torch.long, device=dev) for _ in range(2)]
+
+    def run(params, toks, tgts):
+        ts = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
+                                            device=dev)
+        opt_state = ts.opt_init(params)
+        for _ in range(2):
+            params, opt_state, loss = ts.step_fn(params, opt_state, toks,
+                                                 tgts)
+            yield params, loss.item()
+
+    def flat(params):
+        return dict(zip(tree_paths(params), tree_leaves(params)))
+
+    hvd.init(device=dev)
+    params = llama.init_params(cfg, seed=2, device=dev)
+    init = {p: t.detach().clone() for p, t in flat(params).items()}
+    if rank == 1:
+        params = _reversed_keys(params)
+    order = tree_paths(params)
+    toks, tgts = (b[4 * rank:4 * (rank + 1)] for b in batch)
+    fa.reset_launches()
+    fx.reset_launches()
+    losses, per_step, identical = [], [], []
+    before = {**fa.LAUNCHES, **fx.LAUNCHES}
+    for step, (params, loss) in enumerate(run(params, toks, tgts)):
+        after = {**fa.LAUNCHES, **fx.LAUNCHES}
+        per_step.append({n: after[n] - before[n] for n in before})
+        losses.append(loss)
+        # rank 0's weights, leaf by leaf by path, against this rank's
+        mine = flat(params)
+        same = all([torch.equal(hvd.broadcast(mine[p].detach(), 0,
+                                              name=f"check{step}.{p}"),
+                                mine[p]) for p in sorted(mine)])
+        identical.append(all(hvd.allgather_object(same)))
+        before = {**fa.LAUNCHES, **fx.LAUNCHES}
+    engine = hvd.runtime._state().engine.stats()
+    orders = hvd.allgather_object(order[:3])
+    hvd.shutdown()
+    if rank:
+        return 0
+    dp2 = {p: t.detach() for p, t in flat(params).items()}
+    del params
+    losses1 = []
+    for dp1_params, loss in run(llama.init_params(cfg, seed=2, device=dev),
+                                *batch):
+        losses1.append(loss)
+    dp1 = flat(dp1_params)
+    print(json.dumps({
+        "losses": losses, "losses_dp1": losses1,
+        "launches_per_step": per_step, "identical_after_step": identical,
+        "first_leaves_submitted": orders,
+        "engine": engine,
+        "update_norms": {p: ((dp2[p] - init[p]).double().norm().item(),
+                             (dp1[p] - init[p]).double().norm().item())
+                         for p in init},
+        "update_cos": {p: cosine(dp2[p] - init[p], dp1[p] - init[p])
+                       for p in init}}), flush=True)
+    return 0
+
+
+def train_dp2_phase():
+    """Two ranks of :func:`dp2_child` on the card over gloo; the gates."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, HOROVOD_RANK=str(rank), HOROVOD_SIZE="2",
+                   HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE="2",
+                   HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+                   HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+                   HOROVOD_CONTROLLER="gloo",
+                   HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="300")
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, "--dp2-rank", str(rank)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True))
+    deadline = time.monotonic() + DP2_TIMEOUT_S
+    try:
+        outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    for rank, (p, (o, e)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"train_dp2 rank {rank} exited "
+                f"{p.returncode}:\n{o[-2000:]}\n{e[-4000:]}")
+    res = json.loads(outs[0][0].strip().splitlines()[-1])
+    emit("train_dp2", layers=2, batch=[4, 4], seq=1024, fused_xent=True,
+         backend="gloo", seconds=time.perf_counter() - t0, **res)
+    require(all(res["identical_after_step"]),
+            f"train_dp2: the ranks' weights differ after a step: "
+            f"{res['identical_after_step']}")
+    for step in res["launches_per_step"]:
+        require(step == EXPECTED_DP2_LAUNCHES,
+                f"train_dp2: launches per step {step}, expected "
+                f"{EXPECTED_DP2_LAUNCHES}")
+    for a, b in zip(res["losses"], res["losses_dp1"]):
+        require(abs(a - b) <= PARITY_LOSS_REL * abs(b),
+                f"train_dp2 loss {a} (dp 2) vs {b} (dp 1)")
+    for p, (a, b) in res["update_norms"].items():
+        require(abs(a - b) <= PARITY_NORM_REL * b,
+                f"train_dp2 update norm {p}: {a} (dp 2) vs {b} (dp 1)")
+        cos = res["update_cos"][p]
+        require(cos > PARITY_COS, f"train_dp2 update cos {p}: {cos}")
 
 
 def cosine(a, b) -> float:
@@ -691,18 +968,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # full fp32 matmuls in the plain versions and the fp32 loss head
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if "--dp2-rank" in sys.argv:
+        return dp2_child(int(sys.argv[sys.argv.index("--dp2-rank") + 1]),
+                         dev)
+    import horovod_tpu_torch as hvd
     from horovod_tpu_torch import convert, training
     from horovod_tpu_torch.models import llama
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_xent as fx
     from horovod_tpu_torch.optim.precision import adamw_lp
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    # full fp32 matmuls in the plain versions and the fp32 loss head
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -730,12 +1010,36 @@ def main() -> int:
 
     kernels = kernels_phase(fa, dev)
     xent = xent_kernels_phase(fx, llama, dev)
-    launches = train_phase(fa, fx, llama, training, adamw_lp, dev,
-                           fused=False)
-    launches_fused = train_phase(fa, fx, llama, training, adamw_lp, dev,
-                                 fused=True)
+    launches, train = train_phase(fa, fx, llama, training, adamw_lp, dev,
+                                  fused=False)
+    launches_fused, _ = train_phase(fa, fx, llama, training, adamw_lp, dev,
+                                    fused=True)
     parity_phase(llama, training, adamw_lp, convert, dev, fused=False)
     parity_phase(llama, training, adamw_lp, convert, dev, fused=True)
+
+    # the Horovod core at world 1 over NCCL: every op, then the train step
+    # with its gradients through the engine
+    hvd.init()
+    try:
+        require(hvd.runtime._state().backend == "nccl" and hvd.size() == 1,
+                f"hvd.init() on the card: {hvd.runtime._state().backend}, "
+                f"size {hvd.size()}")
+        collectives_phase(hvd, dev)
+        _, train_dp = train_phase(fa, fx, llama, training, adamw_lp, dev,
+                                  fused=False,
+                                  engine=hvd.runtime._state().engine)
+    finally:
+        hvd.shutdown()
+    emit("train_dp_vs_train", **{
+        k: [train_dp[k], train[k]] for k in ("losses", "step_ms",
+                                             "max_memory_allocated")},
+         device_busy_ms=[train_dp["profile"]["device_busy_ms"],
+                         train["profile"]["device_busy_ms"]])
+    require(train_dp["losses"] == train["losses"],
+            f"train_dp losses {train_dp['losses']} are not train's "
+            f"{train['losses']}")
+    torch.cuda.empty_cache()
+    train_dp2_phase()
 
     # (name, source, replaces, kernels-phase row, launches on its path)
     rows = [(f"flash_{k}", SOURCE, REPLACES[k], kernels[("main", k)],

@@ -1,8 +1,13 @@
-"""PyTorch/CUDA port of horovod_tpu (counterpart: ``horovod_tpu/__init__.py``).
+"""PyTorch/CUDA port of horovod_tpu (counterparts: ``horovod_tpu/__init__.py``
+and the torch-facing ``horovod_tpu/torch/__init__.py``).
 
 The JAX package ``horovod_tpu`` is the reference; this package runs the
 same programs on an NVIDIA H100 through PyTorch and hand-written CUDA
 kernels.  It imports ``torch`` and never ``jax`` or ``horovod_tpu``.
+``import horovod_tpu_torch as hvd`` gives the Horovod API: ``hvd.init()``,
+rank and size, the eager collectives with async handles over
+``torch.distributed`` (``api.py``), ``DistributedOptimizer`` and the
+broadcast helpers (``optim/distributed.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``:
 :func:`default_device` raises when no card is visible instead of carrying
@@ -35,4 +40,59 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-__all__ = ["__version__", "default_device", "resolve_device"]
+# the Horovod API (after the helpers above, which runtime imports)
+from .api import (  # noqa: E402
+    allgather, allgather_async, allgather_object, allreduce, allreduce_,
+    allreduce_async, allreduce_async_, alltoall, alltoall_async, barrier,
+    broadcast, broadcast_, broadcast_async, broadcast_async_,
+    broadcast_object, grouped_allgather, grouped_allgather_async,
+    grouped_allreduce, grouped_allreduce_, grouped_allreduce_async,
+    grouped_allreduce_async_, grouped_reducescatter,
+    grouped_reducescatter_async, join, poll, reducescatter,
+    reducescatter_async, synchronize, wait)
+from .compression import Compression  # noqa: E402
+from .exceptions import HorovodInternalError  # noqa: E402
+from .optim.distributed import (  # noqa: E402
+    DistributedOptimizer, broadcast_optimizer_state, broadcast_parameters)
+from .runtime import (  # noqa: E402
+    Adasum, Average, Max, Min, Product, ProcessSet, ReduceOp, Sum,
+    add_process_set, ccl_built, cross_rank, cross_size, cuda_built,
+    ddl_built, gloo_built, gloo_enabled, init, is_homogeneous,
+    is_initialized, local_rank, local_size, mpi_built, mpi_enabled,
+    mpi_threads_supported, nccl_built, rank, remove_process_set,
+    rocm_built, shutdown, size, tpu_built, xla_built)
+
+#: names of the JAX package's torch surface not ported yet, by ROADMAP item
+_UNPORTED = {"SyncBatchNorm": "A6", "elastic": "A8"}
+
+
+def __getattr__(name):
+    if name == "global_process_set":
+        from .runtime import _get_global_process_set
+        return _get_global_process_set()
+    if name in _UNPORTED:
+        raise NotImplementedError(f"hvd.{name} is not ported yet "
+                                  f"(ROADMAP.md {_UNPORTED[name]})")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = [
+    "__version__", "default_device", "resolve_device",
+    "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
+    "local_size", "cross_rank", "cross_size", "is_homogeneous",
+    "Average", "Sum", "Adasum", "Min", "Max", "Product", "ReduceOp",
+    "allreduce", "allreduce_async", "allreduce_", "allreduce_async_",
+    "grouped_allreduce", "grouped_allreduce_async", "grouped_allreduce_",
+    "grouped_allreduce_async_", "allgather", "allgather_async",
+    "grouped_allgather", "grouped_allgather_async", "reducescatter",
+    "reducescatter_async", "grouped_reducescatter",
+    "grouped_reducescatter_async", "broadcast", "broadcast_async",
+    "broadcast_", "broadcast_async_", "alltoall", "alltoall_async",
+    "synchronize", "poll", "wait", "join", "barrier", "broadcast_object",
+    "allgather_object", "broadcast_parameters", "broadcast_optimizer_state",
+    "DistributedOptimizer", "Compression", "HorovodInternalError",
+    "ProcessSet", "add_process_set", "remove_process_set",
+    "mpi_threads_supported", "mpi_built", "mpi_enabled", "gloo_built",
+    "gloo_enabled", "nccl_built", "ddl_built", "ccl_built", "cuda_built",
+    "rocm_built", "xla_built", "tpu_built",
+]

@@ -2,12 +2,17 @@
 
 Counterpart: ``horovod_tpu/training.py``.  The JAX package compiles one
 ``shard_map`` program per step; here the step is eager PyTorch: loss and
-gradients by autograd (attention through the flash kernels), the 1/dp
-gradient average, then the optimizer's in-place update.
+gradients by autograd (attention through the flash kernels), the gradient
+plane, then the optimizer's in-place update.
 
-This slice is data-parallel at dp=1 and non-overlapped (the JAX
-``shard_step``).  ``reduce_grads`` and ``_mean_loss`` are identities at one
-device and are where the NCCL slice (ROADMAP.md A5) all-reduces.
+The step is data-parallel and non-overlapped (the JAX ``shard_step``).
+When the runtime is initialized (``hvd.init()``; the mesh then holds the
+global process set), the gradient plane is the engine's: every gradient
+leaf, in leaf order, and the loss are submitted at once as in-place
+allreduces (op Sum, postscale 1/(dp·sp), as the JAX step scales after its
+psum), which the engine plans into buckets of ``HOROVOD_FUSION_THRESHOLD``
+bytes and reduces over NCCL, or gloo, at every world size, 1 included.
+Without ``hvd.init()`` the step runs on one device and reduces nothing.
 ``overlap=True``, ``zero1``, ``grad_accum > 1`` and ``attn="ulysses"``
 raise ``NotImplementedError``.
 """
@@ -20,11 +25,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from . import DeviceLike, resolve_device
+from . import DeviceLike, api, resolve_device, runtime
 from .models import llama as llama_mod
 from .models.llama import LlamaConfig, ParallelSpec
 from .parallel.mesh import MeshConfig, ParallelMesh
-from .tree import tree_leaves, tree_map
+from .tree import tree_leaves, tree_map, tree_paths
 
 #: ``optax.adamw(3e-4)``, the JAX step's default optimizer
 default_optimizer = functools.partial(torch.optim.AdamW, lr=3e-4,
@@ -75,7 +80,8 @@ def make_llama_train_step(cfg: LlamaConfig,
     ``optimizer`` is a factory called with the list of parameters
     (``optim.precision.adamw_lp(lr)`` or a ``torch.optim`` class bound to
     its hyper-parameters); the default matches ``optax.adamw(3e-4)``.
-    The mesh defaults to one device: ``device``, or the CUDA device when
+    The mesh defaults to ``MeshConfig(dp=hvd.size())`` when the runtime is
+    initialized, else to one device: ``device``, or the CUDA device when
     ``device`` is None (raising without one; pass ``device="cpu"``).
     """
     for flag, on, item in (("overlap=True", overlap, "A5"),
@@ -85,6 +91,8 @@ def make_llama_train_step(cfg: LlamaConfig,
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md {item})")
+    if pmesh is None and runtime.is_initialized():
+        pmesh = ParallelMesh(MeshConfig(dp=runtime.size()))
     if pmesh is None:
         pmesh = ParallelMesh(MeshConfig(), devices=[resolve_device(device)])
     elif device is not None and torch.device(device) != pmesh.devices[0]:
@@ -101,19 +109,23 @@ def make_llama_train_step(cfg: LlamaConfig,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    def reduce_grads(grads):
+    def reduce_grads(loss, grads):
         # dp and sp average the per-shard mean losses: the summed gradient
-        # needs a uniform 1/(dp·sp).  At one device there is no sum and no
-        # scale; the NCCL slice all-reduces here.
-        scale = 1.0 / (dp * sp)
-        if scale == 1.0:
-            return grads
-        return tree_map(lambda g: g * scale, grads)
-
-    def _mean_loss(loss):
-        # the mean over the loss-averaging axes: every axis has size 1 in
-        # this slice; the NCCL slice all-reduces here
-        return loss
+        # needs a uniform 1/(dp·sp), and the loss (the JAX step's
+        # _mean_loss) the mean over dp (sp is 1 here), the same factor.
+        # One submission, so one cycle plans every leaf; the loss rides in
+        # a gradient bucket.
+        if pmesh.process_set is None:
+            return loss, grads   # one device, no runtime: nothing to sum
+        loss = loss.clone()
+        leaves = tree_leaves(grads) + [loss]
+        names = [f"grad.{p}" for p in tree_paths(grads)] + ["loss"]
+        for h in api._allreduce_each_async_(
+                leaves, names, op=runtime.Sum,
+                postscale_factor=1.0 / (dp * sp),
+                process_set=pmesh.process_set):
+            h.synchronize()
+        return loss, grads
 
     def local_loss(params, tokens, targets):
         return llama_mod.loss_fn(params, tokens, targets, cfg, par,
@@ -126,17 +138,15 @@ def make_llama_train_step(cfg: LlamaConfig,
         return loss.detach(), tree_map(lambda _: next(it), params)
 
     def grads_fn(params, tokens, targets):
-        loss, grads = loss_and_grads(params, tokens, targets)
-        return _mean_loss(loss), reduce_grads(grads)
+        return reduce_grads(*loss_and_grads(params, tokens, targets))
 
     def step_fn(params, opt_state, tokens, targets):
-        loss, grads = loss_and_grads(params, tokens, targets)
-        grads = reduce_grads(grads)
+        loss, grads = reduce_grads(*loss_and_grads(params, tokens, targets))
         for p, g in zip(tree_leaves(params), tree_leaves(grads)):
             p.grad = g
         opt_state.step()
         opt_state.zero_grad(set_to_none=True)
-        return params, opt_state, _mean_loss(loss)
+        return params, opt_state, loss
 
     def opt_init(params):
         leaves = tree_leaves(params)

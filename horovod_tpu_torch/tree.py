@@ -19,6 +19,19 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def tree_paths(tree: Any, prefix: str = "") -> List[str]:
+    """The dotted path of every leaf, in :func:`tree_leaves` order
+    (``{"layers": [{"wq": ...}]}`` → ``"layers.0.wq"``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [prefix]
+    return [p for k, v in items
+            for p in tree_paths(v, f"{prefix}.{k}" if prefix else str(k))]
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``tree`` with every leaf replaced by ``fn(leaf, *matching leaves)``."""
     if isinstance(tree, dict):

@@ -208,3 +208,16 @@ def test_xent_depth_rows_are_bound_by_operations(kernel, d):
     assert row["tflops"] == flops / 0.5 / 1e9
     assert row["blocks_per_cluster"] == (2 if kernel == "xent_fwd"
                                          else max(1, d // 256))
+
+
+def test_collectives_phase_passes_on_the_cpu_at_world_one():
+    """The card's ``collectives`` phase, rehearsed over gloo on the CPU:
+    every check holds and the 64 small tensors share one bucket."""
+    import horovod_tpu_torch as hvd
+    hvd.init(device="cpu")
+    try:
+        row = chip_smoke.collectives_phase(hvd, torch.device("cpu"))
+    finally:
+        hvd.shutdown()
+    assert all(all(c.values()) for c in row["checks"].values())
+    assert (row["small_tensors"], row["small_buckets"]) == (64, 1)

@@ -165,8 +165,15 @@ def test_unported_step_options_raise(kw, item):
 
 
 def test_mesh_is_one_device_until_the_nccl_slice():
+    """A process's mesh holds its own device; dp > 1 needs the runtime
+    initialized at that size (tests/test_torch_dp_step.py runs one), and
+    the model axes wait for the parallel layouts."""
     mesh = ParallelMesh(MeshConfig(), devices=["cpu"])
     assert mesh.axis_names == ("dp", "pp", "sp", "tp")
     assert mesh.axis_size("ep") == 1 and mesh.devices == [torch.device("cpu")]
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        ParallelMesh(MeshConfig(dp=2), devices=["cpu", "cpu"])
+    assert mesh.process_set is None
+    with pytest.raises(ValueError, match=r"hvd\.init\(\)"):
+        ParallelMesh(MeshConfig(dp=2), devices=["cpu"])
+    for axes in ({"tp": 2}, {"sp": 2}, {"pp": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+            ParallelMesh(MeshConfig(**axes), devices=["cpu"])
