@@ -51,12 +51,32 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            buckets and bytes a step, the device ms of packing, NCCL and
            unpacking, peak memory; train_dp_vs_train puts its losses,
            step ms, device busy ms and peak beside train's
+  train_overlap  the 1B step with overlap=True under hvd.init() at world 1:
+           the grad taps reduce each layer's buckets on the plan's stream
+           during the backward pass; losses equal to train's bit for bit,
+           launches 30/16/16; the buckets a step and their layer keys in
+           issue order, how many the device started before the backward's
+           last kernel, the exposed plane (device ms from that kernel to
+           the last bucket's end, and the host ms after the backward's
+           return) beside train_dp's engine host ms, device busy time,
+           idle share and peak
+  train_wire     the same under HOROVOD_COMPRESSION=int8: the first loss
+           equal to train's, the later ones within WIRE_LOSS_REL, the
+           wire's quantization error within WIRE_ERROR_REL of the
+           gradient, and the wire bytes a step against full width
   train_dp2      two processes (this script with --dp2-rank) share the card
            over gloo (HOROVOD_CONTROLLER=gloo): 2 layers at full width with
            fused_xent=True, batch 8 x 1024 split 4 + 4, rank 1 submitting
            its gradients in another order; both ranks' weights must be
            bit-identical after each step, and agree with one process on
            the whole batch within the parity gates
+  train_a5_dp2   two such processes (--a5-rank) run 2 steps of three
+           variants: zero1=True, overlap=True under HOROVOD_SHARDED_UPDATE=1
+           and HOROVOD_COMPRESSION=int8, and grad_accum=2; weights
+           bit-identical on both ranks after every step; zero1 and
+           grad_accum within train_dp2's parity gates of one process on
+           the whole batch, the quantized overlap within its own
+           (A5_WIRE_*); zero1's optimizer state half the dp-1 run's
 
 Then three lines: the kernels summary (each kernel's contract numbers,
 its TF/s, and for dq and dkv the flash backward operator's time as
@@ -116,6 +136,46 @@ EXPECTED_DP2_LAUNCHES = {"fwd": 2, "dq": 2, "dkv": 2,
                          "xent_fwd": 1, "xent_dh": 1, "xent_dw": 1}
 # the two train_dp2 processes together, build of the kernels included
 DP2_TIMEOUT_S = 420
+
+# train_wire (int8, one fp32 scale per 256 elements): each element of a
+# block quantizes to within amax/(2·127), so the scatter stage's error is
+# at most sqrt(256)·amax/254 per block and, summed over blocks, at most
+# 16/254 of the gradient's norm (amax² <= the block's sum of squares)
+WIRE_ERROR_REL = 16 / 254
+# the wire moves 1 + 4/256 bytes an element where fp32 moves 4 (both
+# stages), plus block padding of at most 255 elements a bucket
+WIRE_RATIO_MAX = (1 + 4 / 256) / 4 + 1e-3
+# train_wire's losses after the first: Adam's early updates are about
+# lr·sign(g), and the wire keeps every gradient's sign except where an
+# element quantizes to zero (|g| < amax/254 of its block, ~1% of
+# Gaussian-like entries, whose own contribution to the loss's descent is
+# ~1e-4 of it) or moves by up to 1/254 of its block's absmax, ~1.7% of a
+# typical entry: the loss's descent (about 1 a step) changes by well
+# under 1%, so the losses stay within 1% of train's
+WIRE_LOSS_REL = 1e-2
+# train_a5_dp2's quantized-overlap variant against one process on the
+# whole batch: the same arguments through two quantizations (scatter and
+# gather) of 2 steps, with 3x margin over the ~1-2% of entries whose
+# update they can zero: losses within 1%, weight updates' norms within
+# 5% and their cosine above 0.97
+A5_WIRE_LOSS_REL = 1e-2
+A5_WIRE_NORM_REL = 5e-2
+A5_WIRE_COS = 0.97
+# train_a5_dp2's variants: (name, make_llama_train_step options, runtime
+# environment); grad_accum=2 runs each layer's kernels twice a step
+A5_VARIANTS = (
+    ("zero1", {"zero1": True}, {}),
+    ("overlap_sharded_int8", {"overlap": True},
+     {"HOROVOD_SHARDED_UPDATE": "1", "HOROVOD_COMPRESSION": "int8"}),
+    ("grad_accum", {"grad_accum": 2}, {}),
+)
+EXPECTED_A5_LAUNCHES = {
+    "zero1": EXPECTED_DP2_LAUNCHES,
+    "overlap_sharded_int8": EXPECTED_DP2_LAUNCHES,
+    "grad_accum": {k: 2 * v for k, v in EXPECTED_DP2_LAUNCHES.items()},
+}
+# the three variants and the dp-1 run of both processes, build included
+A5_TIMEOUT_S = 480
 
 # the d_model values the xent kernels are built for
 XENT_DIMS = (128, 256, 512, 1024, 2048)
@@ -651,6 +711,110 @@ def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool,
     return launches, row
 
 
+def overlap_phase(fa, fx, llama, training, adamw_lp, dev, wire: bool):
+    """The 1B step with ``overlap=True`` under the runtime (``train_overlap``,
+    or ``train_wire`` when HOROVOD_COMPRESSION=int8 is set): 1 warm-up and
+    3 timed steps with their launches, then one measured step (the
+    dispatch's events and error norms) and one profiled step.  Returns the
+    emitted line."""
+    from horovod_tpu_torch.optim import overlap as ov
+    phase = "train_wire" if wire else "train_overlap"
+    cfg = bench_config(llama)
+    batch, seq, steps = 8, 1024, 3
+
+    def counts():
+        return {**fa.LAUNCHES, **fx.LAUNCHES}
+
+    ts = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
+                                        overlap=True)
+    plan = ov.plan_for(ts.transform)
+    params, opt_state = ts.init_fn(0)
+    rng = np.random.RandomState(0)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq)),
+                           dtype=torch.long, device=dev)
+    tgts = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq)),
+                           dtype=torch.long, device=dev)
+    params, opt_state, loss = ts.step_fn(params, opt_state, toks, tgts)
+    losses = [loss.item()]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # the path's run starts here
+    fx.reset_launches()
+    step_ms, per_step = [], []
+    for _ in range(steps):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = ts.step_fn(params, opt_state, toks, tgts)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        after = counts()
+        per_step.append({n: after[n] - before[n] for n in before})
+    launches = counts()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    plan.time_device = True
+    ts.step_fn(params, opt_state, toks, tgts)
+    torch.cuda.synchronize()
+    plane = plan.last.stats()
+    plan.time_device = False
+    wire_bytes, full_bytes = ov.plane_bytes(plan.layout, plan.fmt)
+    row = dict(params=llama.count_params(cfg), batch=batch, seq=seq,
+               wire_format=plan.fmt.name if plan.fmt else "none",
+               losses=losses, step_ms=step_ms,
+               tokens_per_sec=batch * seq / (sum(step_ms) / steps / 1e3),
+               max_memory_allocated=peak, launches_per_step=per_step,
+               launches=launches, plane=plane, wire_bytes=wire_bytes,
+               full_width_bytes=full_bytes)
+    emit(phase, **row)
+    row["profile"] = profile_step(
+        lambda: ts.step_fn(params, opt_state, toks, tgts))
+    emit(phase.replace("train", "profile"), **row["profile"])
+    del params, opt_state, ts
+    torch.cuda.empty_cache()
+    return row
+
+
+def overlap_problems(row, train_row, expected):
+    """``train_overlap``'s gates: ``train``'s losses bit for bit, the
+    launches, every bucket issued."""
+    bad = []
+    if row["losses"] != train_row["losses"]:
+        bad.append(f"losses {row['losses']} are not train's "
+                   f"{train_row['losses']}")
+    bad += [f"launches per step {st}, expected {expected}"
+            for st in row["launches_per_step"] if st != expected]
+    if row["plane"]["buckets"] != len(row["plane"]["bucket_layers"]) \
+            or row["plane"]["buckets"] == 0:
+        bad.append(f"no buckets issued: {row['plane']}")
+    return bad
+
+
+def wire_problems(row, train_row, expected):
+    """``train_wire``'s gates (WIRE_* above)."""
+    bad = []
+    losses, ref = row["losses"], train_row["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite loss {losses}")
+    elif losses[-1] >= losses[0]:
+        bad.append(f"loss did not fall: {losses}")
+    if losses[0] != ref[0]:
+        bad.append(f"first loss {losses[0]} is not train's {ref[0]}")
+    for a, b in zip(losses[1:], ref[1:]):
+        if not abs(a - b) <= WIRE_LOSS_REL * abs(b):
+            bad.append(f"loss {a} vs train's {b}: beyond {WIRE_LOSS_REL}")
+    err = row["plane"].get("quantization_error_rel")
+    if err is None or not err <= WIRE_ERROR_REL:
+        bad.append(f"quantization error {err} of the gradient's norm, "
+                   f"bound {WIRE_ERROR_REL}")
+    ratio = row["wire_bytes"] / row["full_width_bytes"]
+    if not ratio <= WIRE_RATIO_MAX:
+        bad.append(f"wire bytes {ratio:.4f} of full width, bound "
+                   f"{WIRE_RATIO_MAX:.4f}")
+    bad += [f"launches per step {st}, expected {expected}"
+            for st in row["launches_per_step"] if st != expected]
+    return bad
+
+
 def profile_step(step, top: int = 12):
     """One step under torch.profiler: the device's busy share of the wall
     time and the kernels that took most device time, by name."""
@@ -858,8 +1022,135 @@ def dp2_child(rank: int, dev: torch.device) -> int:
     return 0
 
 
-def train_dp2_phase():
-    """Two ranks of :func:`dp2_child` on the card over gloo; the gates."""
+def a5_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``train_a5_dp2`` (``--a5-rank``): for each of
+    A5_VARIANTS, hvd.init() under the variant's environment, 2 steps on
+    this rank's half of the batch from the same weights as train_dp2,
+    rank 0's weights broadcast and held against this rank's after each
+    step, then shutdown.  Then rank 0 runs the 2 steps at dp 1 on the
+    whole batch without the runtime and prints every run as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_xent as fx
+    from horovod_tpu_torch.optim.precision import adamw_lp, tree_nbytes
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    cfg = bench_config(llama, n_layers=2, fused_xent=True)
+    rng = np.random.RandomState(2)
+    batch = [torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                         (8, cfg.max_seq_len)),
+                             dtype=torch.long, device=dev) for _ in range(2)]
+
+    def flat(params):
+        return dict(zip(tree_paths(params), tree_leaves(params)))
+
+    def state_bytes(opt_state):
+        opt = getattr(opt_state, "inner", opt_state)
+        return tree_nbytes(list(opt.state.values()))
+
+    init = flat(llama.init_params(cfg, seed=2, device=dev))
+    runs = {}
+    for name, kw, env in A5_VARIANTS:
+        os.environ.update(env)
+        hvd.init(device=dev)
+        try:
+            params = llama.init_params(cfg, seed=2, device=dev)
+            if rank == 1:
+                params = _reversed_keys(params)
+            ts = training.make_llama_train_step(
+                cfg, optimizer=adamw_lp(3e-4), device=dev, **kw)
+            opt_state = ts.opt_init(params)
+            toks, tgts = (b[4 * rank:4 * (rank + 1)] for b in batch)
+            fa.reset_launches()
+            fx.reset_launches()
+            losses, per_step, identical = [], [], []
+            for step in range(2):
+                before = {**fa.LAUNCHES, **fx.LAUNCHES}
+                params, opt_state, loss = ts.step_fn(params, opt_state,
+                                                     toks, tgts)
+                after = {**fa.LAUNCHES, **fx.LAUNCHES}
+                per_step.append({n: after[n] - before[n] for n in before})
+                losses.append(loss.item())
+                mine = flat(params)
+                same = all([torch.equal(hvd.broadcast(
+                    mine[p].detach(), 0, name=f"{name}{step}.{p}"), mine[p])
+                    for p in sorted(mine)])
+                identical.append(all(hvd.allgather_object(same)))
+            runs[name] = {"losses": losses, "launches_per_step": per_step,
+                          "identical_after_step": identical,
+                          "state_bytes": state_bytes(opt_state),
+                          "final": {p: t.detach().clone()
+                                    for p, t in flat(params).items()}}
+            del params, opt_state, ts
+        finally:
+            hvd.shutdown()
+            for k in env:
+                os.environ.pop(k)
+    if rank:
+        return 0
+    ts = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
+                                        device=dev)
+    params = llama.init_params(cfg, seed=2, device=dev)
+    opt_state = ts.opt_init(params)
+    losses1 = []
+    for _ in range(2):
+        params, opt_state, loss = ts.step_fn(params, opt_state, *batch)
+        losses1.append(loss.item())
+    dp1 = flat(params)
+    out = {"dp1": {"losses": losses1, "state_bytes": state_bytes(opt_state)}}
+    for name, run in runs.items():
+        final = run.pop("final")
+        run["update_norms"] = {p: ((final[p] - init[p]).double().norm()
+                                   .item(), (dp1[p] - init[p]).double()
+                                   .norm().item()) for p in init}
+        run["update_cos"] = {p: cosine(final[p] - init[p], dp1[p] - init[p])
+                             for p in init}
+        out[name] = run
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def a5_problems(res):
+    """``train_a5_dp2``'s gates: weights identical on both ranks after
+    every step; launches; zero1 and grad_accum within the parity gates of
+    the dp-1 run, the quantized overlap within A5_WIRE_*; zero1's state
+    half the dp-1 run's."""
+    bad = []
+    dp1 = res["dp1"]
+    for name, _, _ in A5_VARIANTS:
+        run = res[name]
+        if not all(run["identical_after_step"]):
+            bad.append(f"{name}: the ranks' weights differ after a step: "
+                       f"{run['identical_after_step']}")
+        bad += [f"{name}: launches per step {st}, expected "
+                f"{EXPECTED_A5_LAUNCHES[name]}"
+                for st in run["launches_per_step"]
+                if st != EXPECTED_A5_LAUNCHES[name]]
+        wire = name == "overlap_sharded_int8"
+        loss_rel, norm_rel, min_cos = (
+            (A5_WIRE_LOSS_REL, A5_WIRE_NORM_REL, A5_WIRE_COS) if wire
+            else (PARITY_LOSS_REL, PARITY_NORM_REL, PARITY_COS))
+        for a, b in zip(run["losses"], dp1["losses"]):
+            if not abs(a - b) <= loss_rel * abs(b):
+                bad.append(f"{name}: loss {a} (dp 2) vs {b} (dp 1)")
+        for p, (a, b) in run["update_norms"].items():
+            if not abs(a - b) <= norm_rel * b:
+                bad.append(f"{name}: update norm {p}: {a} vs {b}")
+            if not run["update_cos"][p] > min_cos:
+                bad.append(f"{name}: update cos {p}: "
+                           f"{run['update_cos'][p]}")
+    half = res["zero1"]["state_bytes"] / dp1["state_bytes"]
+    if not abs(half - 0.5) <= 0.01:
+        bad.append(f"zero1: optimizer state {res['zero1']['state_bytes']} "
+                   f"B per rank is {half:.4f} of the dp-1 run's "
+                   f"{dp1['state_bytes']} B")
+    return bad
+
+
+def _run_pair(flag: str, timeout_s: float):
+    """This script with ``flag R`` in two processes sharing the card over
+    gloo; returns rank 0's last line as JSON and the seconds taken."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -874,10 +1165,10 @@ def train_dp2_phase():
                    HOROVOD_CONTROLLER="gloo",
                    HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="300")
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, "--dp2-rank", str(rank)], env=env,
+            [sys.executable, __file__, flag, str(rank)], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             start_new_session=True))
-    deadline = time.monotonic() + DP2_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     try:
         outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))
                 for p in procs]
@@ -887,11 +1178,26 @@ def train_dp2_phase():
                 os.killpg(p.pid, 9)
                 p.wait()
     for rank, (p, (o, e)) in enumerate(zip(procs, outs)):
-        require(p.returncode == 0, f"train_dp2 rank {rank} exited "
+        require(p.returncode == 0, f"{flag} rank {rank} exited "
                 f"{p.returncode}:\n{o[-2000:]}\n{e[-4000:]}")
-    res = json.loads(outs[0][0].strip().splitlines()[-1])
+    return (json.loads(outs[0][0].strip().splitlines()[-1]),
+            time.perf_counter() - t0)
+
+
+def train_a5_dp2_phase():
+    """Two ranks of :func:`a5_child` on the card over gloo; the gates."""
+    res, seconds = _run_pair("--a5-rank", A5_TIMEOUT_S)
+    emit("train_a5_dp2", layers=2, batch=[4, 4], seq=1024, fused_xent=True,
+         backend="gloo", seconds=seconds, **res)
+    bad = a5_problems(res)
+    require(not bad, f"train_a5_dp2: {bad}")
+
+
+def train_dp2_phase():
+    """Two ranks of :func:`dp2_child` on the card over gloo; the gates."""
+    res, seconds = _run_pair("--dp2-rank", DP2_TIMEOUT_S)
     emit("train_dp2", layers=2, batch=[4, 4], seq=1024, fused_xent=True,
-         backend="gloo", seconds=time.perf_counter() - t0, **res)
+         backend="gloo", seconds=seconds, **res)
     require(all(res["identical_after_step"]),
             f"train_dp2: the ranks' weights differ after a step: "
             f"{res['identical_after_step']}")
@@ -976,6 +1282,8 @@ def main() -> int:
     if "--dp2-rank" in sys.argv:
         return dp2_child(int(sys.argv[sys.argv.index("--dp2-rank") + 1]),
                          dev)
+    if "--a5-rank" in sys.argv:
+        return a5_child(int(sys.argv[sys.argv.index("--a5-rank") + 1]), dev)
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import convert, training
     from horovod_tpu_torch.models import llama
@@ -1008,26 +1316,39 @@ def main() -> int:
                 f"{key}: the xent kernel's clusters do not fit on the card: "
                 f"{n}")
 
-    kernels = kernels_phase(fa, dev)
-    xent = xent_kernels_phase(fx, llama, dev)
-    launches, train = train_phase(fa, fx, llama, training, adamw_lp, dev,
-                                  fused=False)
-    launches_fused, _ = train_phase(fa, fx, llama, training, adamw_lp, dev,
-                                    fused=True)
-    parity_phase(llama, training, adamw_lp, convert, dev, fused=False)
-    parity_phase(llama, training, adamw_lp, convert, dev, fused=True)
+    phase_s = {"build": build_s}
 
-    # the Horovod core at world 1 over NCCL: every op, then the train step
-    # with its gradients through the engine
+    def timed(phase, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_s[phase] = time.perf_counter() - t0
+        return out
+
+    kernels = timed("kernels", kernels_phase, fa, dev)
+    xent = timed("xent_kernels", xent_kernels_phase, fx, llama, dev)
+    launches, train = timed("train", train_phase, fa, fx, llama, training,
+                            adamw_lp, dev, fused=False)
+    launches_fused, _ = timed("train_fused", train_phase, fa, fx, llama,
+                              training, adamw_lp, dev, fused=True)
+    timed("parity", parity_phase, llama, training, adamw_lp, convert, dev,
+          fused=False)
+    timed("parity_fused", parity_phase, llama, training, adamw_lp, convert,
+          dev, fused=True)
+
+    # the Horovod core at world 1 over NCCL: every op, the train step with
+    # its gradients through the engine, then overlapped through the grad
+    # taps
     hvd.init()
     try:
         require(hvd.runtime._state().backend == "nccl" and hvd.size() == 1,
                 f"hvd.init() on the card: {hvd.runtime._state().backend}, "
                 f"size {hvd.size()}")
-        collectives_phase(hvd, dev)
-        _, train_dp = train_phase(fa, fx, llama, training, adamw_lp, dev,
-                                  fused=False,
-                                  engine=hvd.runtime._state().engine)
+        timed("collectives", collectives_phase, hvd, dev)
+        _, train_dp = timed("train_dp", train_phase, fa, fx, llama,
+                            training, adamw_lp, dev, fused=False,
+                            engine=hvd.runtime._state().engine)
+        train_overlap = timed("train_overlap", overlap_phase, fa, fx, llama,
+                              training, adamw_lp, dev, wire=False)
     finally:
         hvd.shutdown()
     emit("train_dp_vs_train", **{
@@ -1038,8 +1359,38 @@ def main() -> int:
     require(train_dp["losses"] == train["losses"],
             f"train_dp losses {train_dp['losses']} are not train's "
             f"{train['losses']}")
+    expected = {**EXPECTED_LAUNCHES,
+                **{n: 0 for n in EXPECTED_XENT_LAUNCHES}}
+    emit("train_overlap_vs_train_dp", **{
+        k: [train_overlap[k], train_dp[k], train[k]]
+        for k in ("losses", "step_ms", "max_memory_allocated")},
+         device_busy_ms=[r["profile"]["device_busy_ms"]
+                         for r in (train_overlap, train_dp, train)],
+         device_idle_share=[r["profile"]["device_idle_share"]
+                            for r in (train_overlap, train_dp, train)],
+         exposed_device_ms=train_overlap["plane"]["exposed_device_ms"],
+         overlap_host_ms_after_backward=train_overlap["plane"][
+             "finish_host_ms"],
+         overlap_host_ms_issuing=train_overlap["plane"]["issue_host_ms"],
+         train_dp_engine_host_ms=[st["dispatch_ms"]
+                                  for st in train_dp["gradient_plane"]])
+    bad = overlap_problems(train_overlap, train, expected)
+    require(not bad, f"train_overlap: {bad}")
+    # the same step with the int8 wire: the runtime reads the knob at init
+    os.environ["HOROVOD_COMPRESSION"] = "int8"
+    hvd.init()
+    try:
+        train_wire = timed("train_wire", overlap_phase, fa, fx, llama,
+                           training, adamw_lp, dev, wire=True)
+    finally:
+        hvd.shutdown()
+        os.environ.pop("HOROVOD_COMPRESSION")
+    bad = wire_problems(train_wire, train, expected)
+    require(not bad, f"train_wire: {bad}")
     torch.cuda.empty_cache()
-    train_dp2_phase()
+    timed("train_dp2", train_dp2_phase)
+    timed("train_a5_dp2", train_a5_dp2_phase)
+    emit("phase_seconds", **phase_s)
 
     # (name, source, replaces, kernels-phase row, launches on its path)
     rows = [(f"flash_{k}", SOURCE, REPLACES[k], kernels[("main", k)],

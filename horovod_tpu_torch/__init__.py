@@ -6,8 +6,11 @@ same programs on an NVIDIA H100 through PyTorch and hand-written CUDA
 kernels.  It imports ``torch`` and never ``jax`` or ``horovod_tpu``.
 ``import horovod_tpu_torch as hvd`` gives the Horovod API: ``hvd.init()``,
 rank and size, the eager collectives with async handles over
-``torch.distributed`` (``api.py``), ``DistributedOptimizer`` and the
-broadcast helpers (``optim/distributed.py``).
+``torch.distributed`` (``api.py``), ``DistributedOptimizer``,
+``DistributedGradientTransform`` (planned buckets, ZeRO tiles, the
+quantized wire formats) and the broadcast helpers
+(``optim/distributed.py``), and ``overlapped_backprop``
+(``optim/overlap.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``:
 :func:`default_device` raises when no card is visible instead of carrying
@@ -50,10 +53,16 @@ from .api import (  # noqa: E402
     grouped_allreduce_async_, grouped_reducescatter,
     grouped_reducescatter_async, join, poll, reducescatter,
     reducescatter_async, synchronize, wait)
-from .compression import Compression  # noqa: E402
+from .compression import (  # noqa: E402
+    WIRE_FORMATS, Compression, WireFormat, resolve_wire_format)
 from .exceptions import HorovodInternalError  # noqa: E402
 from .optim.distributed import (  # noqa: E402
-    DistributedOptimizer, broadcast_optimizer_state, broadcast_parameters)
+    DistributedGradientTransform, DistributedOptimizer,
+    all_gather_sharded_tree, broadcast_optimizer_state, broadcast_parameters,
+    fused_reduce_scatter_tree)
+# overlapped dispatch: wrap the step's forward and backward passes so the
+# model's grad taps reduce each layer's buckets during backprop
+from .optim.overlap import overlapped_backprop  # noqa: E402
 from .runtime import (  # noqa: E402
     Adasum, Average, Max, Min, Product, ProcessSet, ReduceOp, Sum,
     add_process_set, ccl_built, cross_rank, cross_size, cuda_built,
@@ -90,7 +99,10 @@ __all__ = [
     "broadcast_", "broadcast_async_", "alltoall", "alltoall_async",
     "synchronize", "poll", "wait", "join", "barrier", "broadcast_object",
     "allgather_object", "broadcast_parameters", "broadcast_optimizer_state",
-    "DistributedOptimizer", "Compression", "HorovodInternalError",
+    "DistributedOptimizer", "DistributedGradientTransform",
+    "fused_reduce_scatter_tree", "all_gather_sharded_tree",
+    "overlapped_backprop", "WireFormat", "WIRE_FORMATS",
+    "resolve_wire_format", "Compression", "HorovodInternalError",
     "ProcessSet", "add_process_set", "remove_process_set",
     "mpi_threads_supported", "mpi_built", "mpi_enabled", "gloo_built",
     "gloo_enabled", "nccl_built", "ddl_built", "ccl_built", "cuda_built",

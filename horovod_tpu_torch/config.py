@@ -8,7 +8,11 @@ of the JAX package imports jax.
 A knob whose feature the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP.md item when it is set to
 anything but its default (:data:`UNPORTED`), so a job never runs without a
-feature it asked for.
+feature it asked for.  ``HOROVOD_COMPRESSION`` (with its block size and
+``HOROVOD_COMPRESSION_DCN_ONLY``), ``HOROVOD_SHARDED_UPDATE`` and
+``HOROVOD_OVERLAP`` are parsed and validated as in the JAX package and
+read by ``optim/distributed.py`` (the transform's defaults) and the
+engine (the eager wire format).
 """
 
 from __future__ import annotations
@@ -30,12 +34,9 @@ RECOVERY_MODES = ("off", "neighbor", "parity")
 #: (environment variable, Config field, ROADMAP.md item) of every knob
 #: whose feature is not ported yet
 UNPORTED = (
-    ("HOROVOD_COMPRESSION", "compression", "A5"),
     ("HOROVOD_TAIL_POLICY", "tail_policy", "A5"),
     ("HOROVOD_HIERARCHICAL_ALLREDUCE", "hierarchical_allreduce", "A5"),
     ("HOROVOD_HIERARCHICAL_ALLGATHER", "hierarchical_allgather", "A5"),
-    ("HOROVOD_SHARDED_UPDATE", "sharded_update", "A5"),
-    ("HOROVOD_OVERLAP", "overlap", "A5"),
     ("HOROVOD_SERVE", "serve", "A7"),
     ("HOROVOD_ELASTIC", "elastic", "A8"),
     ("HOROVOD_RECOVERY", "recovery", "A8"),

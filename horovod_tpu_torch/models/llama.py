@@ -12,7 +12,9 @@ JAX tree stacks the layers on a leading ``[L, ...]`` axis for ``lax.scan``,
 gradient lands in its own tensor (``convert.py`` splits and restacks).
 
 This slice is the dense, data-parallel model; ``fused_xent=True`` takes
-the loss through the fused cross-entropy kernels.  What it does not cover
+the loss through the fused cross-entropy kernels.  Each layer's weights and
+the root leaves pass through the grad taps of ``optim/overlap.py``, the
+identity unless an overlapped step arms them.  What it does not cover
 raises ``NotImplementedError`` naming its ROADMAP.md item: MoE
 (``n_experts > 0``) and tensor/sequence/pipeline/expert parallel axes
 (including ``vocab_parallel`` over tp).
@@ -32,6 +34,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import DeviceLike, resolve_device
 from ..ops import fused_xent
+from ..optim.overlap import grad_tap, tap_root
 from ..parallel.ring_attention import ring_attention
 
 _log = logging.getLogger("horovod_tpu_torch")
@@ -221,10 +224,6 @@ def _rematerialized(fn, policy: str):
 
 
 def _layer_stack(h, layers, cfg: LlamaConfig, par: ParallelSpec, positions):
-    # Cast every layer's weights to the compute dtype once, before the
-    # loop and outside the checkpointed blocks, so that a recompute in the
-    # backward pass does not cast them again.
-    layers = [{n: w.to(cfg.dtype) for n, w in lp.items()} for lp in layers]
     body = block
     if cfg.remat:
         if cfg.remat_policy not in ("full", "dots"):
@@ -237,6 +236,14 @@ def _layer_stack(h, layers, cfg: LlamaConfig, par: ParallelSpec, positions):
     # are saved, and they are the first to run backward
     k = min(cfg.remat_skip_layers, n) if cfg.remat else 0
     for i, lp in enumerate(layers):
+        # Each layer's weights are tapped (the identity outside an armed
+        # optim.overlap.overlapped_backprop), then cast to the compute
+        # dtype, inside the loop but outside the checkpointed block: a
+        # recompute does not cast again, and autograd, which runs ready
+        # nodes by descending sequence number, reaches each layer's casts
+        # right after that layer's backward instead of after every layer's
+        # (casts made before the loop would all wait for layer 0).
+        lp = {n: w.to(cfg.dtype) for n, w in grad_tap(lp).items()}
         h, aux_l = (body if i < n - k else block)(h, lp, cfg, par, positions)
         aux = aux + aux_l
     return h, aux
@@ -309,6 +316,10 @@ def loss_fn(params, tokens, targets, cfg: LlamaConfig,
     kernels do not take fall through on the CPU, as in JAX, and raise on
     the card.
     """
+    # the leaves outside the layer stack, tapped as one (the identity
+    # outside an armed optim.overlap.overlapped_backprop): the tied
+    # embedding's lookup and head add into one cotangent
+    params = tap_root(params)
     h, _ = hidden(params, tokens, cfg, par, n_microbatches)
     w = params["embed"]
     if cfg.fused_xent and fused_xent.enabled():

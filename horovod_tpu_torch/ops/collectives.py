@@ -14,17 +14,26 @@ GPU).  The reference's fusion buffer is :func:`allreduce_arrays`: pack a
 bucket into one flat buffer, reduce it once, unpack.  A bucket of one
 contiguous tensor reduced in place skips both copies.
 
-Not here yet: the quantized, tail-policy and hierarchical paths and Adasum
-(ROADMAP.md A5), and the in-graph ``*_p`` forms (A5, A6).
+The distributed optimizer's planned buckets (``optim/distributed.py``,
+``optim/overlap.py``) call the flat forms below directly, in their static
+plan order, as the JAX package's in-jit ``*_p`` forms run inside the
+compiled step: :func:`reduce_scatter_flat`, :func:`all_gather_flat` and
+the quantized staging (JAX ``quantized_sum_scatter_p``,
+``quantized_all_gather_p``, ``quantized_allreduce_p``).  Over gloo, CUDA
+tensors of these flat forms travel through host memory.
+
+Not here yet: the tail-policy and hierarchical paths and Adasum (ROADMAP.md
+A5), and the model-parallel forms (A6).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from ..compression import WireFormat, dequantize_blocks, quantize_blocks
 from ..runtime import ReduceOp
 
 _DIST_OPS = {
@@ -65,7 +74,8 @@ def allreduce_arrays(tensors: Sequence[torch.Tensor], ps,
                      prescale_factor: Optional[float] = None,
                      postscale_factor: Optional[float] = None,
                      inplace: bool = False,
-                     mark: Optional[Callable[[str], None]] = None
+                     mark: Optional[Callable[[str], None]] = None,
+                     wire: Optional[WireFormat] = None
                      ) -> List[torch.Tensor]:
     """Fused allreduce of one bucket (tensors of one dtype) over ``ps``.
 
@@ -73,7 +83,8 @@ def allreduce_arrays(tensors: Sequence[torch.Tensor], ps,
     otherwise the results are views of one new flat buffer.  ``mark``, when
     given, is called with ``"pack"``, ``"reduce"`` and ``"unpack"`` as each
     phase begins and with ``"end"`` after the last (the engine's device
-    timing).
+    timing).  ``wire`` quantizes the bucket (Sum or Average only, no error
+    feedback: the eager path carries no state), as the JAX engine does.
     """
     if op == ReduceOp.ADASUM:
         raise NotImplementedError("Adasum is not ported yet (ROADMAP.md A5)")
@@ -94,9 +105,12 @@ def allreduce_arrays(tensors: Sequence[torch.Tensor], ps,
     if prescale_factor is not None:
         _scale_(flat, prescale_factor)
     mark("reduce")
-    dist.all_reduce(flat, op=_DIST_OPS[op], group=group)
+    if wire is not None:
+        flat.copy_(quantized_allreduce(flat, ps, wire, op=op)[0])
+    else:
+        dist.all_reduce(flat, op=_DIST_OPS[op], group=group)
     mark("unpack")
-    if op == ReduceOp.AVERAGE:
+    if op == ReduceOp.AVERAGE and wire is None:
         _average_(flat, ps.size())
     if postscale_factor is not None:
         _scale_(flat, postscale_factor)
@@ -202,3 +216,131 @@ def barrier(ps, device: torch.device) -> None:
         dist.barrier(group=ps.group, device_ids=[device.index])
     else:
         dist.barrier(group=ps.group)
+
+
+# ---------------------------------------------------------------------------
+# flat forms of the planned buckets, and the quantized staging
+# ---------------------------------------------------------------------------
+
+def _on_wire(x: torch.Tensor) -> torch.Tensor:
+    """fp8 payloads travel as bytes: not every backend reduces or moves
+    the fp8 dtypes."""
+    return x.view(torch.uint8) if x.element_size() == 1 \
+        and x.is_floating_point() else x
+
+
+def _run_flat(fn, out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """``fn(out, inp, group=group)``; over gloo a CUDA pair goes through
+    host memory."""
+    if inp.is_cuda and dist.get_backend(group) == "gloo":
+        host = out.cpu()
+        fn(host, inp.cpu(), group=group)
+        out.copy_(host)
+    else:
+        fn(out, inp, group=group)
+
+
+def reduce_scatter_flat(buf: torch.Tensor, ps) -> torch.Tensor:
+    """The sum over the ranks of a 1-D ``buf`` whose length divides by
+    the set's size; rank ``i`` gets the ``i``-th slice (JAX
+    ``psum_scatter(..., tiled=True)``)."""
+    n = ps.size()
+    out = buf.new_empty(buf.numel() // n)
+    _run_flat(lambda o, i, group: dist.reduce_scatter_tensor(
+        o, i, op=dist.ReduceOp.SUM, group=group),
+        out, buf.contiguous(), _group(ps))
+    return out
+
+
+def all_gather_flat(tile: torch.Tensor, ps) -> torch.Tensor:
+    """Every rank's 1-D ``tile`` concatenated in rank order (JAX
+    ``all_gather(..., tiled=True)``)."""
+    out = tile.new_empty(tile.numel() * ps.size())
+    _run_flat(lambda o, i, group: dist.all_gather_into_tensor(
+        _on_wire(o), _on_wire(i), group=group),
+        out, tile.contiguous(), _group(ps))
+    return out
+
+
+def _all_to_all_flat(x: torch.Tensor, ps) -> torch.Tensor:
+    """Equal 1-D chunks: chunk ``j`` of every rank goes to rank ``j``."""
+    out = torch.empty_like(x)
+    _run_flat(lambda o, i, group: dist.all_to_all_single(
+        _on_wire(o), _on_wire(i), group=group),
+        out, x.contiguous(), _group(ps))
+    return out
+
+
+def quantized_sum_scatter(flat: torch.Tensor, ps, fmt: WireFormat,
+                          error_feedback: bool = False
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Reduce-scatter of a quantized 1-D buffer with fp32 accumulation
+    (JAX ``quantized_sum_scatter_p``).
+
+    ``flat`` is this rank's contribution, its length a multiple of
+    ``size * fmt.block_size`` (callers pad with zeros).  Every rank's
+    quantized tile of this rank's slice, and its scales, arrive by one
+    all-to-all each and are dequantized and summed in fp32.  Returns the
+    fp32 sum tile and, with ``error_feedback``, this rank's quantization
+    error ``flat - dequantize(quantize(flat))`` (else None).
+    """
+    n = ps.size()
+    q, s = quantize_blocks(flat, fmt)
+    residual = None
+    if error_feedback:
+        residual = flat.float() - dequantize_blocks(q, s, fmt)
+    qx = _all_to_all_flat(q, ps)
+    sx = _all_to_all_flat(s, ps)
+    deq = dequantize_blocks(qx, sx, fmt).reshape(n, -1)
+    return deq.sum(dim=0), residual
+
+
+def quantized_all_gather(tile: torch.Tensor, ps,
+                         fmt: WireFormat) -> torch.Tensor:
+    """All-gather of a quantized 1-D tile (length a multiple of
+    ``fmt.block_size``): every rank dequantizes the same payloads, its own
+    included, so the fp32 result is bit-identical everywhere.  No error
+    feedback: the tile is already reduced and the same on every rank (JAX
+    ``quantized_all_gather_p``)."""
+    q, s = quantize_blocks(tile, fmt)
+    return dequantize_blocks(all_gather_flat(q, ps), all_gather_flat(s, ps),
+                             fmt)
+
+
+def quantized_allreduce(x: torch.Tensor, ps, fmt: WireFormat,
+                        op: str = ReduceOp.SUM,
+                        residual: Optional[torch.Tensor] = None,
+                        error_feedback: bool = False,
+                        denom: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Sum or average of ``x`` over ``ps`` with a quantized wire: the
+    sum-scatter and gather stages above, padded to a multiple of
+    ``size * fmt.block_size`` (JAX ``quantized_allreduce_p``).
+
+    ``residual`` (fp32, ``x``'s shape) is this rank's carried
+    error-feedback term, added before quantization; with
+    ``error_feedback`` the new one is returned.  Average divides the
+    scattered tile by ``denom`` (default: the set's size) before the
+    gather quantizes it.  Returns ``(reduced, new_residual_or_None)``,
+    ``reduced`` in ``x``'s shape and dtype.
+    """
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(
+            f"quantized allreduce supports op=Sum/Average, got {op!r}")
+    n = ps.size()
+    shape, dtype = x.shape, x.dtype
+    flat = x.reshape(-1).float()
+    total = flat.numel()
+    if residual is not None:
+        flat = flat + residual.reshape(-1).float()
+    pad = (-total) % (n * fmt.block_size)
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    tile, new_res = quantized_sum_scatter(flat, ps, fmt,
+                                          error_feedback=error_feedback)
+    if op == ReduceOp.AVERAGE:
+        tile = tile / (n if denom is None else denom)
+    red = quantized_all_gather(tile, ps, fmt)[:total]
+    if new_res is not None:
+        new_res = new_res[:total].reshape(shape)
+    return red.reshape(shape).to(dtype), new_res

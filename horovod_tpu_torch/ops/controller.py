@@ -441,7 +441,10 @@ class Controller:
                 return {q: v.decode() for q, v in zip(need, raw)}
             waited = time.monotonic() - t0
             if waited >= next_left_check:
-                self._check_left(seq, need)
+                # a rank that left has published all it ever will: only
+                # the ranks whose key is still missing can strand us
+                self._check_left(seq, [q for q, k in zip(need, keys)
+                                       if not self.store.check([k])])
                 next_left_check = waited + self._left_check_s
             names = None
             if not warned and waited > self._warn_s:
@@ -473,28 +476,39 @@ class Controller:
                 self.kv_deletes += 1
 
     def cleanup_keys(self):
-        """At shutdown: delete the round keys this rank still owns (the
-        last four rounds of each group); the last rank to leave also
-        deletes the leave markers.  Then drop the store: rank 0's server
-        must close with the runtime, even while an exception's traceback
-        still holds this controller, or a re-init cannot listen again."""
+        """At shutdown, before the ranks meet: delete the round keys this
+        rank still owns except each group's last round, which a peer may
+        still be reading (it can finish that round after this rank has).
+        :meth:`release` deletes the rest once every rank has arrived."""
         try:
-            self._cleanup_keys()
+            self._delete_rounds(keep_last=True)
+        except (RuntimeError, ValueError):   # a peer's store may be gone
+            logger.debug("namespace cleanup skipped", exc_info=True)
+
+    def release(self):
+        """After every rank has reached shutdown: delete the last round's
+        keys and, once all have left, the leave markers.  Then drop the
+        store: rank 0's server must close with the runtime, even while an
+        exception's traceback still holds this controller, or a re-init
+        cannot listen again."""
+        try:
+            if self.world > 1:
+                self._delete_rounds(keep_last=False)
+                if self.store.add("left_n", 0) >= self.world:
+                    for p in range(self.world):
+                        self.store.delete_key(f"left/{p}")
+                    self.store.delete_key("left_n")
+        except (RuntimeError, ValueError):   # a peer's store may be gone
+            logger.debug("namespace cleanup skipped", exc_info=True)
         finally:
             self.store = None
 
-    def _cleanup_keys(self):
-        if self.world <= 1:
+    def _delete_rounds(self, keep_last: bool):
+        if self.world <= 1 or self.store is None:
             return
         with self._lock:
             seqs = dict(self._seq)
-        try:
-            for gk, next_seq in seqs.items():
-                for s in range(max(0, next_seq - 4), next_seq):
-                    self._cleanup(gk, s, self.rank)
-            if self.store.add("left_n", 0) >= self.world:
-                for p in range(self.world):
-                    self.store.delete_key(f"left/{p}")
-                self.store.delete_key("left_n")
-        except (RuntimeError, ValueError):   # a peer's store may be gone
-            logger.debug("namespace cleanup skipped", exc_info=True)
+        for gk, next_seq in seqs.items():
+            last = next_seq - 1 if keep_last else next_seq
+            for s in range(max(0, next_seq - 4), last):
+                self._cleanup(gk, s, self.rank)

@@ -63,7 +63,8 @@ class TensorTableEntry:
 
     __slots__ = ("name", "op_type", "tensors", "process_set", "reduce_op",
                  "prescale", "postscale", "root_rank", "splits", "group_id",
-                 "inplace", "handle", "enqueue_time", "ready", "peer_rows")
+                 "inplace", "handle", "enqueue_time", "ready", "peer_rows",
+                 "wire_format")
 
     def __init__(self, name, op_type, tensors, process_set,
                  reduce_op=ReduceOp.AVERAGE, prescale=None, postscale=None,
@@ -79,6 +80,9 @@ class TensorTableEntry:
         self.splits = splits
         self.group_id = group_id
         self.inplace = inplace
+        # the job's quantized wire format (HOROVOD_COMPRESSION), stamped at
+        # submission; it rides the signature, so buckets never mix formats
+        self.wire_format = "none"
         self.handle: Optional[Handle] = None
         self.enqueue_time = 0.0
         self.ready = None             # CUDA event on the submitter's stream
@@ -87,8 +91,7 @@ class TensorTableEntry:
         self.peer_rows: Optional[Dict[int, List[int]]] = None
 
     # the JAX package's EntrySig fields that the port does not vary yet
-    # keep their defaults: stacked False, wire "none", tail "strict",
-    # spec "replicated"
+    # keep their defaults: stacked False, tail "strict", spec "replicated"
     def sigs(self) -> List[EntrySig]:
         return [EntrySig(
             name=self.name if len(self.tensors) == 1 else f"{self.name}.{i}",
@@ -98,7 +101,8 @@ class TensorTableEntry:
             stacked=False, group_id=self.group_id,
             prescale=None if self.prescale is None else float(self.prescale),
             postscale=(None if self.postscale is None
-                       else float(self.postscale)))
+                       else float(self.postscale)),
+            wire_format=self.wire_format)
             for i, t in enumerate(self.tensors)]
 
 
@@ -206,6 +210,8 @@ class CollectiveEngine:
         if self._stream is not None:
             self._stream.synchronize()
         if self._controller is not None:
+            # the last round's keys stay until the ranks meet at shutdown
+            # (runtime.shutdown, then Controller.release)
             self._controller.cleanup_keys()
 
     # -- submission ---------------------------------------------------------
@@ -249,6 +255,7 @@ class CollectiveEngine:
             # a grouped entry always resolves to a list, even of one
             e.handle = Handle(e.name, single=(len(e.tensors) == 1
                                               and e.group_id == -1))
+            e.wire_format = self._wire_format(e)
             e.enqueue_time, e.ready = now, ready
         handles = [e.handle for e in entries]
         if self._controller is not None and self._controller.joined:
@@ -266,6 +273,21 @@ class CollectiveEngine:
                 self._submit_gen += 1
                 self._cv.notify_all()
         return handles[0] if single else handles
+
+    def _wire_format(self, e: TensorTableEntry) -> str:
+        """The quantized wire format of an entry: HOROVOD_COMPRESSION for a
+        Sum or Average allreduce of float tensors when
+        HOROVOD_COMPRESSION_DCN_ONLY=0 (the JAX engine's rule on a flat
+        mesh, which has no cross-host stage to restrict it to), else
+        "none"."""
+        from ..compression import quantizable
+        fmt = getattr(self.cfg, "compression", "none")
+        if (fmt == "none" or getattr(self.cfg, "compression_dcn_only", True)
+                or e.op_type != "allreduce"
+                or e.reduce_op not in (ReduceOp.SUM, ReduceOp.AVERAGE)
+                or not all(quantizable(t.dtype) for t in e.tensors)):
+            return "none"
+        return fmt
 
     # -- the loop -----------------------------------------------------------
     def _loop(self):
@@ -538,10 +560,15 @@ class CollectiveEngine:
             return entries[owner[si]].tensors[si - base[owner[si]]]
 
         if op_type == "allreduce":
+            wire = None
+            if first.wire_format != "none" and ps.size() > 1:
+                from ..compression import resolve_wire_format
+                wire = resolve_wire_format(first.wire_format,
+                                           self.cfg.compression_block_size)
             outs = collectives.allreduce_arrays(
                 [tensor(si) for si in bucket], ps, op=first.reduce_op,
                 prescale_factor=e0.prescale, postscale_factor=e0.postscale,
-                inplace=e0.inplace, mark=self._mark(op_type))
+                inplace=e0.inplace, mark=self._mark(op_type), wire=wire)
             results.update(zip(bucket, outs))
             return
         for si in bucket:

@@ -2,9 +2,12 @@
 
 Counterpart: ``horovod_tpu/ops/fusion.py``, copied: ``EntrySig`` (the
 negotiation Request), ``plan_fusion`` (deterministic buckets up to
-``HOROVOD_FUSION_THRESHOLD`` bytes, grouped entries atomic) and
-``ResponseCache`` give the same plans for the same signatures, which
-tests/test_torch_controller.py holds against the JAX package.  Torch dtypes
+``HOROVOD_FUSION_THRESHOLD`` bytes, grouped entries atomic),
+``ResponseCache``, and the distributed optimizer's bucket layouts
+(``pad_to_multiple``, ``BucketLayout``, ``plan_bucket_layouts``) and
+overlapped dispatch order (``DispatchSchedule``, ``plan_dispatch``) give
+the same plans for the same signatures, which tests/test_torch_controller.py
+and tests/test_torch_overlap.py hold against the JAX package.  Torch dtypes
 enter by their names without the ``torch.`` prefix (:func:`dtype_name`),
 which are the JAX package's names for the same element widths.  The JAX
 package's native ``_hvd_core`` is not ported: this pure-Python planner is
@@ -212,6 +215,109 @@ def plan_fusion(entries: Sequence[EntrySig],
         cur_group = e.group_id
     flush()
     return buckets
+
+
+def pad_to_multiple(numel: int, parts: int) -> int:
+    """Smallest multiple of ``parts`` that is >= ``numel``.
+
+    A reduce-scatter splits a flat bucket evenly across the mesh axis, so
+    the buffer is zero-padded up to this size before the collective (the
+    ZeRO-style sharded-update path; arXiv:2004.13336)."""
+    if parts <= 0:
+        raise ValueError(f"parts must be positive, got {parts}")
+    return -(-numel // parts) * parts
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketLayout:
+    """Flat-buffer layout of one planned fusion bucket, shard-aware.
+
+    The planner's bucket (``plan_fusion``) decides *which* entries fuse;
+    this records *where* each entry lives in the flattened buffer plus the
+    padding a ``shards``-way reduce-scatter needs — the slice metadata the
+    sharded-update path uses to carve per-worker tiles and to reassemble
+    the full buffer after the allgather.
+    """
+    indices: Tuple[int, ...]      # entry indices, planner (bucket) order
+    sizes: Tuple[int, ...]        # per-entry element counts, same order
+    numel: int                    # sum(sizes)
+    padded_numel: int             # numel rounded up to a multiple of shards
+    shard_numel: int              # padded_numel // shards (per-worker tile)
+
+
+def plan_bucket_layouts(entries: Sequence[EntrySig],
+                        buckets: Sequence[Sequence[int]],
+                        shards: int, align: int = 1) -> List[BucketLayout]:
+    """Compute the padded flat-buffer layout of every planned bucket.
+
+    ``buckets`` is ``plan_fusion`` output over ``entries``; ``shards`` is
+    the mesh-axis size the buckets will be reduce-scattered over.  The
+    layout is pure plan metadata (trace-time only) — the bucketing itself
+    is unchanged, keeping the single cross-process ordering contract.
+
+    ``align`` > 1 additionally makes every shard a multiple of ``align``
+    elements (pad to ``shards * align``): the quantized wire path needs
+    block-aligned tiles so per-block scales route with their blocks.
+    """
+    layouts: List[BucketLayout] = []
+    for bucket in buckets:
+        sizes = tuple(entries[i].numel for i in bucket)
+        numel = sum(sizes)
+        padded = pad_to_multiple(numel, shards * max(int(align), 1))
+        layouts.append(BucketLayout(
+            indices=tuple(bucket), sizes=sizes, numel=numel,
+            padded_numel=padded, shard_numel=padded // shards))
+    return layouts
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchSchedule:
+    """Explicit dispatch order of a layer-aware fusion plan.
+
+    ``plan_fusion`` decides *what* fuses; this records *when* each bucket
+    may go to the wire under overlapped dispatch (ROADMAP item 3): the
+    backward pass produces gradients in reverse layer order, so a
+    bucket's collective can dispatch the moment its layer's backward
+    step completes.  ``order`` lists bucket indices in dispatch order —
+    descending layer first (layer L-1's gradients materialize first in
+    backprop), then the layer-less (-1) buckets, whose members (embeds,
+    final norms — parameters used outside the scanned stack) only
+    complete at the very end of the backward pass.  Pure plan metadata:
+    the traced program realizes this order structurally (the collectives
+    sit inside the backward scan), and the boundary fallback path
+    executes buckets in this order so both paths are one reviewable
+    schedule.
+    """
+    order: Tuple[int, ...]        # bucket indices, dispatch order
+    layers: Tuple[int, ...]       # layer key per bucket, plan order
+
+
+def plan_dispatch(entries: Sequence[EntrySig],
+                  buckets: Sequence[Sequence[int]]) -> DispatchSchedule:
+    """Compute the overlapped dispatch schedule of a fusion plan.
+
+    ``buckets`` is ``plan_fusion`` output over ``entries``; because
+    ``layer`` participates in ``bucket_key``, every bucket has exactly
+    one layer key.  Ties (several buckets on one layer — e.g. the
+    float32 and bfloat16 buckets of the same layer) keep plan order,
+    which is deterministic cross-process.
+    """
+    layers = tuple(entries[bucket[0]].layer for bucket in buckets)
+    for bi, bucket in enumerate(buckets):
+        for i in bucket:
+            if entries[i].layer != layers[bi]:
+                raise ValueError(
+                    f"bucket {bi} spans layers {layers[bi]} and "
+                    f"{entries[i].layer}: a bucket can only dispatch "
+                    f"when its LAST layer's gradients exist, so the "
+                    f"planner must never fuse across layers (is layer "
+                    f"missing from bucket_key()?)")
+    order = sorted(
+        range(len(buckets)),
+        # descending layer; layer -1 (no layer identity: gradients
+        # complete only at the end of backprop) dispatches last
+        key=lambda b: (0, -layers[b], b) if layers[b] >= 0 else (1, 0, b))
+    return DispatchSchedule(order=tuple(order), layers=layers)
 
 
 class ResponseCache:

@@ -1,24 +1,708 @@
-"""Data-parallel optimizer wrapping and state broadcast.
+"""The distributed optimizer: planned gradient buckets, ZeRO tiles, the
+quantized wire with error feedback, accumulation and overlapped dispatch.
 
-Counterpart: ``DistributedOptimizer``, ``broadcast_parameters`` and
-``broadcast_optimizer_state`` of ``horovod_tpu/torch/__init__.py`` (after
-``horovod/torch/optimizer.py`` and ``functions.py``).  Each parameter's
-``register_post_accumulate_grad_hook`` submits its gradient's allreduce as
-autograd produces it; the engine negotiates and fuses them, and ``step()``
-synchronizes.  Adasum and the JAX package's bucketed, sharded and
-quantized distributed optimizer are ROADMAP.md A5.
+Counterpart: ``horovod_tpu/optim/distributed.py`` (after
+``horovod/torch/optimizer.py``).  The JAX package reduces a gradient pytree
+inside its compiled step: the leaves, sorted by path, are planned into
+buckets by the engine's own ``plan_fusion`` and each bucket is reduced with
+one collective.  Here the same plan runs eagerly: :func:`fused_reduce_tree`
+and :func:`fused_reduce_scatter_tree` issue one ``torch.distributed``
+collective a bucket (``ops/collectives.py``) on the process set's group, in
+plan order, from the caller's thread.  Like the JAX in-jit path they do not
+negotiate: every rank runs the same plan in the same order.
+
+:func:`DistributedGradientTransform` is the optax transformation's
+counterpart.  It takes the factory of the inner optimizer (called with the
+tensors it updates, like ``make_llama_train_step``'s ``optimizer``);
+``init(params)`` builds a :class:`_DistState` and ``update(grads, state,
+params)`` reduces the gradients and runs the inner optimizer, which updates
+the parameters in place (the JAX transform returns updates instead).  Its
+options:
+
+* ``sharded_update`` (``HOROVOD_SHARDED_UPDATE``; ZeRO, arXiv:2004.13336):
+  each bucket is reduce-scattered, the inner optimizer and its state live
+  on this rank's 1/N flat tiles of the parameters, and the updated tiles
+  are all-gathered back into the parameters.
+* ``wire_format`` (``HOROVOD_COMPRESSION``, ``HOROVOD_COMPRESSION_BLOCK_SIZE``):
+  block-scaled int8/fp8 buckets with this rank's quantization error
+  carried in ``_DistState.residual`` and added back before the next
+  quantization.
+* ``backward_passes_per_step``: gradients accumulate locally and the
+  reduction and update run on every k-th call.
+* ``overlap`` (``HOROVOD_OVERLAP``): the layer-aware plan of
+  ``optim/overlap.py``, whose buckets the model's grad taps dispatch during
+  the backward pass.
+
+:func:`DistributedOptimizer` wraps a ``torch.optim`` optimizer the
+reference's way (per-parameter hooks, ``synchronize()``, ``step()``); its
+buckets come from the transform's plan.  Adasum, the tail policies and the
+hierarchical reduction are ROADMAP.md A5; ``param_specs`` A6; recovery A8;
+health taps A9.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from contextlib import contextmanager
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
-from .. import api
-from ..compression import Compression
-from ..runtime import Average
+from .. import api, runtime
+from ..compression import Compression, quantizable, resolve_wire_format
+from ..ops import collectives
+from ..ops.fusion import (BucketLayout, EntrySig, dtype_name,
+                          plan_bucket_layouts, plan_fusion)
+from ..runtime import Average, ReduceOp
+from ..tree import tree_leaves, tree_map, tree_paths
 
+
+# ---------------------------------------------------------------------------
+# trees, plans and flat buffers
+# ---------------------------------------------------------------------------
+
+def _tree_leaves_sorted(tree):
+    """Leaves in path-sorted order (the controller's total order on tensor
+    names): ``(leaves, names, order)``, ``order[pos]`` being the
+    :func:`tree_leaves` index of the ``pos``-th sorted leaf."""
+    leaves, names = tree_leaves(tree), tree_paths(tree)
+    order = sorted(range(len(leaves)), key=names.__getitem__)
+    return [leaves[i] for i in order], [names[i] for i in order], order
+
+
+def _restore_order(sorted_leaves, order):
+    out = [None] * len(order)
+    for pos, i in enumerate(order):
+        out[i] = sorted_leaves[pos]
+    return out
+
+
+def _unflatten(layout, sorted_leaves):
+    """A tree shaped like ``layout.skeleton`` from path-sorted leaves."""
+    it = iter(_restore_order(sorted_leaves, layout.order))
+    return tree_map(lambda _: next(it), layout.skeleton)
+
+
+def _resolve_threshold(threshold_bytes: Optional[int]) -> int:
+    if threshold_bytes is not None:
+        return threshold_bytes
+    cfg = runtime._state().config
+    return (cfg.fusion_threshold_bytes if cfg is not None
+            else 64 * 1024 * 1024)
+
+
+def _plan_buckets(leaves, names, op, prescale_factor, postscale_factor,
+                  threshold_bytes, wire_format: str = "none"):
+    """Leaves become EntrySigs named by their sorted paths, and the
+    engine's ``plan_fusion`` decides the buckets: the plan every rank
+    computes."""
+    sigs = [EntrySig(name=names[i], op_type="allreduce", reduce_op=str(op),
+                     dtype=dtype_name(leaves[i].dtype),
+                     shape=tuple(leaves[i].shape), process_set_id=0,
+                     stacked=False, prescale=prescale_factor,
+                     postscale=postscale_factor,
+                     wire_format=(wire_format if quantizable(leaves[i].dtype)
+                                  else "none"))
+            for i in range(len(leaves))]
+    return plan_fusion(sigs, threshold_bytes), sigs
+
+
+def _bucket_flat(parts: Sequence[torch.Tensor], padded_numel: int,
+                 pad: bool = True) -> torch.Tensor:
+    """A bucket's leaves as one flat buffer, zero-padded to
+    ``padded_numel``: a view of the leaf itself when the bucket is one
+    contiguous leaf needing no padding, else a new buffer."""
+    numel = sum(p.numel() for p in parts)
+    if len(parts) == 1 and parts[0].is_contiguous() \
+            and (numel == padded_numel or not pad):
+        return parts[0].view(-1)
+    flat = [p.reshape(-1) for p in parts]
+    if pad and padded_numel > numel:
+        flat.append(parts[0].new_zeros(padded_numel - numel))
+    return torch.cat(flat)
+
+
+def _split_into(buf: torch.Tensor, parts: Sequence[torch.Tensor]) -> None:
+    """Copy ``buf``'s leading elements into ``parts`` in order (nothing to
+    copy when ``buf`` is a view of the only part)."""
+    if len(parts) == 1 and buf.data_ptr() == parts[0].data_ptr() \
+            and buf.dtype == parts[0].dtype:
+        return
+    off = 0
+    for p in parts:
+        p.copy_(buf[off:off + p.numel()].view(p.shape))
+        off += p.numel()
+
+
+@torch.no_grad()
+def _tile_of(parts: Sequence[torch.Tensor], bl: BucketLayout,
+             rank: int) -> torch.Tensor:
+    """A copy of elements ``[rank·shard, (rank+1)·shard)`` of the bucket's
+    padded flat buffer, read from the leaves without building it."""
+    lo, hi = rank * bl.shard_numel, (rank + 1) * bl.shard_numel
+    out = parts[0].new_zeros(bl.shard_numel)
+    off = 0
+    for p, sz in zip(parts, bl.sizes):
+        a, b = max(lo, off), min(hi, off + sz)
+        if a < b:
+            out[a - lo:b - lo] = p.reshape(-1)[a - off:b - off]
+        off += sz
+    return out
+
+
+def _allreduce_flat_(buf: torch.Tensor, ps, op: str, prescale: float,
+                     postscale: float, compression=Compression.none) -> None:
+    """In place: ``buf`` × prescale, summed over ``ps`` (through the cast
+    compressor, if any), divided by the set's size for Average, ×
+    postscale (JAX ``fused_reduce_tree``'s full-width bucket)."""
+    if prescale != 1.0:
+        collectives._scale_(buf, prescale)
+    wire, ctx = compression.compress(buf)
+    dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=collectives._group(ps))
+    if wire is not buf:
+        buf.copy_(compression.decompress(wire, ctx))
+    if op == ReduceOp.AVERAGE and ps.size() > 1:   # x / 1 is x
+        collectives._average_(buf, ps.size())
+    if postscale != 1.0:
+        collectives._scale_(buf, postscale)
+
+
+def _check_wire(fmt, compression, op):
+    if fmt is None:
+        return
+    if compression not in (None, Compression.none):
+        raise ValueError(
+            "wire_format and compression are two definitions of the same "
+            "wire: pick the block-scaled quantized format OR the cast "
+            "compressor, not both")
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(
+            f"wire_format quantization supports op=Average/Sum, got "
+            f"{op!r}: min/max are not a quantize-accumulate staging")
+
+
+def _residual_leaves(residual, leaves):
+    """Path-sorted fp32 error-feedback leaves aligned with ``leaves``
+    (None: zeros, no error carried yet)."""
+    if residual is None:
+        return [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                for x in leaves]
+    r_leaves = _tree_leaves_sorted(residual)[0]
+    if len(r_leaves) != len(leaves):
+        raise ValueError(
+            f"error-feedback residual tree has {len(r_leaves)} leaves for "
+            f"{len(leaves)} gradient leaves: carry the residual from the "
+            f"previous step's return on the same tree")
+    return r_leaves
+
+
+# ---------------------------------------------------------------------------
+# replicated buckets
+# ---------------------------------------------------------------------------
+
+def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
+                      threshold_bytes: Optional[int] = None,
+                      compression=Compression.none,
+                      prescale_factor: float = 1.0,
+                      postscale_factor: float = 1.0,
+                      wire_format=None, residual=None):
+    """Reduce a gradient tree over the process set, one collective a
+    planned bucket, in place: returns ``grads`` with every leaf reduced.
+
+    ``wire_format`` quantizes each bucket of float leaves
+    (``ops.collectives.quantized_allreduce``) with error feedback:
+    ``residual`` is the grads-shaped fp32 tree of this rank's carried
+    error (None = zeros) and the return becomes ``(grads,
+    new_residual)``; buckets of other dtypes carry their residual
+    unchanged.
+    """
+    fmt = resolve_wire_format(wire_format)
+    leaves, names, order = _tree_leaves_sorted(grads)
+    if not leaves:
+        return grads if fmt is None else (grads, residual)
+    api._resolve_op(None, op)          # Adasum raises, naming its item
+    _check_wire(fmt, compression, op)
+    ps = api._ps(process_set)
+    buckets, sigs = _plan_buckets(leaves, names, op, prescale_factor,
+                                  postscale_factor,
+                                  _resolve_threshold(threshold_bytes),
+                                  wire_format=fmt.name if fmt else "none")
+    res = _residual_leaves(residual, leaves) if fmt is not None else None
+    for bucket in buckets:
+        parts = [leaves[i] for i in bucket]
+        numel = sum(p.numel() for p in parts)
+        if fmt is not None and sigs[bucket[0]].wire_format != "none":
+            buf = _bucket_flat(parts, numel)
+            if prescale_factor != 1.0:
+                buf = buf * torch.tensor(prescale_factor).to(buf.dtype)
+            red, nres = collectives.quantized_allreduce(
+                buf, ps, fmt, op=op, error_feedback=True,
+                residual=_bucket_flat([res[i] for i in bucket], numel))
+            if postscale_factor != 1.0:
+                collectives._scale_(red, postscale_factor)
+            _split_into(red, parts)
+            for i, piece in zip(bucket, nres.split(
+                    [leaves[i].numel() for i in bucket])):
+                res[i] = piece.view(leaves[i].shape)
+        else:
+            buf = _bucket_flat(parts, numel)
+            _allreduce_flat_(buf, ps, op, prescale_factor, postscale_factor,
+                             compression)
+            _split_into(buf, parts)
+    if fmt is None:
+        return grads
+    it = iter(_restore_order(res, order))
+    return grads, tree_map(lambda _: next(it), grads)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO: reduce-scattered buckets and tiles
+# ---------------------------------------------------------------------------
+
+class ShardedLayout(NamedTuple):
+    """Slice metadata of reduce-scattered buckets: the tree's structure,
+    the path-sort permutation, the sorted leaves' shapes, and each planned
+    bucket's padded flat layout (``ops.fusion.BucketLayout``)."""
+    skeleton: Any
+    order: Tuple[int, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    buckets: Tuple[BucketLayout, ...]
+
+    def fingerprint(self) -> Tuple:
+        return (self.shapes, self.buckets)
+
+
+def _sharded_layout(tree, shards: int, op, prescale_factor,
+                    postscale_factor, threshold_bytes, align: int = 1):
+    """The ``plan_fusion`` buckets of ``tree``, each padded to a multiple
+    of ``shards`` (times ``align``: a quantized wire needs block-aligned
+    tiles).  Returns ``(sorted_leaves, sorted_names, layout)``."""
+    leaves, names, order = _tree_leaves_sorted(tree)
+    buckets, sigs = _plan_buckets(leaves, names, op, prescale_factor,
+                                  postscale_factor, threshold_bytes)
+    return leaves, names, ShardedLayout(
+        skeleton=tree_map(lambda _: None, tree), order=tuple(order),
+        shapes=tuple(tuple(x.shape) for x in leaves),
+        buckets=tuple(plan_bucket_layouts(sigs, buckets, shards,
+                                          align=align)))
+
+
+def shard_tree_like(tree, layout: ShardedLayout, process_set=None):
+    """This rank's flat tile of each bucket of ``tree`` (e.g. the
+    parameters) under ``layout``: the tensors the sharded state lives on."""
+    leaves = _tree_leaves_sorted(tree)[0]
+    rank = api._ps(process_set).rank()
+    return tuple(_tile_of([leaves[i] for i in bl.indices], bl, rank)
+                 for bl in layout.buckets)
+
+
+def fused_reduce_scatter_tree(grads, process_set=None,
+                              op: str = ReduceOp.AVERAGE,
+                              threshold_bytes: Optional[int] = None,
+                              compression=Compression.none,
+                              prescale_factor: float = 1.0,
+                              postscale_factor: float = 1.0,
+                              wire_format=None, residual=None):
+    """Reduce-scatter a gradient tree: each rank keeps its 1/N tile of
+    every planned bucket.  Returns ``(tiles, layout)``, the tiles fully
+    scaled and averaged; with a ``wire_format`` the scatter is quantized
+    with error feedback (``residual`` as in :func:`fused_reduce_tree`) and
+    the return is ``(tiles, layout, new_residual)``, the buckets padded to
+    a multiple of ``size × block_size``."""
+    if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+        raise ValueError(
+            f"fused_reduce_scatter_tree supports op=Average/Sum, got "
+            f"{op!r}: Adasum and min/max are not a reduce-scatter of tiles")
+    fmt = resolve_wire_format(wire_format)
+    _check_wire(fmt, compression, op)
+    ps = api._ps(process_set)
+    n = ps.size()
+    leaves, _, layout = _sharded_layout(
+        grads, n, op, prescale_factor, postscale_factor,
+        _resolve_threshold(threshold_bytes),
+        align=fmt.block_size if fmt else 1)
+    res = _residual_leaves(residual, leaves) if fmt is not None else None
+    tiles = []
+    for bl in layout.buckets:
+        parts = [leaves[i] for i in bl.indices]
+        buf = _bucket_flat(parts, bl.padded_numel)
+        if prescale_factor != 1.0:
+            buf = buf * torch.tensor(prescale_factor).to(buf.dtype)
+        if fmt is not None:
+            rbuf = _bucket_flat([res[i] for i in bl.indices],
+                                bl.padded_numel).float()
+            tile, nres = collectives.quantized_sum_scatter(
+                buf.float() + rbuf, ps, fmt, error_feedback=True)
+            tile = tile.to(buf.dtype)
+            off = 0
+            for i, sz in zip(bl.indices, bl.sizes):
+                res[i] = nres[off:off + sz].view(leaves[i].shape)
+                off += sz
+        else:
+            wire, ctx = compression.compress(buf)
+            tile = compression.decompress(
+                collectives.reduce_scatter_flat(wire, ps), ctx)
+        if op == ReduceOp.AVERAGE and n > 1:
+            tile = tile / n
+        if postscale_factor != 1.0:
+            collectives._scale_(tile, postscale_factor)
+        tiles.append(tile)
+    if fmt is None:
+        return tuple(tiles), layout
+    return tuple(tiles), layout, _unflatten(layout, res)
+
+
+def sharded_tile_layout(tree, shards: int, op: str = ReduceOp.AVERAGE,
+                        threshold_bytes: Optional[int] = None,
+                        align: int = 1) -> ShardedLayout:
+    """The ZeRO bucket and tile layout of ``tree`` over ``shards`` ranks,
+    from shapes and dtypes alone (``meta`` tensors will do): per-rank
+    sharded state is priced exactly from ``buckets[i].shard_numel``."""
+    return _sharded_layout(tree, shards, op, 1.0, 1.0,
+                           _resolve_threshold(threshold_bytes),
+                           align=align)[2]
+
+
+def all_gather_sharded_tree(tiles, layout: ShardedLayout, process_set=None,
+                            out=None):
+    """The full tree from every rank's tiles: one all-gather a bucket, then
+    unpad and split.  With ``out`` (a tree like the planned one) the values
+    are copied into its leaves and ``out`` is returned."""
+    if len(tiles) != len(layout.buckets):
+        raise ValueError(
+            f"got {len(tiles)} shard(s) for a layout of "
+            f"{len(layout.buckets)} bucket(s): the shards and the layout "
+            f"come from different plans (e.g. a stale layout after a "
+            f"fusion-threshold change)")
+    ps = api._ps(process_set)
+    dst = _tree_leaves_sorted(out)[0] if out is not None else None
+    pieces: List[Optional[torch.Tensor]] = [None] * len(layout.shapes)
+    for bl, tile in zip(layout.buckets, tiles):
+        full = collectives.all_gather_flat(tile, ps)
+        if dst is not None:
+            _split_into(full, [dst[i] for i in bl.indices])
+            continue
+        off = 0
+        for i, sz in zip(bl.indices, bl.sizes):
+            pieces[i] = full[off:off + sz].view(layout.shapes[i])
+            off += sz
+    return out if out is not None else _unflatten(layout, pieces)
+
+
+@torch.no_grad()
+def _step_tiles(opt, p_tiles, g_tiles, layout, params, ps) -> None:
+    """The 1/N update: refresh this rank's parameter tiles from
+    ``params`` (the caller may have changed them since the last gather),
+    step ``opt`` over them with ``g_tiles`` as gradients, and all-gather
+    the updated tiles back into ``params``."""
+    sorted_p = _tree_leaves_sorted(params)[0]
+    for t, g, bl in zip(p_tiles, g_tiles, layout.buckets):
+        t.copy_(_tile_of([sorted_p[i] for i in bl.indices], bl, ps.rank()))
+        t.grad = g
+    opt.step()
+    for t in p_tiles:
+        t.grad = None
+    for bl, t in zip(layout.buckets, p_tiles):
+        _split_into(collectives.all_gather_flat(t, ps),
+                    [sorted_p[i] for i in bl.indices])
+
+
+# ---------------------------------------------------------------------------
+# the transform
+# ---------------------------------------------------------------------------
+
+def _config():
+    return runtime._state().config
+
+
+def _sharded_update_default() -> bool:
+    """HOROVOD_SHARDED_UPDATE, from the runtime's config or the env."""
+    from ..config import _env_bool
+    cfg = _config()
+    return (cfg.sharded_update if cfg is not None
+            else _env_bool("HOROVOD_SHARDED_UPDATE", False))
+
+
+def _overlap_default() -> bool:
+    """HOROVOD_OVERLAP, from the runtime's config or the env."""
+    from ..config import _env_bool
+    cfg = _config()
+    return (cfg.overlap if cfg is not None
+            else _env_bool("HOROVOD_OVERLAP", False))
+
+
+def _wire_format_default():
+    """(HOROVOD_COMPRESSION, HOROVOD_COMPRESSION_BLOCK_SIZE).
+    HOROVOD_COMPRESSION_DCN_ONLY is not read here, as in the JAX package:
+    the transform carries its quantization error in its state, which is
+    what makes quantizing its whole reduction safe."""
+    cfg = _config()
+    if cfg is not None:
+        return cfg.compression, cfg.compression_block_size
+    return (os.environ.get("HOROVOD_COMPRESSION", "none") or "none",
+            int(os.environ.get("HOROVOD_COMPRESSION_BLOCK_SIZE", 0) or 0)
+            or None)
+
+
+@dataclasses.dataclass
+class _DistState:
+    """The transform's state (JAX ``_DistState``): the inner optimizer,
+    the accumulator of ``backward_passes_per_step``, the call counter and
+    the error-feedback residual; under ``sharded_update`` also this rank's
+    parameter tiles, which the inner optimizer updates, and their layout.
+    ``params`` is the parameter tree ``init`` was given."""
+    inner: Any
+    acc: Any
+    count: int
+    residual: Any = None
+    tiles: Optional[Tuple[torch.Tensor, ...]] = None
+    layout: Any = None
+    params: Any = None
+
+
+class GradientTransformation(NamedTuple):
+    """``init(params) -> state``; ``update(grads, state, params=None) ->
+    state``, the parameters updated in place.  ``update`` is ``reduce``
+    then ``apply``: ``reduce(grads, state)`` returns the reduced gradient
+    leaves (tree order), or this rank's tiles under ``sharded_update``;
+    ``apply(reduced, state)`` runs the inner optimizer with them."""
+    init: Callable
+    update: Callable
+    reduce: Callable
+    apply: Callable
+
+
+def DistributedGradientTransform(
+        inner: Optional[Callable[[List[torch.Tensor]],
+                                 torch.optim.Optimizer]] = None,
+        op: str = ReduceOp.AVERAGE,
+        process_set=None,
+        backward_passes_per_step: int = 1,
+        compression=Compression.none,
+        prescale_factor: float = 1.0,
+        postscale_factor: float = 1.0,
+        threshold_bytes: Optional[int] = None,
+        sharded_update: Optional[bool] = None,
+        wire_format: Optional[str] = None,
+        wire_block_size: Optional[int] = None,
+        overlap: Optional[bool] = None,
+        overlap_layers: str = "layers",
+        health: Optional[bool] = None,
+        health_check_every: Optional[int] = None,
+        param_specs=None,
+        model_axes: Optional[Tuple[str, ...]] = None,
+        recovery=None) -> GradientTransformation:
+    """Reduce gradients over the process set, then run ``inner``.
+
+    ``inner`` is called with the tensors to update: the parameter leaves,
+    or under ``sharded_update`` this rank's flat tiles of them.  Each
+    ``update`` reduces ``grads`` (a tree like the parameters) by the
+    transform's plan, sets the reduced gradients (or tiles) as the
+    ``.grad`` of those tensors, steps ``inner`` and, sharded, all-gathers
+    the updated tiles back into the parameters.  See the module docstring
+    for the options; their defaults come from ``HOROVOD_SHARDED_UPDATE``,
+    ``HOROVOD_COMPRESSION`` (+ ``_BLOCK_SIZE``) and ``HOROVOD_OVERLAP``.
+    Under ``overlap`` a wire format quantizes without error feedback and
+    the residual stays None, as in the JAX package.
+    """
+    for arg, on, what, item in (
+            ("health", bool(health), "the in-step health taps", "A9"),
+            ("health_check_every", health_check_every is not None,
+             "the divergence sentinel", "A9"),
+            ("recovery", recovery is not None, "checkpointless recovery",
+             "A8"),
+            ("param_specs", param_specs is not None, "spec-aware reduction",
+             "A6"),
+            ("model_axes", model_axes is not None, "spec-aware reduction",
+             "A6")):
+        if on:
+            raise NotImplementedError(
+                f"DistributedGradientTransform({arg}=...): {what} is not "
+                f"ported yet (ROADMAP.md {item})")
+    if inner is None:
+        raise ValueError(
+            "DistributedGradientTransform needs the inner optimizer's "
+            "factory (called with the tensors it updates)")
+    api._resolve_op(None, op)          # Adasum raises, naming its item
+    k = int(backward_passes_per_step)
+    if k < 1:
+        raise ValueError(f"backward_passes_per_step must be >= 1, got {k}")
+    sharded = (bool(sharded_update) if sharded_update is not None
+               else _sharded_update_default())
+    if sharded and op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+        raise ValueError(
+            f"sharded_update supports op=Average/Sum, got {op!r}")
+    if wire_format is None:
+        env_fmt, env_block = _wire_format_default()
+        fmt = resolve_wire_format(env_fmt,
+                                  wire_block_size or env_block or None)
+    else:
+        fmt = resolve_wire_format(wire_format, wire_block_size)
+    _check_wire(fmt, compression, op)
+    ov = bool(overlap) if overlap is not None else _overlap_default()
+    ov_plan = None
+    if ov:
+        if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+            raise ValueError(
+                f"overlap supports op=Average/Sum, got {op!r}: the "
+                f"reduction must split into per-layer buckets")
+        if compression not in (None, Compression.none):
+            raise ValueError(
+                "overlap does not support the cast compressor: use "
+                "wire_format for a quantized wire (feedback-free under "
+                "overlap) or no compression")
+        from . import overlap as _ov
+        ov_plan = _ov.OverlapPlan(
+            process_set=None, op=op, threshold_bytes=threshold_bytes,
+            prescale=prescale_factor, postscale=postscale_factor,
+            sharded=sharded, fmt=fmt, k=k, layers_key=overlap_layers)
+    kw = dict(op=op, threshold_bytes=threshold_bytes,
+              prescale_factor=prescale_factor,
+              postscale_factor=postscale_factor)
+
+    def init_fn(params) -> _DistState:
+        ps = api._ps(process_set)
+        leaves = tree_leaves(params)
+        acc = tree_map(torch.zeros_like, params) if k > 1 else None
+        residual = (tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+            if fmt is not None and ov_plan is None else None)
+        tiles = layout = None
+        if ov_plan is not None:
+            from . import overlap as _ov
+            ov_plan.process_set = ps
+            sorted_leaves, layout = _ov.build_layout(
+                params, ov_plan, ps.size() if sharded else 1)
+            ov_plan.layout = layout
+            ov_plan.index = {id(x): i for i, x in enumerate(sorted_leaves)}
+            if sharded:
+                tiles = _ov.carve_tiles(params, ov_plan, layout)[0]
+        elif sharded:
+            _, _, layout = _sharded_layout(
+                params, ps.size(), op, prescale_factor, postscale_factor,
+                _resolve_threshold(threshold_bytes),
+                align=fmt.block_size if fmt else 1)
+            tiles = shard_tree_like(params, layout, ps)
+        opt = inner(list(tiles) if sharded else leaves)
+        return _DistState(inner=opt, acc=acc, count=0, residual=residual,
+                          tiles=tiles, layout=layout, params=params)
+
+    def apply_fn(reduced, state: _DistState, keep_grads: bool = False):
+        if sharded:
+            _step_tiles(state.inner, state.tiles, reduced, state.layout,
+                        state.params, api._ps(process_set))
+            return
+        params = tree_leaves(state.params)
+        for p, g in zip(params, reduced):
+            p.grad = g
+        state.inner.step()
+        if not keep_grads:
+            for p in params:
+                p.grad = None
+
+    def _check_layout(layout, state: _DistState):
+        if layout.fingerprint() != state.layout.fingerprint():
+            raise ValueError(
+                "sharded_update requires gradients and params to share one "
+                "bucket layout, but they plan differently (dtype or "
+                "structure divergence between the gradient tree and the "
+                "param tree)")
+
+    def _reduce(grads, state: _DistState):
+        red_kw = dict(kw, process_set=process_set)
+        if sharded:
+            if fmt is not None:
+                tiles, layout, state.residual = fused_reduce_scatter_tree(
+                    grads, wire_format=fmt, residual=state.residual,
+                    **red_kw)
+            else:
+                tiles, layout = fused_reduce_scatter_tree(
+                    grads, compression=compression, **red_kw)
+            _check_layout(layout, state)
+            return list(tiles)
+        if fmt is not None:
+            grads, state.residual = fused_reduce_tree(
+                grads, wire_format=fmt, residual=state.residual, **red_kw)
+        else:
+            grads = fused_reduce_tree(grads, compression=compression,
+                                      **red_kw)
+        return tree_leaves(grads)
+
+    def _ov_reduce(grads, state: _DistState, pending, extra_acc=None):
+        """The overlapped plan's reduction: the dispatch's buckets when
+        the taps fired (``pending``), else the same plan run here; with
+        ``extra_acc`` (the accumulated micro-steps of k > 1, reduced here)
+        folded in as ``(R(acc) + R(grads)) / k``."""
+        from . import overlap as _ov
+        if sharded:
+            red = (pending.finish() if pending is not None
+                   else list(_ov.scatter_tiles(grads, ov_plan,
+                                               state.layout)[0]))
+            acc = (None if extra_acc is None else
+                   _ov.scatter_tiles(extra_acc, ov_plan, state.layout)[0])
+        else:
+            red = (_restore_order(pending.finish(), state.layout.order)
+                   if pending is not None else
+                   tree_leaves(_ov.reduce_full(grads, ov_plan,
+                                               state.layout)))
+            acc = (None if extra_acc is None else tree_leaves(
+                _ov.reduce_full(extra_acc, ov_plan, state.layout)))
+        if acc is not None:
+            red = [(a + g) / k for a, g in zip(acc, red)]
+        return red
+
+    def reduce_fn(grads, state: _DistState):
+        if ov_plan is not None:
+            return _ov_reduce(grads, state, ov_plan.consume())
+        return _reduce(grads, state)
+
+    def update_fn(grads, state: _DistState, params=None) -> _DistState:
+        if params is not None and len(tree_leaves(params)) != \
+                len(tree_leaves(state.params)):
+            raise ValueError("update() got another parameter tree than "
+                             "init()")
+        if k == 1:
+            apply_fn(reduce_fn(grads, state), state)
+            return state
+        state.count += 1
+        boundary = state.count % k == 0
+        if ov_plan is not None:
+            pending = ov_plan.consume()
+            if boundary:
+                apply_fn(_ov_reduce(grads, state, pending,
+                                    extra_acc=state.acc), state)
+                for a in tree_leaves(state.acc):
+                    a.zero_()
+            elif pending is not None:
+                raise ValueError(
+                    "overlap: grad taps fired on a step that does not "
+                    "complete the accumulation; pass count=state.count "
+                    "to overlapped_backprop")
+            else:
+                for a, g in zip(tree_leaves(state.acc), tree_leaves(grads)):
+                    a.add_(g)
+            return state
+        for a, g in zip(tree_leaves(state.acc), tree_leaves(grads)):
+            a.add_(g)
+        if boundary:
+            for a in tree_leaves(state.acc):
+                a.div_(k)
+            apply_fn(_reduce(state.acc, state), state)
+            for a in tree_leaves(state.acc):
+                a.zero_()
+        return state
+
+    if ov_plan is not None:
+        from . import overlap as _ov
+        _ov.register_transform(update_fn, ov_plan)
+    return GradientTransformation(init_fn, update_fn, reduce_fn, apply_fn)
+
+
+# ---------------------------------------------------------------------------
+# the torch optimizer wrapper and the broadcasts
+# ---------------------------------------------------------------------------
 
 def broadcast_parameters(params, root_rank: int = 0, process_set=None):
     """Broadcast parameters from ``root_rank`` to every rank, in place.
@@ -51,64 +735,85 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def _hvd_init(self, named_parameters, compression,
                   backward_passes_per_step, op, gradient_predivide_factor,
-                  process_set):
+                  process_set, threshold_bytes, sharded_update, wire_format,
+                  wire_block_size, overlap, overlap_layers):
         if gradient_predivide_factor != 1.0 and op != Average:
             raise ValueError(
                 "gradient_predivide_factor requires op == Average")
         api._resolve_op(None, op)   # Adasum raises, naming its item
-        self._compression = compression
         self._bpps = int(backward_passes_per_step)
-        self._op = op
-        self._process_set = process_set
-        # divide before the cross-rank sum, multiply back after
-        self._prescale = 1.0 / gradient_predivide_factor
-        self._postscale = gradient_predivide_factor
-        self._handles = {}
-        self._passes = {}
         self._should_synchronize = True
-
         named = list(named_parameters) if named_parameters is not None \
             else []
         names_only = [nm for nm, _ in named]
         dup = {n for n in names_only if names_only.count(n) > 1}
         if dup:
             raise ValueError(f"duplicate parameter names: {sorted(dup)}")
-        self._param_names = {p: nm for nm, p in named}
-        # deterministic group-order names for the rest: identical on every
-        # rank running the same model, which negotiation requires
+        by_param = {p: nm for nm, p in named}
+        # deterministic group-order names for the rest: the same on every
+        # rank running the same model, which the static plan requires
         for gi, group in enumerate(self.param_groups):
             for pi, p in enumerate(group["params"]):
-                self._param_names.setdefault(p, f"group{gi}.param{pi}")
-        self._hook_refs = [
-            p.register_post_accumulate_grad_hook(self._make_hook(p))
-            for g in self.param_groups for p in g["params"]
-            if p.requires_grad]
-        self._passes = {p: 0 for g in self.param_groups
-                        for p in g["params"] if p.requires_grad}
+                by_param.setdefault(p, f"group{gi}.param{pi}")
+        self._named = {by_param[p]: p for g in self.param_groups
+                       for p in g["params"] if p.requires_grad}
+        ps = api._ps(process_set)
+        self._process_set = ps
+        # the plan is the transform's, built over the named parameters;
+        # its inner optimizer is this one's base step, or the base class
+        # over this rank's tiles
+        sharded = (bool(sharded_update) if sharded_update is not None
+                   else _sharded_update_default())
+        if sharded and len(self.param_groups) != 1:
+            raise ValueError("sharded_update needs one parameter group: "
+                             "its state lives on flat tiles of all of them")
+        base = self._hvd_base
+        inner = ((lambda tiles: base(tiles, **self.defaults)) if sharded
+                 else (lambda _leaves: _BaseStep(self)))
+        self._tx = DistributedGradientTransform(
+            inner, op=op, process_set=ps, compression=compression,
+            prescale_factor=1.0 / gradient_predivide_factor,
+            postscale_factor=gradient_predivide_factor,
+            threshold_bytes=threshold_bytes, sharded_update=sharded,
+            wire_format=wire_format, wire_block_size=wire_block_size,
+            overlap=overlap, overlap_layers=overlap_layers)
+        self._dist = self._tx.init(self._named)
+        self._plan = None
+        if overlap or (overlap is None and _overlap_default()):
+            from . import overlap as _ov
+            self._plan = _ov.plan_for(self._tx)
+        self._dispatch = None
+        self._reduced = None
+        self._passes = {p: 0 for p in self._named.values()}
+        self._hook_refs = [p.register_post_accumulate_grad_hook(
+            self._make_hook(nm)) for nm, p in self._named.items()]
 
-    def _make_hook(self, p):
+    def _make_hook(self, name):
         def hook(param):
-            self._passes[p] += 1
-            if self._passes[p] % self._bpps:
+            self._passes[param] += 1
+            if self._plan is None or self._passes[param] % self._bpps:
                 return
-            wire, ctx = self._compression.compress(param.grad)
-            submit = (api.allreduce_async_ if wire is param.grad
-                      else api.allreduce_async)
-            h = submit(wire, name="ar." + self._param_names[p], op=self._op,
-                       prescale_factor=self._prescale,
-                       postscale_factor=self._postscale,
-                       process_set=self._process_set)
-            self._handles[p] = (h, ctx)
+            # overlapped dispatch: the gradient joins its bucket, which
+            # goes out once its leaves are in and its turn has come
+            from . import overlap as _ov
+            if self._dispatch is None:
+                self._dispatch = _ov._Dispatch(self._plan)
+            self._dispatch.arrive([self._plan.index[id(param)]],
+                                  [param.grad])
         return hook
 
     def synchronize(self):
-        """Wait for every submitted gradient allreduce and write the
-        reduced gradients into ``p.grad`` (reference: synchronize)."""
-        for p, (h, ctx) in list(self._handles.items()):
-            out = h.synchronize()
-            if out is not p.grad:
-                p.grad.copy_(self._compression.decompress(out, ctx))
-        self._handles.clear()
+        """Reduce the gradients by the plan, in place into ``p.grad``
+        (reference: synchronize); under ``sharded_update`` this rank's
+        reduced tiles are kept for ``step()`` instead."""
+        if self._reduced is not None:
+            return
+        grads = {nm: (p.grad if p.grad is not None else
+                      torch.zeros_like(p))
+                 for nm, p in self._named.items()}
+        if self._dispatch is not None:
+            self._plan._pending, self._dispatch = self._dispatch, None
+        self._reduced = self._tx.reduce(grads, self._dist)
 
     @contextmanager
     def skip_synchronize(self):
@@ -123,15 +828,33 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def step(self, closure=None):
         if self._should_synchronize:
             self.synchronize()
-        # explicit base call: these methods live on a dynamic subclass
-        return self._hvd_base.step(self, closure)
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        self._tx.apply(self._reduced, self._dist, keep_grads=True)
+        self._reduced = None
+        for p in self._passes:
+            self._passes[p] = 0
+        return loss
 
     def zero_grad(self, *args, **kwargs):
-        if self._handles:
+        if self._dispatch is not None:
             raise AssertionError(
                 "zero_grad called with allreduces in flight; call "
                 "optimizer.step() (or synchronize()) first")
         return self._hvd_base.zero_grad(self, *args, **kwargs)
+
+
+class _BaseStep:
+    """The wrapped optimizer's own ``step`` as the transform's inner
+    optimizer (the transform sets ``p.grad`` to the reduced gradients)."""
+
+    def __init__(self, opt):
+        self._opt = opt
+
+    def step(self):
+        return self._opt._hvd_base.step(self._opt)
 
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
@@ -140,12 +863,26 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          backward_passes_per_step: int = 1,
                          op=Average,
                          gradient_predivide_factor: float = 1.0,
-                         process_set=None):
+                         process_set=None,
+                         threshold_bytes: Optional[int] = None,
+                         sharded_update: Optional[bool] = None,
+                         wire_format: Optional[str] = None,
+                         wire_block_size: Optional[int] = None,
+                         overlap: Optional[bool] = None,
+                         overlap_layers: str = "layers"):
     """Wrap a torch optimizer with cross-rank gradient averaging.
 
-    Hooks submit each gradient's allreduce as autograd accumulates it;
-    ``step()`` waits for them.  ``backward_passes_per_step`` accumulates
-    that many local backward passes per reduction.
+    The gradients are reduced by the :func:`DistributedGradientTransform`
+    plan over the named parameters (``threshold_bytes``, ``sharded_update``,
+    ``wire_format``/``wire_block_size`` and ``overlap``/``overlap_layers`` as
+    there): in ``step()`` (or ``synchronize()``), or with ``overlap``,
+    bucket by bucket from the parameters' post-accumulate hooks as the
+    backward pass produces them.  ``backward_passes_per_step`` lets that
+    many backward passes accumulate into ``p.grad`` before a reduction;
+    ``gradient_predivide_factor`` divides before the sum and multiplies
+    after.  Under ``sharded_update`` the wrapped optimizer's class and
+    hyper-parameters step this rank's flat tiles (one parameter group), and
+    ``p.grad`` keeps the local gradients.
     """
     base = optimizer.__class__
     cls = type(base.__name__, (base,), dict(_DistributedOptimizer.__dict__))
@@ -153,5 +890,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     optimizer._hvd_base = base
     optimizer._hvd_init(named_parameters, compression,
                         backward_passes_per_step, op,
-                        gradient_predivide_factor, process_set)
+                        gradient_predivide_factor, process_set,
+                        threshold_bytes, sharded_update, wire_format,
+                        wire_block_size, overlap, overlap_layers)
     return optimizer

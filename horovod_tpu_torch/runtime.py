@@ -43,8 +43,6 @@ logger = logging.getLogger("horovod_tpu_torch")
 #: how long a process group waits in one collective, and the bound of a
 #: negotiation round, when HOROVOD_STALL_SHUTDOWN_TIME_SECONDS is 0
 DEFAULT_TIMEOUT_S = 300.0
-#: how long shutdown waits for the other ranks before destroying the group
-SHUTDOWN_BARRIER_S = 15.0
 
 
 # Reduction op enums, mirroring the reference's hvd.Sum/Average/Adasum/Min/Max
@@ -260,6 +258,11 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
             raise RuntimeError(
                 "torch.distributed's default process group already exists; "
                 "hvd.init() creates and owns it")
+        # the first torch.optim optimizer imports dynamo; imported while a
+        # default group exists, dynamo's distributed modules keep that
+        # group, and with it rank 0's store and port, alive past shutdown,
+        # so a later init could not listen again
+        import torch._dynamo  # noqa: F401
         cfg = Config.from_env()
         _setup_logging(cfg)
         size = cfg.size if cfg.size is not None else 1
@@ -326,32 +329,55 @@ def shutdown():
         st = _STATE
         if not st.initialized:
             return
+        ctl = st.engine._controller if st.engine is not None else None
+        # a client rank keeps its connection until rank 0's server is
+        # gone: returning earlier, a re-init could reach the old server
+        client = st.store if st.size > 1 and st.rank != 0 else None
         try:
             if st.engine is not None:
                 st.engine.stop()
             if st.size > 1:
                 _shutdown_barrier(st)
         finally:
+            if ctl is not None:
+                ctl.release()
             dist.destroy_process_group()
             st.initialized = False
             st.engine = None
             st.store = None
             st.global_process_set = None
             st.process_set_table.clear()
+            if client is not None:
+                _await_server_close(client, timeout_s(st.config))
 
 
 def _shutdown_barrier(st: _RuntimeState):
-    """Wait (bounded) until every rank has reached shutdown, so rank 0's
-    store outlives the other ranks' last key deletions."""
+    """Wait until every rank has reached shutdown, at most as long as one
+    collective may take: a rank may still be reading the last negotiation
+    round, whose keys and rank 0's store must outlive it."""
     key = f"hvd_shutdown/{st.namespace}"
     try:
         st.store.add(key, 1)
-        deadline = time.monotonic() + SHUTDOWN_BARRIER_S
+        deadline = time.monotonic() + timeout_s(st.config)
         while (st.store.add(key, 0) < st.size
                and time.monotonic() < deadline):
             time.sleep(0.005)
     except (RuntimeError, dist.DistError):  # a peer's store may be gone
         logger.debug("shutdown barrier failed", exc_info=True)
+
+
+def _await_server_close(client, limit_s: float) -> None:
+    """Poll rank 0's store through ``client`` until its server has closed
+    (bounded by ``limit_s``)."""
+    deadline = time.monotonic() + limit_s
+    try:
+        while time.monotonic() < deadline:
+            client.check(["hvd_shutdown/closed"])
+            time.sleep(0.005)
+        logger.warning("rank 0's store still answers %.0f s after shutdown",
+                       limit_s)
+    except (RuntimeError, dist.DistError):
+        pass    # closed: the next init cannot reach the old server
 
 
 def is_initialized() -> bool:

@@ -5,16 +5,27 @@ Counterpart: ``horovod_tpu/training.py``.  The JAX package compiles one
 gradients by autograd (attention through the flash kernels), the gradient
 plane, then the optimizer's in-place update.
 
-The step is data-parallel and non-overlapped (the JAX ``shard_step``).
-When the runtime is initialized (``hvd.init()``; the mesh then holds the
-global process set), the gradient plane is the engine's: every gradient
-leaf, in leaf order, and the loss are submitted at once as in-place
-allreduces (op Sum, postscale 1/(dp·sp), as the JAX step scales after its
-psum), which the engine plans into buckets of ``HOROVOD_FUSION_THRESHOLD``
-bytes and reduces over NCCL, or gloo, at every world size, 1 included.
-Without ``hvd.init()`` the step runs on one device and reduces nothing.
-``overlap=True``, ``zero1``, ``grad_accum > 1`` and ``attn="ulysses"``
-raise ``NotImplementedError``.
+The step is data-parallel.  When the runtime is initialized (``hvd.init()``;
+the mesh then holds the global process set), the gradient plane is:
+
+* by default the engine's: every gradient leaf, in leaf order, and the loss
+  are submitted at once as in-place allreduces (op Sum, postscale
+  1/(dp·sp), as the JAX step scales after its psum), which the engine plans
+  into buckets of ``HOROVOD_FUSION_THRESHOLD`` bytes and reduces over NCCL,
+  or gloo, at every world size, 1 included;
+* with ``zero1=True`` (ZeRO stage 1) each leaf whose leading axis divides by
+  dp is reduce-scattered along it, this rank updates its rows with 1/dp of
+  their optimizer state, and the updated rows are all-gathered; the other
+  leaves and the loss go through the engine as above;
+* with ``overlap=True``, ``DistributedGradientTransform(op=Average,
+  overlap=True)``: the model's grad taps dispatch each layer's buckets
+  during the backward pass (``optim/overlap.py``), composed with
+  ``HOROVOD_COMPRESSION`` and ``HOROVOD_SHARDED_UPDATE``.
+
+``grad_accum=k`` sums the losses and gradients of k microbatches of B/k,
+scales them by 1/k, then reduces once and updates once.  Without
+``hvd.init()`` the step runs on one device and reduces nothing.
+``attn="ulysses"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +39,9 @@ import torch
 from . import DeviceLike, api, resolve_device, runtime
 from .models import llama as llama_mod
 from .models.llama import LlamaConfig, ParallelSpec
+from .ops import collectives
+from .optim import overlap as overlap_mod
+from .optim.distributed import DistributedGradientTransform
 from .parallel.mesh import MeshConfig, ParallelMesh
 from .tree import tree_leaves, tree_map, tree_paths
 
@@ -46,6 +60,9 @@ class TrainStep:
     par: ParallelSpec
     mesh: ParallelMesh
     device: torch.device
+    # the overlapped step's DistributedGradientTransform (its plan is
+    # optim.overlap.plan_for(transform)); None for the other steps
+    transform: Any = None
 
 
 def _axis_or_none(pmesh: ParallelMesh, name: str) -> Optional[str]:
@@ -75,7 +92,10 @@ def make_llama_train_step(cfg: LlamaConfig,
                           grad_accum: int = 0,
                           overlap: bool = False,
                           device: DeviceLike = None) -> TrainStep:
-    """Build the data-parallel Llama train step.
+    """Build the data-parallel Llama train step (``zero1``, ``grad_accum``
+    and ``overlap`` as the module docstring says, with the JAX package's
+    composition rules: ``overlap`` refuses ``zero1``, ``grad_accum``, MoE
+    and meshes other than dp-only, and needs ``hvd.init()``).
 
     ``optimizer`` is a factory called with the list of parameters
     (``optim.precision.adamw_lp(lr)`` or a ``torch.optim`` class bound to
@@ -84,13 +104,9 @@ def make_llama_train_step(cfg: LlamaConfig,
     initialized, else to one device: ``device``, or the CUDA device when
     ``device`` is None (raising without one; pass ``device="cpu"``).
     """
-    for flag, on, item in (("overlap=True", overlap, "A5"),
-                           ("zero1=True", zero1, "A5"),
-                           (f"grad_accum={grad_accum}", grad_accum > 1, "A5"),
-                           ("attn='ulysses'", attn == "ulysses", "A6")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md {item})")
+    if attn == "ulysses":
+        raise NotImplementedError(
+            "attn='ulysses' is not ported yet (ROADMAP.md A6)")
     if pmesh is None and runtime.is_initialized():
         pmesh = ParallelMesh(MeshConfig(dp=runtime.size()))
     if pmesh is None:
@@ -100,63 +116,170 @@ def make_llama_train_step(cfg: LlamaConfig,
                          f"{pmesh.devices[0]}")
     device = pmesh.devices[0]
     par = make_llama_parallel_spec(pmesh, attn, use_ep=cfg.n_experts > 0)
+    dp, sp = pmesh.config.dp, pmesh.config.sp
+    if overlap:
+        c = pmesh.config
+        if (c.tp > 1 or sp > 1 or c.pp > 1 or (c.ep or 1) > 1 or zero1
+                or grad_accum > 1 or cfg.n_experts > 0):
+            raise ValueError(
+                "overlap=True currently composes with dp-only DENSE meshes "
+                "(the grad taps psum every leaf over dp, but MoE aliases "
+                "ep onto dp so expert weights are dp-SHARDED — averaging "
+                "them across ranks holding different experts would "
+                "corrupt training; tp/sp/pp need the transpose-inserted "
+                "psums of the check_vma path) — drop --tp/--sp/--pp/"
+                "--zero1/--grad-accum/--moe")
+        if pmesh.process_set is None:
+            raise ValueError("overlap=True reduces over the runtime's "
+                             "process set: call hvd.init() first")
     llama_mod.check_slice(cfg, par)
     make_opt = optimizer if optimizer is not None else default_optimizer
-    dp, sp = pmesh.config.dp, pmesh.config.sp
     if device.type == "cuda":
         # full fp32 matmuls: the fp32 loss head and the parity checks
         # against the CPU assume them (TF32 keeps ~3 decimal digits)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    def reduce_grads(loss, grads):
+    ps = pmesh.process_set
+    scale = 1.0 / (dp * sp)
+    use_zero = bool(zero1) and dp > 1 and ps is not None
+
+    def zero_rows(p):
+        """This rank's rows of a leaf whose leading axis divides by dp
+        (None for the others): a view, so the optimizer updates them in
+        place."""
+        if p.dim() == 0 or p.shape[0] % dp:
+            return None
+        n = p.shape[0] // dp
+        return p.detach()[ps.rank() * n:(ps.rank() + 1) * n]
+
+    def reduce_grads(loss, grads, zero=False):
         # dp and sp average the per-shard mean losses: the summed gradient
         # needs a uniform 1/(dp·sp), and the loss (the JAX step's
         # _mean_loss) the mean over dp (sp is 1 here), the same factor.
         # One submission, so one cycle plans every leaf; the loss rides in
-        # a gradient bucket.
-        if pmesh.process_set is None:
+        # a gradient bucket.  With ``zero`` the ZeRO leaves are
+        # reduce-scattered first, in path order (the same on every rank),
+        # and come back as their rows.
+        if ps is None:
             return loss, grads   # one device, no runtime: nothing to sum
         loss = loss.clone()
-        leaves = tree_leaves(grads) + [loss]
-        names = [f"grad.{p}" for p in tree_paths(grads)] + ["loss"]
+        paths, leaves = tree_paths(grads), tree_leaves(grads)
+        rows = {}
+        if zero:
+            for path, g in sorted(zip(paths, leaves), key=lambda x: x[0]):
+                if g.dim() and g.shape[0] % dp == 0:
+                    r = collectives.reduce_scatter_flat(g.reshape(-1), ps)
+                    collectives._scale_(r, scale)
+                    rows[path] = r.view((g.shape[0] // dp,) + g.shape[1:])
+        rest = [(p, g) for p, g in zip(paths, leaves) if p not in rows]
         for h in api._allreduce_each_async_(
-                leaves, names, op=runtime.Sum,
-                postscale_factor=1.0 / (dp * sp),
-                process_set=pmesh.process_set):
+                [g for _, g in rest] + [loss],
+                [f"grad.{p}" for p, _ in rest] + ["loss"],
+                op=runtime.Sum, postscale_factor=scale, process_set=ps):
             h.synchronize()
+        if rows:
+            it = iter(paths)
+            grads = tree_map(lambda g: rows.get(next(it), g), grads)
         return loss, grads
 
     def local_loss(params, tokens, targets):
         return llama_mod.loss_fn(params, tokens, targets, cfg, par,
                                  n_microbatches)
 
-    def loss_and_grads(params, tokens, targets):
+    def one_pass(params, tokens, targets):
         loss = local_loss(params, tokens, targets)
         grads = torch.autograd.grad(loss, tree_leaves(params))
         it = iter(grads)
         return loss.detach(), tree_map(lambda _: next(it), params)
 
+    def loss_and_grads(params, tokens, targets):
+        if grad_accum <= 1:
+            return one_pass(params, tokens, targets)
+        # k microbatches, their losses and gradients summed, then scaled
+        # by 1/k (the JAX step's lax.scan of value_and_grad)
+        k = grad_accum
+        B = tokens.shape[0]
+        if B % k:
+            raise ValueError(
+                f"local batch {B} not divisible by grad_accum={k}")
+        mb = B // k
+        loss, grads = one_pass(params, tokens[:mb], targets[:mb])
+        for i in range(1, k):
+            l_i, g_i = one_pass(params, tokens[i * mb:(i + 1) * mb],
+                                targets[i * mb:(i + 1) * mb])
+            loss = loss + l_i
+            for a, g in zip(tree_leaves(grads), tree_leaves(g_i)):
+                a.add_(g)
+            del g_i
+        inv_k = 1.0 / k
+        for g in tree_leaves(grads):
+            collectives._scale_(g, inv_k)
+        return loss * inv_k, grads
+
     def grads_fn(params, tokens, targets):
         return reduce_grads(*loss_and_grads(params, tokens, targets))
 
-    def step_fn(params, opt_state, tokens, targets):
-        loss, grads = reduce_grads(*loss_and_grads(params, tokens, targets))
-        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
-            p.grad = g
-        opt_state.step()
-        opt_state.zero_grad(set_to_none=True)
-        return params, opt_state, loss
-
-    def opt_init(params):
+    def mark_trainable(params):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        return make_opt(leaves)
+        return leaves
+
+    if overlap:
+        tx = DistributedGradientTransform(make_opt, op=runtime.Average,
+                                          process_set=ps, overlap=True)
+
+        def step_fn(params, opt_state, tokens, targets):
+            leaves = tree_leaves(params)
+            with overlap_mod.overlapped_backprop(tx):
+                loss = local_loss(params, tokens, targets)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            it = iter(grads)
+            tx.update(tree_map(lambda _: next(it), params), opt_state,
+                      params)
+            loss = api.allreduce(loss.detach(), op=runtime.Average,
+                                 name="loss", process_set=ps)
+            return params, opt_state, loss
+
+        def opt_init(params):
+            mark_trainable(params)
+            return tx.init(params)
+    else:
+        def step_fn(params, opt_state, tokens, targets):
+            loss, grads = reduce_grads(
+                *loss_and_grads(params, tokens, targets), zero=use_zero)
+            views = opt_state.hvd_rows if use_zero else None
+            for i, (p, g) in enumerate(zip(tree_leaves(params),
+                                           tree_leaves(grads))):
+                (views[i] if views and views[i] is not None else p).grad = g
+            opt_state.step()
+            opt_state.zero_grad(set_to_none=True)
+            if use_zero:
+                # every rank's updated rows back into the full leaves
+                with torch.no_grad():
+                    for _, p, r in sorted(zip(tree_paths(params),
+                                              tree_leaves(params), views),
+                                          key=lambda x: x[0]):
+                        if r is not None:
+                            p.view(-1).copy_(collectives.all_gather_flat(
+                                r.reshape(-1), ps))
+            return params, opt_state, loss
+
+        def opt_init(params):
+            leaves = mark_trainable(params)
+            if not use_zero:
+                return make_opt(leaves)
+            views = [zero_rows(p) for p in leaves]
+            opt = make_opt([v if v is not None else p
+                            for p, v in zip(leaves, views)])
+            opt.hvd_rows = views
+            return opt
 
     def init_fn(seed: int = 0):
         params = llama_mod.init_params(cfg, seed, device=device)
         return params, opt_init(params)
 
     return TrainStep(step_fn=step_fn, init_fn=init_fn, opt_init=opt_init,
-                     grads_fn=grads_fn, par=par, mesh=pmesh, device=device)
+                     grads_fn=grads_fn, par=par, mesh=pmesh, device=device,
+                     transform=tx if overlap else None)

@@ -221,3 +221,102 @@ def test_collectives_phase_passes_on_the_cpu_at_world_one():
         hvd.shutdown()
     assert all(all(c.values()) for c in row["checks"].values())
     assert (row["small_tensors"], row["small_buckets"]) == (64, 1)
+
+
+# -- the A5 phases' gates (train_overlap, train_wire, train_a5_dp2) ---------
+
+_LAUNCHES = {**chip_smoke.EXPECTED_LAUNCHES,
+             **{n: 0 for n in chip_smoke.EXPECTED_XENT_LAUNCHES}}
+_TRAIN = {"losses": [10.9, 9.9, 8.9, 7.9]}
+
+
+def _overlap_row(**over):
+    row = {"losses": list(_TRAIN["losses"]),
+           "launches_per_step": [dict(_LAUNCHES)] * 3,
+           "plane": {"buckets": 82, "bucket_layers": [15] * 5 + [-1] * 77,
+                     "quantization_error_rel": 0.01},
+           "wire_bytes": 2 * 260, "full_width_bytes": 2 * 4 * 256}
+    row.update(over)
+    return row
+
+
+def test_overlap_gates_pass_and_fail():
+    assert chip_smoke.overlap_problems(_overlap_row(), _TRAIN,
+                                       _LAUNCHES) == []
+    off = _overlap_row(losses=[10.9, 9.9, 8.9, 7.900001])
+    assert "are not train's" in chip_smoke.overlap_problems(
+        off, _TRAIN, _LAUNCHES)[0]
+    fewer = _overlap_row(launches_per_step=[{**_LAUNCHES, "fwd": 29}] * 3)
+    assert len(chip_smoke.overlap_problems(fewer, _TRAIN, _LAUNCHES)) == 3
+    none = _overlap_row(plane={"buckets": 0, "bucket_layers": []})
+    assert chip_smoke.overlap_problems(none, _TRAIN, _LAUNCHES)
+
+
+def test_wire_gates_pass_and_fail():
+    near = _overlap_row(losses=[10.9, 9.92, 8.93, 7.91])
+    assert chip_smoke.wire_problems(near, _TRAIN, _LAUNCHES) == []
+    cases = {
+        "first loss": _overlap_row(losses=[10.91, 9.92, 8.93, 7.91]),
+        "beyond": _overlap_row(losses=[10.9, 9.92, 8.93, 8.2]),
+        "quantization error": _overlap_row(plane={
+            "buckets": 1, "bucket_layers": [-1],
+            "quantization_error_rel": chip_smoke.WIRE_ERROR_REL * 1.01}),
+        "wire bytes": _overlap_row(wire_bytes=2 * 4 * 256),
+        "non-finite": _overlap_row(losses=[10.9, float("nan"), 8.9, 7.9]),
+        "did not fall": _overlap_row(losses=[10.9, 9.9, 8.9, 10.95]),
+    }
+    for what, row in cases.items():
+        bad = chip_smoke.wire_problems(row, _TRAIN, _LAUNCHES)
+        assert any(what in b for b in bad), (what, bad)
+
+
+def test_wire_error_bound_holds_for_int8_blocks():
+    """WIRE_ERROR_REL is a bound, not a fit: int8 blocks of 256 of
+    heavy-tailed and of one-spike data stay under it."""
+    from horovod_tpu_torch import compression
+    fmt = compression.resolve_wire_format("int8", 256)
+    g = torch.Generator().manual_seed(0)
+    for x in (torch.randn(1 << 16, generator=g),
+              torch.randn(1 << 16, generator=g) ** 5,
+              torch.zeros(1 << 16).index_fill_(0, torch.tensor([7]), 1.0)
+              + 1e-3):
+        q, s = compression.quantize_blocks(x, fmt)
+        err = (x - compression.dequantize_blocks(q, s, fmt)).norm()
+        assert err / x.norm() <= chip_smoke.WIRE_ERROR_REL
+
+
+def _a5_res(**over):
+    ok = {"identical_after_step": [True, True],
+          "losses": [10.89, 6.93],
+          "update_norms": {"embed": (1.0, 1.0)},
+          "update_cos": {"embed": 0.999}}
+    res = {"dp1": {"losses": [10.89, 6.93], "state_bytes": 1000}}
+    for name, _, _ in chip_smoke.A5_VARIANTS:
+        res[name] = dict(ok, state_bytes=500 if name == "zero1" else 1000,
+                         launches_per_step=[
+                             chip_smoke.EXPECTED_A5_LAUNCHES[name]] * 2)
+    for name, fields in over.items():
+        res[name] = dict(res[name], **fields)
+    return res
+
+
+def test_a5_dp2_gates_pass_and_fail():
+    assert chip_smoke.a5_problems(_a5_res()) == []
+    # the quantized overlap has its own, wider gates
+    wire = {"losses": [10.89, 6.93 * 1.008],
+            "update_cos": {"embed": 0.98}}
+    assert chip_smoke.a5_problems(_a5_res(overlap_sharded_int8=wire)) == []
+    cases = {
+        "differ": {"zero1": {"identical_after_step": [True, False]}},
+        "launches": {"grad_accum": {"launches_per_step": [
+            chip_smoke.EXPECTED_DP2_LAUNCHES] * 2}},
+        "loss": {"zero1": {"losses": [10.89, 6.93 * 1.008]}},
+        "update norm": {"grad_accum": {"update_norms": {"embed": (1.05,
+                                                                  1.0)}}},
+        "update cos": {"overlap_sharded_int8": {"update_cos": {
+            "embed": 0.96}}},
+        "optimizer state": {"zero1": {"state_bytes": 700}},
+    }
+    for what, over in cases.items():
+        bad = chip_smoke.a5_problems(_a5_res(**over))
+        assert any(what in b for b in bad), (what, bad)

@@ -28,22 +28,29 @@ import torch
 
 import horovod_tpu_torch as hvd_torch
 import torch_ranks as tr
-from _helpers import free_port
 
 WORLDS = (2, 4)
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    out = {}
-    for world in WORLDS:
+class _Worlds(dict):
+    """One launch per world size, on the first test that reads it: a
+    failed launch of one world leaves the other world's tests alone."""
+
+    def __init__(self, tmp_path_factory):
+        super().__init__()
+        self._tmp = tmp_path_factory
+
+    def __missing__(self, world):
         cases = ["collectives", "process_set", "join"]
         if world == 2:
             cases.append("optimizer")
-        out[world] = tr.launch(world, cases,
-                               tmp_path_factory.mktemp(f"w{world}"),
-                               free_port())
-    return out
+        self[world] = tr.launch(world, cases, self._tmp.mktemp(f"w{world}"))
+        return self[world]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    return _Worlds(tmp_path_factory)
 
 
 def _np32(a):
@@ -213,8 +220,10 @@ def test_distributed_optimizer_options_at_world_one():
         for m in (model, ref):
             for x in X:
                 m(x).square().mean().backward()
-        assert len(opt._handles) == 2   # submitted on the second pass
+        # two passes accumulated; the plan reduces in synchronize()
+        assert set(opt._passes.values()) == {2} and opt._reduced is None
         opt.synchronize()
+        assert opt._reduced is not None
         for m in (model, ref):
             torch.nn.utils.clip_grad_norm_(m.parameters(), 0.5)
         with opt.skip_synchronize():

@@ -34,7 +34,7 @@ from horovod_tpu_torch.ops import engine as tengine
 from horovod_tpu_torch.ops import fusion as tfusion
 
 import torch_ranks
-from _helpers import free_port, random_entry_sigs
+from _helpers import random_entry_sigs
 
 
 def _sig(name, shape=(10,), dtype="float32", op="allreduce",
@@ -282,7 +282,7 @@ def test_world_of_one_without_launcher_env():
 def lifecycle(tmp_path_factory):
     return torch_ranks.launch(
         2, ["join", "process_set", "divergence", "reinit"],
-        tmp_path_factory.mktemp("lifecycle"), free_port())
+        tmp_path_factory.mktemp("lifecycle"))
 
 
 def test_join_contributes_zeros_and_returns_the_last_joiner(lifecycle):

@@ -48,7 +48,6 @@ from horovod_tpu_torch.optim import precision
 from horovod_tpu_torch.tree import tree_leaves, tree_paths
 
 import torch_ranks
-from _helpers import free_port
 from test_torch_llama import torch_cfg
 
 CONFIGS = {
@@ -108,7 +107,7 @@ def port_runs(jax_runs, tmp_path_factory):
         spec[name] = fields
         np.savez(d / f"{name}.npz", toks=toks, tgts=tgts, **_flat(init))
     (d / "dp_step.json").write_text(json.dumps(spec))
-    return torch_ranks.launch(2, ["dp_step"], d, free_port(),
+    return torch_ranks.launch(2, ["dp_step"], d,
                               env={"DP_STEP_DIR": str(d)})
 
 

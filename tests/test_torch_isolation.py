@@ -27,6 +27,10 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert "horovod_tpu_torch.ops.flash_attention" in mods
     assert "horovod_tpu_torch.ops.fused_xent" in mods
+    # the distributed optimizer's modules (overlap, ZeRO, the wire)
+    for m in ("optim.overlap", "optim.distributed", "compression",
+              "ops.collectives", "ops.fusion"):
+        assert f"horovod_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

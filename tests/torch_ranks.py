@@ -29,11 +29,38 @@ DTYPES = ("float32", "float64", "int32", "int64", "bfloat16")
 FLOATS = ("float32", "float64", "bfloat16")
 
 
-def launch(world, cases, tmp_path, port, env=None, timeout=120):
+#: how many times :func:`launch` starts a world again whose rank 0 could
+#: not listen on its port (another process took it after it was chosen)
+LAUNCH_ATTEMPTS = 3
+
+
+def free_port():
+    """A port the kernel has just handed out; rank 0's store binds it a
+    moment later, and :func:`launch` retries when someone took it."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(world, cases, tmp_path, port=None, env=None, timeout=300):
     """Run ``cases`` in ``world`` rank processes; returns each rank's
     ``{case: result}``.  Kills every rank and raises when one fails or the
-    launch outlives ``timeout`` seconds."""
-    out = pathlib.Path(tmp_path) / f"ranks{world}-{port}"
+    launch outlives ``timeout`` seconds.  ``port`` is the first attempt's
+    rendezvous port (default: a free one); a launch whose rank 0 found its
+    port taken (EADDRINUSE) starts again on a new one."""
+    for attempt in range(LAUNCH_ATTEMPTS):
+        ok, result = _launch_once(world, cases, pathlib.Path(tmp_path),
+                                  port or free_port(), env, timeout)
+        if ok:
+            return result
+        if "EADDRINUSE" not in result or attempt == LAUNCH_ATTEMPTS - 1:
+            raise AssertionError(result)
+        port = None
+
+
+def _launch_once(world, cases, tmp_path, port, env, timeout):
+    out = tmp_path / f"ranks{world}-{port}"
     out.mkdir()
     procs = []
     for r in range(world):
@@ -41,7 +68,7 @@ def launch(world, cases, tmp_path, port, env=None, timeout=120):
                  HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
                  HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
                  HOROVOD_CYCLE_TIME="0.1",
-                 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="30",
+                 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="120",
                  PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
                  **(env or {}))
         procs.append(subprocess.Popen(
@@ -62,12 +89,12 @@ def launch(world, cases, tmp_path, port, env=None, timeout=120):
     logs = [p.communicate()[0].decode(errors="replace")[-3000:]
             for p in procs]
     bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
-    assert not expired and not bad, (
-        f"ranks of {cases} " + (f"outlived {timeout} s" if expired
-                                else f"failed {bad}") + ":\n"
-        + "\n".join(logs))
-    return [pickle.loads((out / f"rank{r}.pkl").read_bytes())
-            for r in range(world)]
+    if expired or bad:
+        return False, (f"ranks of {cases} on port {port} "
+                       + (f"outlived {timeout} s" if expired
+                          else f"failed {bad}") + ":\n" + "\n".join(logs))
+    return True, [pickle.loads((out / f"rank{r}.pkl").read_bytes())
+                  for r in range(world)]
 
 
 # -- inputs (numpy only: the test process rebuilds them for JAX) ------------
@@ -265,7 +292,9 @@ def case_dp_step(hvd, rank, world):
     """3 steps of make_llama_train_step with adamw_lp(3e-4) at dp = world
     on this rank's shard of the batch, for each config of
     ``dp_step.json``; the test process writes it, with the weights (JAX
-    layout, flattened by path) and the batch, to ``$DP_STEP_DIR``."""
+    layout, flattened by path) and the batch, to ``$DP_STEP_DIR``.  A
+    config's ``step_kw`` (``zero1``, ``grad_accum``, ``overlap``) goes to
+    make_llama_train_step."""
     import torch
     from horovod_tpu_torch import convert, training
     from horovod_tpu_torch.models import llama
@@ -274,6 +303,7 @@ def case_dp_step(hvd, rank, world):
     d = pathlib.Path(os.environ["DP_STEP_DIR"])
     out = {}
     for name, fields in json.loads((d / "dp_step.json").read_text()).items():
+        step_kw = fields.pop("step_kw", {})
         data = np.load(d / f"{name}.npz")
         fields = dict(fields, dtype=getattr(torch, fields["dtype"]),
                       param_dtype=getattr(torch, fields["param_dtype"]))
@@ -286,7 +316,7 @@ def case_dp_step(hvd, rank, world):
             # another leaf order: negotiation must pair the submissions
             params = _reversed_keys(params)
         ts = training.make_llama_train_step(
-            cfg, optimizer=precision.adamw_lp(3e-4), device="cpu")
+            cfg, optimizer=precision.adamw_lp(3e-4), device="cpu", **step_kw)
         opt_state = ts.opt_init(params)
         n = data["toks"].shape[0] // world
         toks = torch.from_numpy(data["toks"][rank * n:(rank + 1) * n])
@@ -299,7 +329,285 @@ def case_dp_step(hvd, rank, world):
         flat = convert.llama_params_to_numpy(params)
         out[name] = {"losses": losses, "order": tree_paths(params),
                      "params": dict(zip(tree_paths(flat),
-                                        tree_leaves(flat)))}
+                                        tree_leaves(flat))),
+                     "state_bytes": precision.tree_nbytes(
+                         list(opt_state.state.values())
+                         if hasattr(opt_state, "state") else
+                         list(opt_state.inner.state.values()))}
+    return out
+
+
+# -- the distributed optimizer (A5) ------------------------------------------
+# the JAX package's tests/test_zero.py and tests/test_compression.py inputs:
+# 35 and 3 elements, a 64-byte fusion threshold (two buckets), a 16-element
+# scale block, so every bucket pads at every world size
+
+ZTHRESHOLD = 64
+ZBLOCK = 16
+ZLR = 1e-2
+#: name -> DistributedGradientTransform options, 4 steps each
+DISTOPT_CONFIGS = {
+    "replicated": {},
+    "sharded": {"sharded_update": True},
+    "k2": {"backward_passes_per_step": 2},
+    "sharded_k2": {"sharded_update": True, "backward_passes_per_step": 2},
+    "int8": {"wire_format": "int8"},
+    "int8_sharded": {"wire_format": "int8", "sharded_update": True},
+    "int8_k2": {"wire_format": "int8", "backward_passes_per_step": 2},
+    "fp8_e4m3": {"wire_format": "fp8_e4m3"},
+}
+
+
+def zparams():
+    return {"a": np.linspace(-1.0, 1.0, 35).reshape(7, 5).astype(np.float32),
+            "b": np.arange(3, dtype=np.float32)}
+
+
+def zgrads(rank, step):
+    """Rank ``rank``'s gradients at ``step`` (tests/test_compression.py's
+    ``_grad_stack`` row, scaled by 1 + step / 4)."""
+    f = np.float32(1.0 + 0.25 * step)
+    return {"a": np.sin(np.arange(35, dtype=np.float32) + rank)
+            .reshape(7, 5) * f,
+            "b": np.full((3,), float(rank + 1), np.float32) * f}
+
+
+def wire_input(rank, n=37):
+    """Rank ``rank``'s input of the quantized collectives: 37 elements
+    (never a multiple of world x block) over six decades, one zero block."""
+    rng = np.random.RandomState(7 + 100 * rank)
+    x = (rng.randn(n) * 10.0 ** rng.uniform(-3, 3, n)).astype(np.float32)
+    x[16:32] = 0.0
+    return x
+
+
+def wire_residual(rank, n=37):
+    return (np.random.RandomState(9 + 100 * rank).randn(n) * 1e-2).astype(
+        np.float32)
+
+
+def _t(a):
+    import torch
+    return torch.from_numpy(np.array(a))
+
+
+def _fp32_adamw_lp(lr):
+    import torch
+    from horovod_tpu_torch.optim import precision
+    return precision.adamw_lp(lr, mu_dtype=torch.float32,
+                              nu_dtype=torch.float32)
+
+
+def case_wire(hvd, rank, world):
+    """The quantized collectives per format (sum with error feedback,
+    average, the sum-scatter of a padded buffer), and an eager allreduce
+    through the engine under HOROVOD_COMPRESSION=int8 with
+    HOROVOD_COMPRESSION_DCN_ONLY=0 (set by the test)."""
+    from horovod_tpu_torch import compression
+    from horovod_tpu_torch.ops import collectives
+    ps = hvd.runtime._get_global_process_set()
+    x, r0 = _t(wire_input(rank)), _t(wire_residual(rank))
+    out = {}
+    for name in compression.WIRE_FORMATS:
+        fmt = compression.resolve_wire_format(name, ZBLOCK)
+        s, res = collectives.quantized_allreduce(
+            x, ps, fmt, op=hvd.Sum, residual=r0, error_feedback=True)
+        avg, _ = collectives.quantized_allreduce(x, ps, fmt, op=hvd.Average)
+        flat = torch_pad(x, world * ZBLOCK)
+        tile, tres = collectives.quantized_sum_scatter(flat, ps, fmt,
+                                                       error_feedback=True)
+        out[name] = {"sum": _np(s), "res": _np(res), "avg": _np(avg),
+                     "tile": _np(tile), "tile_res": _np(tres)}
+    out["eager"] = _np(hvd.allreduce(x, op=hvd.Sum, name="eager.int8"))
+    out["eager_avg"] = _np(hvd.allreduce(x, name="eager.int8.avg"))
+    return out
+
+
+def torch_pad(x, multiple):
+    import torch
+    pad = (-x.numel()) % multiple
+    return torch.cat([x, x.new_zeros(pad)])
+
+
+def case_distopt(hvd, rank, world):
+    """4 steps of DistributedGradientTransform on :func:`zparams` for each
+    of :data:`DISTOPT_CONFIGS`, this rank's gradients :func:`zgrads`; per
+    config the parameters after each step, the inner state's bytes and
+    whether the residual is carried."""
+    from horovod_tpu_torch.optim import precision
+    out = {}
+    for name, kw in DISTOPT_CONFIGS.items():
+        kw = dict({"wire_format": "none", "wire_block_size": ZBLOCK}, **kw)
+        tx = hvd.DistributedGradientTransform(
+            _fp32_adamw_lp(ZLR), threshold_bytes=ZTHRESHOLD, **kw)
+        params = {k: _t(v) for k, v in zparams().items()}
+        state = tx.init(params)
+        traj = []
+        for step in range(4):
+            grads = {k: _t(v) for k, v in zgrads(rank, step).items()}
+            state = tx.update(grads, state, params)
+            traj.append({k: _np(v).copy() for k, v in params.items()})
+        out[name] = {"traj": traj,
+                     "state_bytes": precision.tree_nbytes(
+                         list(state.inner.state.values())),
+                     "residual": state.residual is not None}
+    return out
+
+
+# the overlap toy: tests/test_overlap.py's model with its layers unstacked
+TOY_L, TOY_D, TOY_V = 3, 8, 5
+OVERLAP_CONFIGS = {
+    "plain": {},
+    "sharded": {"sharded_update": True},
+    "int8": {"wire_format": "int8"},
+    "int8_sharded": {"wire_format": "int8", "sharded_update": True},
+}
+
+
+def toy_params():
+    """tests/test_overlap.py ``_toy_params``: embed, layers w and b
+    (stacked [L, ...] there), final_norm."""
+    rng = np.random.default_rng(0)
+    return {"embed": rng.standard_normal((TOY_V, TOY_D)).astype(np.float32),
+            "layers": {"w": (rng.standard_normal((TOY_L, TOY_D, TOY_D))
+                             * 0.1).astype(np.float32),
+                       "b": np.zeros((TOY_L, TOY_D), np.float32)},
+            "final_norm": np.ones((TOY_D,), np.float32)}
+
+
+def toy_batches(world, steps, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((world, 2, 5)).astype(np.float32)
+            for _ in range(steps)]
+
+
+def toy_loss(params, x):
+    from horovod_tpu_torch.optim import overlap as ov
+    params = ov.tap_root(params)
+    h = x @ params["embed"]
+    for lp in params["layers"]:
+        lp = ov.grad_tap(lp)
+        h = (h @ lp["w"] + lp["b"]).tanh()
+    return ((h * params["final_norm"]) ** 2).sum()
+
+
+def _toy_torch_params():
+    t = toy_params()
+    return {"embed": _t(t["embed"]).requires_grad_(),
+            "layers": [{"w": _t(t["layers"]["w"][i]).requires_grad_(),
+                        "b": _t(t["layers"]["b"][i]).requires_grad_()}
+                       for i in range(TOY_L)],
+            "final_norm": _t(t["final_norm"]).requires_grad_()}
+
+
+def _toy_traj(hvd, tx, rank, xs, mode):
+    """Steps of ``tx`` on the toy from :func:`toy_params`; ``mode`` armed
+    (grad taps in overlapped_backprop, with the accumulation count),
+    unarmed (the boundary path) or off (a transform without overlap)."""
+    import torch
+    from horovod_tpu_torch.tree import tree_leaves, tree_map
+    params = _toy_torch_params()
+    state = tx.init(params)
+    leaves = tree_leaves(params)
+    for xb in xs:
+        x = _t(xb[rank])
+        if mode == "armed":
+            with hvd.overlapped_backprop(tx, **({"count": state.count}
+                                                if tx_k(tx) > 1 else {})):
+                grads = torch.autograd.grad(toy_loss(params, x), leaves,
+                                            allow_unused=True)
+        else:
+            grads = torch.autograd.grad(toy_loss(params, x), leaves)
+        it = iter(grads)
+        tx.update(tree_map(lambda _: next(it), params), state, params)
+    return {"embed": _np(params["embed"]),
+            "final_norm": _np(params["final_norm"]),
+            "w": np.stack([_np(lp["w"]) for lp in params["layers"]]),
+            "b": np.stack([_np(lp["b"]) for lp in params["layers"]])}
+
+
+def tx_k(tx):
+    from horovod_tpu_torch.optim import overlap as ov
+    try:
+        return ov.plan_for(tx).k
+    except ValueError:
+        return 1
+
+
+def case_overlap(hvd, rank, world):
+    """The toy under DistributedGradientTransform(overlap=True) per
+    :data:`OVERLAP_CONFIGS`, armed and unarmed, 3 steps; the same with
+    backward_passes_per_step=2 (4 steps, plain and sharded) against the
+    non-overlapped transform; and DistributedOptimizer's hook dispatch."""
+    import torch
+    out = {}
+    xs = toy_batches(world, 3, 1)
+    for name, kw in OVERLAP_CONFIGS.items():
+        kw = dict({"wire_format": "none", "wire_block_size": ZBLOCK}, **kw)
+        for mode in ("armed", "unarmed"):
+            tx = hvd.DistributedGradientTransform(
+                _fp32_adamw_lp(ZLR), threshold_bytes=256, overlap=True, **kw)
+            out[f"{name}.{mode}"] = _toy_traj(hvd, tx, rank, xs, mode)
+    tx = hvd.DistributedGradientTransform(
+        _fp32_adamw_lp(ZLR), threshold_bytes=256, overlap=False,
+        wire_format="none")
+    out["off"] = _toy_traj(hvd, tx, rank, xs, "off")
+    # the plan's tiles three ways: scattered, carved from the placed
+    # (zero-filled) scatter, and this rank's slice of the summed tree
+    from horovod_tpu_torch.optim import overlap as ov
+    tx = hvd.DistributedGradientTransform(
+        _fp32_adamw_lp(ZLR), threshold_bytes=256, overlap=True,
+        sharded_update=True, op=hvd.Sum, wire_format="none")
+    tx.init(_toy_torch_params())
+    plan = ov.plan_for(tx)
+    grads = {k: (_t(v) * (rank + 1)) if not isinstance(v, dict) else
+             [{"w": _t(v["w"][i]) * (rank + 1), "b": _t(v["b"][i]) + rank}
+              for i in range(TOY_L)] for k, v in toy_params().items()}
+    scattered = ov.scatter_tiles(grads, plan, plan.layout)[0]
+    carved = ov.carve_tiles(ov.scatter_place(grads, plan), plan,
+                            plan.layout)[0]
+    out["tiles"] = {"scattered": [_np(t).copy() for t in scattered],
+                    "carved": [_np(t).copy() for t in carved],
+                    "gathered": {k: _np(v).copy() if not isinstance(v, list)
+                                 else [{n: _np(x).copy() for n, x in
+                                        lp.items()} for lp in v]
+                                 for k, v in ov.gather_updates(
+                                     scattered, plan.layout, plan).items()}}
+    xs4 = toy_batches(world, 4, 2)
+    for sharded in (False, True):
+        tx = hvd.DistributedGradientTransform(
+            _fp32_adamw_lp(ZLR), threshold_bytes=256, overlap=True,
+            backward_passes_per_step=2, sharded_update=sharded,
+            wire_format="none")
+        out[f"k2.{sharded}"] = _toy_traj(hvd, tx, rank, xs4, "armed")
+    tx = hvd.DistributedGradientTransform(
+        _fp32_adamw_lp(ZLR), threshold_bytes=256, overlap=False,
+        backward_passes_per_step=2, wire_format="none")
+    out["k2.off"] = _toy_traj(hvd, tx, rank, xs4, "off")
+    # DistributedOptimizer: hooks issue the same plan's buckets
+    from horovod_tpu_torch.optim import precision
+    for ov_on in (False, True):
+        params = _toy_torch_params()
+        named = [("embed", params["embed"]),
+                 ("final_norm", params["final_norm"])] + [
+            (f"layers.{i}.{k}", lp[k]) for i, lp in enumerate(
+                params["layers"]) for k in ("w", "b")]
+        opt = hvd.DistributedOptimizer(
+            precision.AdamWLP([p for _, p in named], lr=ZLR,
+                              mu_dtype=torch.float32,
+                              nu_dtype=torch.float32),
+            named_parameters=named, threshold_bytes=256, overlap=ov_on,
+            wire_format="none")
+        for xb in xs:
+            opt.zero_grad()
+            loss = toy_loss(params, _t(xb[rank]))
+            loss.backward()
+            opt.step()
+        out[f"distopt.{ov_on}"] = {
+            "embed": _np(params["embed"]),
+            "final_norm": _np(params["final_norm"]),
+            "w": np.stack([_np(lp["w"]) for lp in params["layers"]]),
+            "b": np.stack([_np(lp["b"]) for lp in params["layers"]])}
     return out
 
 
