@@ -77,6 +77,27 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            grad_accum within train_dp2's parity gates of one process on
            the whole batch, the quantized overlap within its own
            (A5_WIRE_*); zero1's optimizer state half the dp-1 run's
+  decode   the KV-cache decode at the 1B geometry in bf16 (max_new 32):
+           batched_greedy_decode and paged_greedy_decode at batch 1 and 8,
+           seq 128, each with its prefill ms, decode ms a token, tokens/s,
+           one profiled call (device busy ms, idle share, top kernels), the
+           bytes a decode step must move and their time at 3.35 TB/s, the
+           dense cache's bytes against the pool's, and peak memory; paged
+           must equal dense bit for bit; a batch-4 bucket of rows 17, 64,
+           100 and 128 long against each row decoded alone (logits within
+           BATCH_LOGIT_TOL, argmax equal above that margin); card against
+           CPU at 2 layers (CARD_CPU_LOGIT_TOL); none of the six kernels
+           may launch
+  serve    the serving plane on loopback with one ServingWorker thread on
+           the card (paged_llama_decode_forward, warmed up first; buckets
+           batch 1/2/4/8 x seq 128/512, KV block 16): 48 requests of 8-512
+           tokens, every 6th opening with one 64-token head, in 3 bursts of
+           16; completed/submitted, latency p50/p99, batches and fill,
+           tokens/s, forward ms a batch, the KV ledger and peak memory;
+           every request answered, each answer, teacher forced through its
+           prompt decoded alone, that decode's greedy choice at every token
+           (or within BATCH_LOGIT_TOL of it), no bucket prepared again,
+           every batch's KV bytes exact, a head block reused
 
 Then three lines: the kernels summary (each kernel's contract numbers,
 its TF/s, and for dq and dkv the flash backward operator's time as
@@ -225,6 +246,47 @@ XENT_REPLACES = {
     "xent_dh": "horovod_tpu/ops/fused_xent.py:199",
     "xent_dw": "horovod_tpu/ops/fused_xent.py:220",
 }
+
+# serving at the 1B geometry, weights in bf16: the buckets, new tokens and
+# KV block (HOROVOD_SERVE_KV_BLOCK's default) of the decode and serve phases
+SERVE_BATCHES = (1, 2, 4, 8)
+SERVE_SEQS = (128, 512)
+SERVE_NEW = 32
+SERVE_BLOCK = 16
+# decode: batch 1 and 8 at seq 128, each call timed this many times
+DECODE_BATCHES = (1, 8)
+DECODE_SEQ = 128
+DECODE_ITERS = 2
+# the ragged rows of one batch-4, seq-128 bucket held against sequential
+# decode
+DECODE_RAGGED = (17, 64, 100, 128)
+# Batched against sequential decode on the card.  cuBLAS may pick other
+# kernels, with other summation orders, for one row and for B rows, so a
+# row's bf16 logits may differ in their last bits, and the differences
+# compound over 16 layers.  The logits of these random weights have unit
+# spread (|max| ~5), and a wrong position, mask or row moves them by that
+# much; bf16 rounding alone moves them by a few hundredths (decode_parity
+# prints how far a bf16 run on the CPU lies from an fp32 run of the same
+# weights).  So the logits, teacher forced on the sequential run's tokens,
+# are held within 0.25 of each other, and the greedy tokens to the same
+# argmax wherever the sequential run's top-1 over top-2 margin exceeds
+# 0.25: below it a near tie may flip either way.
+BATCH_LOGIT_TOL = 0.25
+# card against CPU at 2 layers of full width: prefill and 8 decode steps,
+# teacher forced, both in bf16 rounding at the same points in other
+# kernels: within 0.125, about twice the distance of the CPU's bf16 run
+# from its fp32 run of the same weights, which the phase prints
+# (cpu_bf16_vs_fp32); a wrong position or mask moves logits by ~1
+CARD_CPU_LOGIT_TOL = 0.125
+DECODE_PARITY_LAYERS = 2
+DECODE_PARITY_STEPS = 8
+# serve: requests with prompt lengths in [8, 512] from RandomState(0), in
+# bursts; every SERVE_SHARED_EVERY-th request opens with one shared head
+SERVE_REQUESTS = 48
+SERVE_BURSTS = 3
+SERVE_SHARED_EVERY = 6
+SERVE_HEAD = 64
+SERVE_TIMEOUT_S = 600
 
 
 class SmokeFailure(Exception):
@@ -815,14 +877,18 @@ def wire_problems(row, train_row, expected):
     return bad
 
 
-def profile_step(step, top: int = 12):
+def profile_step(step, top: int = 12, cpu: bool = True):
     """One step under torch.profiler: the device's busy share of the wall
-    time and the kernels that took most device time, by name."""
+    time and the kernels that took most device time, by name.  ``cpu``
+    False traces the device alone: a decode call's tens of thousands of
+    host calls take the profiler tens of seconds to process."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -1270,6 +1336,470 @@ def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool):
         require(cos[n] > PARITY_COS, f"parity grad cos {n}: {cos[n]}")
 
 
+def serve_params(llama, gen, cfg, dev, seed: int = 0):
+    """``init_params`` from ``seed``, cast once to the compute dtype."""
+    return gen.cast_params(llama.init_params(cfg, seed=seed, device=dev), cfg)
+
+
+def teacher_forced_logits(gen, params, cfg, prompts, lengths, forced,
+                          max_len: int):
+    """The fp32 logits ``[B, n, V]`` that batched greedy decode chooses
+    its ``n`` tokens from, with ``forced[:, :n-1]`` fed to its decode
+    steps in place of the tokens it would choose: each row's last prompt
+    position from the prefill, then one decode step a token."""
+    B = prompts.shape[0]
+    cache = gen.init_kv_cache(cfg, B, max_len, device=prompts.device)
+    logits, cache = gen.forward_with_cache(params, prompts, cfg, cache)
+    rows = torch.arange(B, device=prompts.device)
+    out = [logits[rows, lengths - 1].float()]
+    for i in range(forced.shape[1] - 1):
+        logits, cache = gen.forward_with_cache(
+            params, forced[:, i:i + 1], cfg, cache, row_starts=lengths + i)
+        out.append(logits[:, -1].float())
+    return torch.stack(out, dim=1)
+
+
+def margin_check(got, ref, tol: float):
+    """Trouble spot of batched decode: ``got``'s logits (teacher forced on
+    the sequential run's tokens) within ``tol`` of the sequential run's
+    ``ref``, and the same argmax wherever ``ref``'s top-1 over top-2
+    margin exceeds ``tol``.  Returns ``(problems, stats)``."""
+    diff = (got - ref).abs()
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    decided = margin > tol
+    same = got.argmax(-1) == ref.argmax(-1)
+    stats = {"bitwise": torch.equal(got, ref),
+             "max_abs_logit_diff": diff.max().item(),
+             "mean_abs_logit_diff": diff.mean().item(),
+             "positions": margin.numel(), "decided": int(decided.sum()),
+             "argmax_equal": int(same.sum()),
+             "argmax_flips_decided": int((~same & decided).sum())}
+    problems = []
+    if stats["max_abs_logit_diff"] > tol:
+        problems.append(f"logits differ by {stats['max_abs_logit_diff']} "
+                        f"> {tol}")
+    if stats["argmax_flips_decided"]:
+        problems.append(f"{stats['argmax_flips_decided']} argmax flips at "
+                        f"margins above {tol}")
+    return problems, stats
+
+
+def answer_gaps(gen, params, cfg, prompt, answer, max_len: int):
+    """A served answer teacher forced through its prompt decoded alone
+    (``greedy_generate``'s steps, fed the answer's tokens): at each token,
+    how far its logit lies below that step's largest, 0 where the answer
+    is the sequential greedy choice."""
+    cache = gen.init_kv_cache(cfg, 1, max_len, device=prompt.device)
+    logits, cache = gen.forward_with_cache(params, prompt[None], cfg, cache)
+    forced = torch.as_tensor(answer, device=prompt.device)
+    gaps = []
+    for i in range(len(answer)):
+        last = logits[0, -1].float()
+        gaps.append(last.max() - last[forced[i]])
+        if i < len(answer) - 1:
+            logits, cache = gen.forward_with_cache(
+                params, forced[None, i:i + 1], cfg, cache)
+    return torch.stack(gaps).tolist()
+
+
+def answer_problem(gaps, tol: float):
+    """The rule of :func:`margin_check` for a served answer, whose batched
+    logits are not at hand: every token the sequential run's greedy
+    choice (``"exact"``), or within ``tol`` of it, a near tie that the
+    batch's summation order may flip (``"near_tie"``).  Returns
+    ``(problem or None, kind)``."""
+    worst = max(gaps)
+    if worst == 0:
+        return None, "exact"
+    if worst <= tol:
+        return None, "near_tie"
+    return (f"token {gaps.index(worst)} lies {worst:.4f} below the "
+            f"sequential run's best logit, more than {tol}"), None
+
+
+def expected_blocks(rows, new: int, bs: int):
+    """``(blocks, distinct)`` a batch's rows hold in the paged pool: each
+    row ``ceil((len + new) / bs)`` blocks, and the full prompt blocks of
+    rows whose prompts agree up to that block's end are one block."""
+    blocks, private, heads = 0, 0, set()
+    for toks in rows:
+        toks = [int(t) for t in toks]
+        need = -(-(len(toks) + new) // bs)
+        full = min(len(toks) // bs, need)
+        blocks += need
+        private += need - full
+        heads.update(tuple(toks[:(j + 1) * bs]) for j in range(full))
+    return blocks, private + len(heads)
+
+
+def kv_ledger_problems(batches, new: int, bs: int, block_nbytes: int):
+    """Every served batch's KV ledger against :func:`expected_blocks`:
+    the blocks granted, the distinct blocks live, and their bytes, each
+    exactly."""
+    bad = []
+    for i, b in enumerate(batches):
+        blocks, distinct = expected_blocks(b["prompts"], new, bs)
+        if (b["blocks"], b["in_use"], b["bytes_in_use"]) != (
+                blocks, distinct, distinct * block_nbytes):
+            bad.append(f"batch {i}: blocks {b['blocks']}, in use "
+                       f"{b['in_use']}, {b['bytes_in_use']} B; expected "
+                       f"{blocks}, {distinct}, {distinct * block_nbytes} B")
+    return bad
+
+
+def bucket_problems(after_warmup: dict, after: dict, n_buckets: int):
+    """The no-recompile contract: warm-up prepares every bucket, and the
+    traffic prepares none again."""
+    bad = []
+    if after_warmup["compiles"] != n_buckets:
+        bad.append(f"warm-up prepared {after_warmup['compiles']} buckets, "
+                   f"expected {n_buckets}")
+    if after["recompiles"] or after["compiles"] != n_buckets:
+        bad.append(f"after the traffic: {after['compiles']} prepared, "
+                   f"{after['recompiles']} recompiles")
+    return bad
+
+
+class _Recorded:
+    """A serving forward that keeps each batch's KV ledger for the
+    gates; everything else is the forward's."""
+
+    wants_rows = True
+
+    def __init__(self, forward):
+        self.forward = forward
+        self.batches = []
+
+    def __call__(self, tokens, lengths, n_rows=None):
+        t0 = time.perf_counter()
+        out = self.forward(tokens, lengths, n_rows=n_rows)
+        ms = 1e3 * (time.perf_counter() - t0)
+        self.batches.append({
+            "bucket": list(tokens.shape), "ms": ms,
+            "prompts": [tokens[i, :lengths[i]].tolist()
+                        for i in range(n_rows)],
+            **self.forward.stats()["kv"]["last"]})
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.forward, name)
+
+
+def serve_prompts(vocab: int, n: int = SERVE_REQUESTS,
+                  lo: int = 8, hi: int = 512, head: int = SERVE_HEAD,
+                  every: int = SERVE_SHARED_EVERY):
+    """``n`` prompts of lengths in [lo, hi] and tokens in [0, vocab) from
+    ``RandomState(0)``; every ``every``-th opens with one shared
+    ``head``-token prefix (its length drawn above ``head``)."""
+    rng = np.random.RandomState(0)
+    shared = rng.randint(0, vocab, head)
+    prompts = []
+    for i in range(n):
+        if i % every == 0:
+            p = rng.randint(0, vocab, rng.randint(head + 1, hi + 1))
+            p[:head] = shared
+        else:
+            p = rng.randint(0, vocab, rng.randint(lo, hi + 1))
+        prompts.append(p.tolist())
+    return prompts
+
+
+def serve_run(paging, params, cfg, prompts, new: int, block: int,
+              batches, seqs, bursts: int, timeout_s: float):
+    """Serve ``prompts`` through a ``ServingPlane`` on loopback and one
+    ``ServingWorker`` thread running ``paged_llama_decode_forward`` on the
+    params' device, warmed up before its first pull.  The prompts go in
+    ``bursts`` bursts over ``serve_submit``, each collected over
+    ``serve_drain`` before the next.  Returns the phase's numbers, the
+    answers by request, the forward and the recorded batches."""
+    from horovod_tpu_torch.runner.rpc import JsonRpcServer, json_request
+    from horovod_tpu_torch.serving.models import paged_llama_decode_forward
+    from horovod_tpu_torch.serving.plane import ServingPlane
+    from horovod_tpu_torch.serving.worker import ServingWorker
+    plane = ServingPlane(max_batch=max(batches),
+                         batch_buckets=",".join(map(str, batches)),
+                         seq_buckets=",".join(map(str, seqs)),
+                         deadline_ms=0, lease_s=timeout_s,
+                         straggler_factor=0)
+    srv = JsonRpcServer(plane.rpc_handlers(), port=0, host="127.0.0.1",
+                        secret=None)
+    worker = None
+    try:
+        fwd = paged_llama_decode_forward(params, cfg, new, plane.buckets,
+                                         block_size=block)
+        t0 = time.perf_counter()
+        fwd.warmup()
+        warmup_s = time.perf_counter() - t0
+        after_warmup = fwd.stats()
+        kv0 = fwd.kv_summary()
+        rec = _Recorded(fwd)
+        worker = ServingWorker("127.0.0.1", srv.port, rec, worker_id="0",
+                               wait_s=1.0, secret=None)
+        worker.start()
+        results = {}
+        deadline = time.monotonic() + timeout_s
+        per = -(-len(prompts) // bursts)
+        t0 = time.perf_counter()
+        for start in range(0, len(prompts), per):
+            ids = [f"r{i}" for i in range(start,
+                                          min(start + per, len(prompts)))]
+            json_request("127.0.0.1", srv.port, "serve_submit",
+                         {"requests": [{"id": r, "tokens": prompts[int(
+                             r[1:])]} for r in ids]}, secret=None)
+            while (not all(r in results for r in ids)
+                   and time.monotonic() < deadline):
+                results.update(json_request(
+                    "127.0.0.1", srv.port, "serve_drain", {"wait_s": 2.0},
+                    secret=None, timeout=30.0)["results"])
+        wall_s = time.perf_counter() - t0
+        plane_stats = plane.stats()
+    finally:
+        plane.close()
+        if worker is not None:
+            worker.stop()
+            worker.join(30)
+        srv.close()
+    done = {r: res for r, res in results.items()
+            if res.get("done") and not res.get("expired")}
+    lat = sorted(1e3 * res["latency_s"] for res in done.values())
+    kv1 = fwd.kv_summary()
+    fill = [b["rows"] / b["bucket"][0] for b in rec.batches]
+    row = {"submitted": len(prompts), "completed": len(done),
+           "warmup_s": warmup_s, "wall_s": wall_s,
+           "latency_ms_p50": float(np.percentile(lat, 50)) if lat else None,
+           "latency_ms_p99": float(np.percentile(lat, 99)) if lat else None,
+           "batches": len(rec.batches),
+           "mean_fill": float(np.mean(fill)) if fill else None,
+           "generated_tokens_per_s": len(done) * new / wall_s,
+           "forward_ms": [b["ms"] for b in rec.batches],
+           "buckets_served": [b["bucket"] for b in rec.batches],
+           "forward_stats": {k: v for k, v in fwd.stats().items()
+                             if k != "kv"},
+           "kv": kv1, "reuse_hits": kv1["reuse_hits"] - kv0["reuse_hits"],
+           "plane_completed": plane_stats["completed"]}
+    answers = {int(r[1:]): res["output"] for r, res in done.items()}
+    return row, answers, fwd, rec.batches, after_warmup
+
+
+def serve_problems(row, answers, refs, fwd, batches, after_warmup, cfg,
+                   paging, new: int, block: int, n_buckets: int):
+    """The serve phase's gates; returns ``(problems, kinds)``."""
+    bad = []
+    if row["completed"] != row["submitted"]:
+        bad.append(f"{row['completed']} of {row['submitted']} completed")
+    kinds = {"exact": 0, "near_tie": 0}
+    for i, gaps in refs.items():
+        problem, kind = answer_problem(gaps, BATCH_LOGIT_TOL)
+        if problem:
+            bad.append(f"request {i}: {problem}")
+        else:
+            kinds[kind] += 1
+    bad += bucket_problems(after_warmup, fwd.stats(), n_buckets)
+    blk = paging.kv_block_nbytes(cfg, block)
+    if (fwd.allocator.block_nbytes != blk
+            or fwd.pool_nbytes != fwd.allocator.n_blocks * blk):
+        bad.append(f"pool of {fwd.pool_nbytes} B is not "
+                   f"{fwd.allocator.n_blocks} blocks of {blk} B")
+    bad += kv_ledger_problems(batches, new, block, blk)
+    if row["reuse_hits"] <= 0:
+        bad.append("no prompt-head block was reused")
+    return bad, kinds
+
+
+def decode_bound(cfg, count_params, lengths, new: int):
+    """Bytes one decode step must move, averaged over the ``new - 1``
+    steps: every bf16 weight once (the tied head reads the embedding
+    whole) and the k and v of every position each row attends, read, plus
+    the step's own k and v, written; and that over the card's memory
+    rate, in ms."""
+    per_pos = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    weights = 2 * count_params(cfg)
+    kv = [sum(int(n) + i + 1 for n in lengths) * per_pos
+          + len(lengths) * per_pos for i in range(new - 1)]
+    nbytes = weights + sum(kv) / len(kv)
+    return {"weight_bytes": weights, "kv_bytes": sum(kv) / len(kv),
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES}
+
+
+def decode_phase(llama, gen, paging, fa, fx, convert, dev):
+    """``batched_greedy_decode`` and ``paged_greedy_decode`` at the 1B
+    geometry, then the ragged bucket against sequential decode, then card
+    against CPU at 2 layers; none of the six kernels may launch."""
+    cfg = bench_config(llama)
+    params = serve_params(llama, gen, cfg, dev)
+    rng = np.random.RandomState(0)
+    new, bs, seq = SERVE_NEW, SERVE_BLOCK, DECODE_SEQ
+    max_len = seq + new
+    M = paging.row_blocks(seq, new, bs)
+    fa.reset_launches()  # the path's run starts here
+    fx.reset_launches()
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    for B in DECODE_BATCHES:
+        prompts = torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, seq)),
+                                  device=dev)
+        lengths = torch.full((B,), seq, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        cache = gen.init_kv_cache(cfg, B, max_len, device=dev)
+        pool = gen.init_paged_kv_cache(cfg, 1 + B * M, bs, device=dev)
+        tables = 1 + torch.arange(B * M, device=dev).view(B, M)
+        calls = {
+            "dense": (lambda: gen.batched_greedy_decode(
+                params, cfg, prompts, lengths, new, max_len=max_len,
+                cache=cache),
+                lambda: gen.forward_with_cache(
+                    params, prompts, cfg, gen.KVCache(cache.k, cache.v, 0))),
+            "paged": (lambda: gen.paged_greedy_decode(
+                params, cfg, prompts, lengths, tables, pool, new)[0],
+                lambda: gen.forward_with_cache(params, prompts, cfg, pool,
+                                               block_tables=tables))}
+        toks = {k: call() for k, (call, _) in calls.items()}
+        row = {"paged_equals_dense": torch.equal(toks["dense"],
+                                                 toks["paged"]),
+               **decode_bound(cfg, llama.count_params, [seq] * B, new),
+               "dense_cache_bytes": paging.dense_kv_nbytes(cfg, B, max_len),
+               "paged_pool_bytes": int(pool.k.nbytes + pool.v.nbytes),
+               "paged_row_bytes": B * M * paging.kv_block_nbytes(cfg, bs)}
+        for kind, (call, prefill) in calls.items():
+            pre = each_ms(prefill, DECODE_ITERS, warmup=1)
+            total = each_ms(call, DECODE_ITERS, warmup=0)
+            mean_pre, mean_total = np.mean(pre), np.mean(total)
+            per_tok = (mean_total - mean_pre) / (new - 1)
+            t1 = time.perf_counter()
+            prof = profile_step(call, top=6, cpu=False)
+            seconds[f"profile_{kind}{B}"] = time.perf_counter() - t1
+            row[kind] = {"prefill_ms": pre, "call_ms": total,
+                         "decode_ms_per_token": per_tok,
+                         "generated_tokens_per_s": B * new / (
+                             mean_total / 1e3),
+                         "profile": prof}
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out[f"batch{B}"] = row
+        seconds[f"batch{B}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        require(row["paged_equals_dense"],
+                f"decode batch {B}: paged tokens differ from dense")
+        del cache, pool
+    # the ragged bucket: rows of four lengths against each alone
+    lens = torch.tensor(DECODE_RAGGED, device=dev)
+    prompts = torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (len(DECODE_RAGGED), seq)),
+        device=dev)
+    batched = gen.batched_greedy_decode(params, cfg, prompts, lens, new,
+                                        max_len=max_len)
+    seq_toks = torch.cat([gen.greedy_generate(
+        params, cfg, prompts[b:b + 1, :n], new, max_len=max_len)
+        for b, n in enumerate(DECODE_RAGGED)])
+    got = teacher_forced_logits(gen, params, cfg, prompts, lens, seq_toks,
+                                max_len)
+    ref = torch.cat([teacher_forced_logits(
+        gen, params, cfg, prompts[b:b + 1, :n], lens[b:b + 1],
+        seq_toks[b:b + 1], max_len) for b, n in enumerate(DECODE_RAGGED)])
+    problems, stats = margin_check(got, ref, BATCH_LOGIT_TOL)
+    out["ragged"] = {"lengths": list(DECODE_RAGGED),
+                     "tokens_equal": int((batched == seq_toks).sum()),
+                     "tokens": batched.numel(), **stats}
+    launches = {**fa.LAUNCHES, **fx.LAUNCHES}  # ... and ends here
+    seconds["ragged"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = decode_parity(llama, gen, convert, dev)
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+    emit("decode", layers=cfg.n_layers, seq=seq, new=new, block=bs,
+         launches=launches, seconds=seconds, **out)
+    require(not problems, f"decode: batched vs sequential: {problems}")
+    require(not any(launches.values()),
+            f"decode launched kernels of the training path: {launches}")
+    par = out["card_vs_cpu"]
+    require(par["max_abs_logit_diff"] <= CARD_CPU_LOGIT_TOL,
+            f"decode card vs cpu: logits differ by "
+            f"{par['max_abs_logit_diff']} > {CARD_CPU_LOGIT_TOL}")
+    return out
+
+
+def decode_parity(llama, gen, convert, dev):
+    """Teacher-forced logits of the prefill and DECODE_PARITY_STEPS decode
+    steps at 2 layers of full width: the card's against the CPU's in bf16,
+    and the CPU's bf16 against its fp32 run as the scale of bf16
+    rounding."""
+    cfg = bench_config(llama, n_layers=DECODE_PARITY_LAYERS)
+    cpu = torch.device("cpu")
+    np_params = convert.llama_params_to_numpy(
+        llama.init_params(cfg, seed=1, device=cpu))
+    rng = np.random.RandomState(1)
+    prompts = rng.randint(0, cfg.vocab_size, (2, DECODE_SEQ))
+    lengths = [DECODE_SEQ, DECODE_SEQ - 28]
+    n = DECODE_PARITY_STEPS + 1
+    max_len = DECODE_SEQ + n
+    logits, forced = {}, None
+    for name, where, c in (("cpu", cpu, cfg), ("card", dev, cfg),
+                           ("cpu_fp32", cpu, dataclasses.replace(
+                               cfg, dtype=torch.float32))):
+        params = gen.cast_params(
+            convert.llama_params_from_numpy(np_params, device=where), c)
+        pr = torch.as_tensor(prompts, device=where)
+        ln = torch.as_tensor(lengths, device=where)
+        if forced is None:  # the CPU's greedy tokens, fed to every run
+            forced = gen.batched_greedy_decode(params, c, pr, ln, n,
+                                               max_len=max_len).numpy()
+        logits[name] = teacher_forced_logits(
+            gen, params, c, pr, ln, torch.as_tensor(forced, device=where),
+            max_len).cpu()
+        del params
+    return {"layers": cfg.n_layers, "steps": DECODE_PARITY_STEPS,
+            "max_abs_logit_diff": err(logits["card"], logits["cpu"]),
+            "cpu_bf16_vs_fp32": err(logits["cpu"], logits["cpu_fp32"]),
+            "argmax_equal": int((logits["card"].argmax(-1)
+                                 == logits["cpu"].argmax(-1)).sum()),
+            "positions": forced.size}
+
+
+def serve_phase(llama, gen, paging, fa, fx, dev):
+    """48 requests through the serving plane, one worker thread on the
+    card with the paged KV pool; the gates of :func:`serve_problems`."""
+    cfg = bench_config(llama)
+    params = serve_params(llama, gen, cfg, dev)
+    prompts = serve_prompts(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # the path's run starts here
+    fx.reset_launches()
+    row, answers, fwd, batches, after_warmup = serve_run(
+        paging, params, cfg, prompts, SERVE_NEW, SERVE_BLOCK, SERVE_BATCHES,
+        SERVE_SEQS, SERVE_BURSTS, SERVE_TIMEOUT_S)
+    launches = {**fa.LAUNCHES, **fx.LAUNCHES}  # ... and ends here
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    from horovod_tpu_torch.serving.shapes import ShapeBuckets
+    buckets = [ShapeBuckets(SERVE_BATCHES, SERVE_SEQS).seq_bucket(len(p))
+               for p in prompts]
+    t0 = time.perf_counter()
+    refs = {i: answer_gaps(gen, params, cfg, torch.as_tensor(
+        prompts[i], device=dev), a, buckets[i] + SERVE_NEW)
+        for i, a in answers.items()}
+    row["sequential_s"] = time.perf_counter() - t0
+    bad, kinds = serve_problems(
+        row, answers, refs, fwd, batches, after_warmup, cfg, paging,
+        SERVE_NEW, SERVE_BLOCK, len(SERVE_BATCHES) * len(SERVE_SEQS))
+    dense = [paging.dense_kv_nbytes(cfg, b["bucket"][0],
+                                    b["bucket"][1] + SERVE_NEW)
+             for b in batches]
+    emit("serve", layers=cfg.n_layers, requests=len(prompts),
+         bursts=SERVE_BURSTS, new=SERVE_NEW, block=SERVE_BLOCK,
+         launches=launches, answers=kinds, **row,
+         batch_kv_bytes=[b["bytes_in_use"] for b in batches],
+         batch_dense_kv_bytes=dense,
+         note="latencies share one process and the GIL with the eager "
+              "decode: the plane's RPC server, the worker thread and the "
+              "client")
+    require(not bad, f"serve: {bad}")
+    require(not any(launches.values()),
+            f"serve launched kernels of the training path: {launches}")
+    del params, fwd
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1286,11 +1816,13 @@ def main() -> int:
         return a5_child(int(sys.argv[sys.argv.index("--a5-rank") + 1]), dev)
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import convert, training
+    from horovod_tpu_torch.models import generate as gen
     from horovod_tpu_torch.models import llama
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_xent as fx
     from horovod_tpu_torch.optim.precision import adamw_lp
+    from horovod_tpu_torch.serving import paging
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1390,6 +1922,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("train_dp2", train_dp2_phase)
     timed("train_a5_dp2", train_a5_dp2_phase)
+    timed("decode", decode_phase, llama, gen, paging, fa, fx, convert, dev)
+    timed("serve", serve_phase, llama, gen, paging, fa, fx, dev)
     emit("phase_seconds", **phase_s)
 
     # (name, source, replaces, kernels-phase row, launches on its path)

@@ -12,7 +12,8 @@ feature it asked for.  ``HOROVOD_COMPRESSION`` (with its block size and
 ``HOROVOD_COMPRESSION_DCN_ONLY``), ``HOROVOD_SHARDED_UPDATE`` and
 ``HOROVOD_OVERLAP`` are parsed and validated as in the JAX package and
 read by ``optim/distributed.py`` (the transform's defaults) and the
-engine (the eager wire format).
+engine (the eager wire format); the ``HOROVOD_SERVE_*`` knobs likewise,
+read by ``serving/plane.py``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ UNPORTED = (
     ("HOROVOD_TAIL_POLICY", "tail_policy", "A5"),
     ("HOROVOD_HIERARCHICAL_ALLREDUCE", "hierarchical_allreduce", "A5"),
     ("HOROVOD_HIERARCHICAL_ALLGATHER", "hierarchical_allgather", "A5"),
-    ("HOROVOD_SERVE", "serve", "A7"),
     ("HOROVOD_ELASTIC", "elastic", "A8"),
     ("HOROVOD_RECOVERY", "recovery", "A8"),
     ("HOROVOD_TIMELINE", "timeline_path", "A9"),
@@ -464,6 +464,11 @@ class Config:
         c.serve_seq_buckets = (_env_str(
             "HOROVOD_SERVE_SEQ_BUCKETS", c.serve_seq_buckets)
             or "").strip()
+        from .serving.shapes import parse_buckets
+        if c.serve_batch_buckets:
+            parse_buckets(c.serve_batch_buckets,
+                          "HOROVOD_SERVE_BATCH_BUCKETS")
+        parse_buckets(c.serve_seq_buckets, "HOROVOD_SERVE_SEQ_BUCKETS")
         c.serve_deadline_ms = _env_float(
             "HOROVOD_SERVE_DEADLINE_MS", c.serve_deadline_ms)
         if c.serve_deadline_ms < 0:
@@ -491,6 +496,8 @@ class Config:
                 f"{c.serve_kv_block}")
         c.serve_mp_axes = (_env_str(
             "HOROVOD_SERVE_MP_AXES", c.serve_mp_axes) or "").strip()
+        from .serving.shapes import parse_mp_axes
+        parse_mp_axes(c.serve_mp_axes)   # validate at config time
         c.recovery = ((_env_str("HOROVOD_RECOVERY", c.recovery)
                        or "off").strip().lower())
         if c.recovery not in RECOVERY_MODES:

@@ -615,4 +615,11 @@ class CollectiveEngine:
                    "cache": self._cache.stats()}
         if self._controller is not None:
             out["negotiation"] = self._controller.stats()
+        # the serving summary, present only while a ServingPlane or
+        # ServingWorker lives in this process (the serving package is
+        # import-light: it loads its submodules lazily)
+        from .. import serving
+        serving_stats = serving.stats()
+        if serving_stats:
+            out["serving"] = serving_stats
         return out

@@ -320,3 +320,141 @@ def test_a5_dp2_gates_pass_and_fail():
     for what, over in cases.items():
         bad = chip_smoke.a5_problems(_a5_res(**over))
         assert any(what in b for b in bad), (what, bad)
+
+
+# -- the serving phases' gates (decode, serve) --------------------------------
+
+def _logits(seed, shape=(4, 6, 32)):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g)
+
+
+def test_margin_rule_passes_reordering_and_fails_a_wrong_row():
+    """Logits off by less than the tolerance pass, and a flip is allowed
+    only at a near tie; another row's logits fail."""
+    tol = chip_smoke.BATCH_LOGIT_TOL
+    ref = _logits(0)
+    noise = (torch.rand(ref.shape, generator=torch.Generator().manual_seed(
+        1)) - 0.5) * tol
+    bad, stats = chip_smoke.margin_check(ref + noise, ref, tol)
+    assert bad == [] and stats["max_abs_logit_diff"] <= tol
+    assert not stats["bitwise"] and stats["decided"] > 0
+    bad, stats = chip_smoke.margin_check(ref.clone(), ref, tol)
+    assert bad == [] and stats["bitwise"]
+    # a near tie flipped by a reordering passes, a decided flip fails
+    tie = ref.clone()
+    top2 = tie[0, 0].topk(2)
+    tie[0, 0, top2.indices[1]] = top2.values[0] - tol / 4
+    flipped = tie.clone()
+    flipped[0, 0, top2.indices[1]] = top2.values[0] + tol / 8
+    assert chip_smoke.margin_check(flipped, tie, tol)[0] == []
+    wrong = ref.clone()
+    wrong[0, 1, ref[0, 1].argmin()] = ref[0, 1].max() + tol / 2
+    assert chip_smoke.margin_check(wrong, ref, tol)[0]
+    assert chip_smoke.margin_check(ref.flip(0), ref, tol)[0]
+
+
+@pytest.mark.parametrize("gaps,kind", [
+    ([0.0, 0.0, 0.0], "exact"), ([0.0, 0.01, 0.2], "near_tie"),
+    ([0.0, 0.3, 0.0], None)])
+def test_answer_rule(gaps, kind):
+    """An answer whose every token is the sequential run's greedy choice,
+    or within the tolerance of it, passes; a token further below fails."""
+    problem, got = chip_smoke.answer_problem(gaps,
+                                             chip_smoke.BATCH_LOGIT_TOL)
+    assert got == kind and (problem is None) == (kind is not None)
+
+
+def test_answer_gaps_are_zero_for_the_greedy_decode_only():
+    """Teacher forced on its own greedy decode, a prompt's gaps are all
+    0; on another token sequence some gap is not."""
+    from horovod_tpu_torch.models import generate as gen
+    from horovod_tpu_torch.models import llama
+    cfg = llama.tiny(vocab=64, seq=64)
+    params = llama.init_params(cfg, seed=1, device=torch.device("cpu"))
+    prompt = torch.as_tensor(np.random.RandomState(0).randint(0, 64, 9))
+    greedy = gen.greedy_generate(params, cfg, prompt[None], 6,
+                                 max_len=16)[0].tolist()
+    assert chip_smoke.answer_gaps(gen, params, cfg, prompt, greedy,
+                                  16) == [0.0] * 6
+    other = [(t + 1) % 64 for t in greedy]
+    assert max(chip_smoke.answer_gaps(gen, params, cfg, prompt, other,
+                                      16)) > 0
+
+
+def test_kv_ledger_and_bucket_gates_on_a_paged_forward():
+    """Every batch of a paged forward on the CPU meets the byte ledger
+    exactly, shared heads included; a wrong count fails."""
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.serving import paging
+    from horovod_tpu_torch.serving.models import paged_llama_decode_forward
+    from horovod_tpu_torch.serving.shapes import ShapeBuckets
+    cfg = llama.tiny(vocab=64, seq=64)
+    params = llama.init_params(cfg, seed=0, device=torch.device("cpu"))
+    buckets = ShapeBuckets((2, 4), (16,))
+    fwd = chip_smoke._Recorded(paged_llama_decode_forward(
+        params, cfg, 4, buckets, block_size=4))
+    fwd.warmup()
+    after_warmup = fwd.stats()
+    rng = np.random.RandomState(0)
+    head = rng.randint(0, 64, 8)
+    rows = [np.concatenate([head, rng.randint(0, 64, n)]) for n in (3, 7)]
+    rows.append(rng.randint(0, 64, 5))
+    tokens = np.zeros((4, 16), np.int32)
+    for i, r in enumerate(rows):
+        tokens[i, :len(r)] = r
+    lengths = np.array([len(r) for r in rows] + [1], np.int32)
+    fwd(tokens, lengths, n_rows=3)
+    batches = fwd.batches[-1:]
+    blk = paging.kv_block_nbytes(cfg, 4)
+    assert chip_smoke.expected_blocks([r.tolist() for r in rows], 4, 4) == \
+        (4 + 5 + 3, 4 + 5 + 3 - 2)
+    assert chip_smoke.kv_ledger_problems(batches, 4, 4, blk) == []
+    assert chip_smoke.kv_ledger_problems(
+        [dict(batches[0], bytes_in_use=batches[0]["bytes_in_use"] + 1)],
+        4, 4, blk)
+    assert chip_smoke.bucket_problems(after_warmup, fwd.stats(), 2) == []
+    assert chip_smoke.bucket_problems(after_warmup, dict(
+        fwd.stats(), recompiles=1), 2)
+    assert chip_smoke.bucket_problems(after_warmup, fwd.stats(), 3)
+
+
+def test_serve_run_passes_its_gates_on_the_cpu():
+    """The card's ``serve`` phase, rehearsed on the CPU at a tiny size:
+    every request answered equal to its sequential decode, no bucket
+    prepared again, every batch's KV ledger exact, a head reused."""
+    from horovod_tpu_torch.models import generate as gen
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.serving import paging
+    cpu = torch.device("cpu")
+    cfg = llama.tiny(vocab=64, seq=64)
+    params = chip_smoke.serve_params(llama, gen, cfg, cpu)
+    prompts = chip_smoke.serve_prompts(64, n=10, lo=2, hi=24, head=8,
+                                       every=3)
+    row, answers, fwd, batches, after_warmup = chip_smoke.serve_run(
+        paging, params, cfg, prompts, 4, 4, (1, 2, 4), (8, 24), 2, 60.0)
+    refs = {i: chip_smoke.answer_gaps(
+        gen, params, cfg, torch.as_tensor(prompts[i]), a,
+        (8 if len(prompts[i]) <= 8 else 24) + 4)
+        for i, a in answers.items()}
+    bad, kinds = chip_smoke.serve_problems(
+        row, answers, refs, fwd, batches, after_warmup, cfg, paging, 4, 4,
+        6)
+    assert bad == [] and kinds == {"exact": 10, "near_tie": 0}
+    assert row["completed"] == 10 and row["reuse_hits"] > 0
+    assert sum(b["rows"] for b in batches) == 10
+
+
+def test_decode_bound_at_the_1b_geometry():
+    """A decode step at batch 8 must move the 1B model's bf16 weights
+    (2.15 GB) and the k and v of every attended position."""
+    from horovod_tpu_torch.models import llama
+    cfg = chip_smoke.bench_config(llama)
+    b = chip_smoke.decode_bound(cfg, llama.count_params, [128] * 8, 32)
+    per_pos = 16 * 8 * 128 * 2 * 2
+    assert b["weight_bytes"] == 2 * 1_073_809_408
+    mean_kv = sum(8 * (128 + i + 1) * per_pos + 8 * per_pos
+                  for i in range(31)) / 31
+    assert b["kv_bytes"] == mean_kv
+    assert b["bound_ms"] == pytest.approx(
+        1e3 * (b["weight_bytes"] + mean_kv) / 3.35e12)

@@ -31,6 +31,15 @@ def test_importing_every_module_loads_no_jax():
     for m in ("optim.overlap", "optim.distributed", "compression",
               "ops.collectives", "ops.fusion"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # serving: the decode path, the hvdserve plane and its transport,
+    # metrics and chaos
+    for m in ("models.generate", "serving", "serving.shapes",
+              "serving.admission", "serving.plane", "serving.worker",
+              "serving.paging", "serving.models", "runner", "runner.rpc",
+              "runner.secret", "metrics", "metrics.registry",
+              "metrics.flight", "metrics.aggregate", "chaos",
+              "chaos.schedule"):
+        assert f"horovod_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -61,13 +70,18 @@ def no_card():
 
 def test_entry_points_raise_without_a_card(no_card):
     from horovod_tpu_torch import convert, default_device, training
-    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.models import generate, llama
     from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.serving.models import toy_echo_forward
+    from horovod_tpu_torch.serving.shapes import ShapeBuckets
     cfg = llama.tiny()
     for call in (default_device,
                  lambda: llama.init_params(cfg),
                  lambda: training.make_llama_train_step(cfg),
                  lambda: ParallelMesh(MeshConfig()),
-                 lambda: convert.llama_params_from_numpy({})):
+                 lambda: convert.llama_params_from_numpy({}),
+                 lambda: generate.init_kv_cache(cfg, 1, 8),
+                 lambda: generate.init_paged_kv_cache(cfg, 2, 4),
+                 lambda: toy_echo_forward(ShapeBuckets((1,), (8,)))):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
