@@ -15,14 +15,18 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            fails; and the clusters of each xent kernel the card runs at
            once, which must be at least one
   kernels  each flash-attention kernel at the training shapes (plus a
-           non-causal case, an H == Hkv case and a ragged T = 960, a
-           multiple of 64 but not of 128) against its plain PyTorch
-           version on the same inputs, with its time, the plain version's,
+           non-causal case, an H == Hkv case, a ragged T = 960, a
+           multiple of 64 but not of 128, and BERT-base's fine-tune shape,
+           B 512, T 128, 12 heads of 64, non-causal) against its plain
+           PyTorch version on the same inputs, with its time, the plain
+           version's,
            the least time the card could take, one
            scaled_dot_product_attention call as the forward's yardstick,
            and one call of PyTorch's flash-attention backward operator
            (dq, dk and dv at once) beside dq and dkv as the pair's
-           (library_pair_ms); then each fused cross-entropy kernel at the
+           (library_pair_ms), and the card's SM and memory clocks and
+           power draw before and after each case; then each fused
+           cross-entropy kernel at the
            loss head's shapes (N 8192, V 32768, D 2048) likewise, with no
            library call, and at a ragged full-width shape (N 8128, V
            32640: half a 128-token tile, half a 256-row vocab tile); then
@@ -99,16 +103,45 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            (or within BATCH_LOGIT_TOL of it), no bucket prepared again,
            every batch's KV bytes exact, a head block reused
 
+  train_bert   models/bert.py's make_dp_finetune_step at bert_base
+           (num_labels 4), batch 512 x seq 128, remat on, AdamW(5e-5),
+           under hvd.init() at world 1 over NCCL with reduce_grads=True: 1
+           warm-up and 3 timed steps (sequences/s, MFU, peak memory), flash
+           launches exactly 24/12/12 a step, losses falling; then a
+           profiled step (profile_bert)
+  train_resnet   ResNet-50 in bf16 at batch 256 x 224^2 through
+           training.make_classifier_train_step(sync_bn=True) with SGD(0.01,
+           momentum 0.9) at world 1: img/s, peak memory, a profiled step
+           (profile_resnet); losses finite, none of the six kernels
+  train_resnet_dp2   two processes (--resnet-dp2-rank) share the card over
+           gloo: one step of ResNet-50 at 16 + 16 images of 224^2 with
+           synchronized batch norm (its statistics summed across the ranks
+           in the forward and backward passes), against one process on the
+           32: ranks identical, loss, weight updates and running
+           statistics within RESNET_DP2_* and the parity gates
+  mnist    5 classifier steps of the MNIST convnet at batch 128 of seeded
+           28 x 28 images (losses falling); then serving/models.py's
+           classifier_forward on a bucket of MNIST rows and one of BERT
+           rows, each answer the argmax of eval_fn / classify on the bucket
+  parity_bert    2 layers of bert_base: logits, loss and gradients with
+           the kernels on the card against the plain versions on the CPU,
+           from the same weights
+  parity_resnet  ResNet-50 at batch 4 x 64^2, card against CPU in fp32
+           (logits, loss, gradients, running statistics) and in bf16
+           (logits, loss, running statistics; the gradients printed)
+
 Then three lines: the kernels summary (each kernel's contract numbers,
 its TF/s, and for dq and dkv the flash backward operator's time as
-library_pair_ms, since it gives both at once), the card's name and power
-limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.  The script
-imports no jax and nothing of horovod_tpu.
+library_pair_ms, since it gives both at once; the flash rows also carry
+the bert case's numbers and train_bert's launches), the card's name and
+power limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
+The script imports no jax and nothing of horovod_tpu.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -132,6 +165,9 @@ KERNEL_CASES = [
     ("noncausal", (8, 1024, 16, 8, 128, False)),
     ("mha", (8, 1024, 16, 16, 128, True)),
     ("ragged", (8, 960, 16, 8, 128, True)),
+    # BERT-base's fine-tune attention (bench.py:98-101): head_dim 64, two
+    # 64-row key tiles a sequence, non-causal
+    ("bert", (512, 128, 12, 12, 64, False)),
 ]
 # out is bf16 (|out| <= ~2 with N(0,1) inputs): a few bf16 steps; lse is
 # fp32 from the kernels' fast exp/log and another summation order; the
@@ -197,6 +233,40 @@ EXPECTED_A5_LAUNCHES = {
 }
 # the three variants and the dp-1 run of both processes, build included
 A5_TIMEOUT_S = 480
+
+# the classifier models.  train_bert: bert_base(num_labels=4) at batch 512
+# x seq 128 (bench.py:98-101), remat on, AdamW(5e-5); with remat each
+# layer's attention runs forward twice (the recompute) and backward once,
+# without it once each
+BERT_BATCH, BERT_SEQ, BERT_LABELS = 512, 128, 4
+EXPECTED_BERT_LAUNCHES = {"fwd": 24, "dq": 12, "dkv": 12,
+                          "xent_fwd": 0, "xent_dh": 0, "xent_dw": 0}
+# train_resnet: ResNet-50 in bf16 at batch 256 x 224^2, SGD(0.01,
+# momentum 0.9) (bench.py:159-171)
+RESNET_BATCH, RESNET_IMG = 256, 224
+# train_resnet_dp2: two processes on 16 + 16 images against one process
+# on the 32.  bf16 convolutions of 16 and of 32 images may take other
+# cuDNN kernels, and the statistics add in another order, so the two
+# runs agree as the parity gates say (loss within 5e-3, weight updates'
+# norms within 2e-2 and cosines above 0.99), and the running statistics
+# within 1e-2 of each leaf's largest entry (one step of momentum 0.9 from
+# 0 and 1: 0.1 x a batch statistic of bf16 activations, ~3 decimal
+# digits)
+RESNET_DP2_BATCH = 16
+RESNET_DP2_STATE_REL = 1e-2
+RESNET_DP2_TIMEOUT_S = 300
+# mnist: batch 128 of seeded 28 x 28 images, 5 steps; classifier_forward
+# buckets of 8 rows
+MNIST_BATCH, MNIST_STEPS = 128, 5
+SERVE_CLASSIFIER_ROWS = 8
+# parity_bert: 2 layers of bert_base at batch 4 x seq 128; parity_resnet:
+# ResNet-50 at batch 4 x 64^2 with each block's last batch-norm scale
+# 0.25 (init zeroes it, which zeroes every residual branch's gradient; at
+# 1 the residual stream's variance grows block by block to logits of
+# norm ~100)
+PARITY_BERT_LAYERS, PARITY_BERT_BATCH = 2, 4
+PARITY_RESNET_BATCH, PARITY_RESNET_IMG = 4, 64
+PARITY_RESNET_SCALE = 0.25
 
 # the d_model values the xent kernels are built for
 XENT_DIMS = (128, 256, 512, 1024, 2048)
@@ -339,6 +409,28 @@ def each_ms(fn, iters: int, warmup: int):
     return [start.elapsed_time(end) for start, end in events]
 
 
+def parse_clocks(line: str):
+    """One line of ``nvidia-smi --query-gpu=clocks.sm,clocks.mem,power.draw
+    --format=csv,noheader,nounits``: SM and memory clocks in MHz and the
+    power draw in W (None where it prints no number)."""
+    def number(x):
+        try:
+            return float(x)
+        except ValueError:
+            return None
+    sm, mem, power = (number(x.strip()) for x in line.split(","))
+    return {"sm_mhz": sm, "mem_mhz": mem, "power_w": power}
+
+
+def clock_sample():
+    """The card's clocks and power draw now (:func:`parse_clocks`)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return parse_clocks(out.strip().splitlines()[0])
+
+
 def err(a, b) -> float:
     """Largest absolute difference, in fp32."""
     return (a.float() - b.float()).abs().max().item()
@@ -433,6 +525,7 @@ def kernels_phase(fa, dev):
     F = torch.nn.functional
     results = {}
     for case, shape in KERNEL_CASES:
+        clocks_before = clock_sample()
         B, T, H, Hkv, D, causal = shape
         scale = D ** -0.5
         gen = torch.Generator(device=dev)
@@ -490,18 +583,24 @@ def kernels_phase(fa, dev):
                 do, q, kr, vr, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5], 0.0,
                 causal, fo[6], fo[7], scale=scale), iters=20)
         del kr, vr, fo
+        rows = {}
         for kernel, (max_abs_err, ok, detail) in checks.items():
             ms = time_ms(runs[kernel][0], iters=20)
             plain_ms = time_ms(runs[kernel][1], iters=3, warmup=1)
             library_ms = sdpa_ms if kernel == "fwd" else None
             library_pair_ms = None if kernel == "fwd" else flash_bwd_op_ms
             bound_ms, bound_by, flops, nbytes = bound(kernel, shape)
-            row = {"case": case, "kernel": kernel, "shape": list(shape),
-                   "max_abs_err": max_abs_err, **detail, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
-                   "library_pair_ms": library_pair_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-                   "tflops": flops / ms / 1e9}
+            rows[kernel] = {
+                "case": case, "kernel": kernel, "shape": list(shape),
+                "max_abs_err": max_abs_err, **detail, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "library_pair_ms": library_pair_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                "tflops": flops / ms / 1e9}
+        # the card's clocks and power around the case's timings
+        clocks = {"before": clocks_before, "after": clock_sample()}
+        for kernel, (_, ok, detail) in checks.items():
+            row = {**rows[kernel], "clocks": clocks}
             emit("kernels", **row)
             require(ok, f"{kernel} kernel disagrees with its plain version "
                         f"on {case}: {detail}")
@@ -591,20 +690,24 @@ def xent_case(fx, case, shape, dev):
                     lambda: fx._dw_reference(h, w, y, ref_lse)),
     }
     results = {}
+    clocks_before = clock_sample()
     for kernel, (max_abs_err, ok, detail) in checks.items():
         ms = time_ms(runs[kernel][0], iters=5, warmup=1)
         plain_ms = time_ms(runs[kernel][1], iters=3, warmup=1)
         bound_ms, bound_by, flops, nbytes = xent_bound(kernel, N, V, D)
-        row = {"case": case, "kernel": kernel, "shape": [N, V, D],
-               "max_abs_err": max_abs_err, **detail, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": None,
-               "library_pair_ms": None, "bound_ms": bound_ms,
-               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-               "tflops": flops / ms / 1e9}
+        results[kernel] = {
+            "case": case, "kernel": kernel, "shape": [N, V, D],
+            "max_abs_err": max_abs_err, **detail, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "library_pair_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "tflops": flops / ms / 1e9}
+    clocks = {"before": clocks_before, "after": clock_sample()}
+    for kernel, (_, ok, detail) in checks.items():
+        row = results[kernel] = {**results[kernel], "clocks": clocks}
         emit("kernels", **row)
         require(ok, f"{kernel} kernel disagrees with its plain version on "
                     f"{case}: {detail}")
-        results[kernel] = row
     del h, w, y, ref_lse, runs
     torch.cuda.empty_cache()
     return results
@@ -1800,6 +1903,463 @@ def serve_phase(llama, gen, paging, fa, fx, dev):
     return row
 
 
+# ------------------------------------------------ the classifier models
+
+def mfu(n_params: int, tokens_per_s: float) -> float:
+    """Model FLOPs utilization: 6 · parameters · tokens/s over the bf16
+    peak (bench.py's reckoning)."""
+    return 6 * n_params * tokens_per_s / PEAK_BF16_FLOPS
+
+
+def step_problems(losses, per_step, expected, falling_from=0):
+    """A training phase's gates: finite losses, the last below
+    ``losses[falling_from]`` (None: no such gate), and exactly
+    ``expected`` launches at every step."""
+    bad = []
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite loss {losses}")
+    elif falling_from is not None and \
+            not losses[-1] < losses[falling_from]:
+        bad.append(f"loss did not fall from step {falling_from}: {losses}")
+    bad += [f"launches per step {st}, expected {expected}"
+            for st in per_step if st != expected]
+    return bad
+
+
+def run_steps(step, n: int, counts):
+    """``n`` calls of ``step()``, which returns the loss tensor, each on
+    the host clock up to a synchronize: ``(step_ms, losses, the kernel
+    launches of each step)``."""
+    step_ms, losses, per_step = [], [], []
+    for _ in range(n):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        after = counts()
+        per_step.append({k: after[k] - before[k] for k in before})
+    return step_ms, losses, per_step
+
+
+def bert_config(bert, **over):
+    """bench.py's BERT fine-tune configuration (bench.py:98-101)."""
+    return dataclasses.replace(bert.bert_base(num_labels=BERT_LABELS),
+                               **over)
+
+
+def train_bert_phase(fa, fx, dev):
+    """``make_dp_finetune_step`` at bert_base under the runtime (world 1,
+    NCCL, reduce_grads=True): 1 warm-up and 3 timed steps with their
+    launches, then a profiled step.  Returns the emitted line."""
+    from horovod_tpu_torch.models import bert
+    cfg = bert_config(bert)
+    B, T = BERT_BATCH, BERT_SEQ
+
+    def counts():
+        return {**fa.LAUNCHES, **fx.LAUNCHES}
+
+    ts = bert.make_dp_finetune_step(cfg, bert.finetune_optimizer,
+                                    reduce_grads=True)
+    params, opt_state = ts.init_fn(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device=dev)
+    labels = torch.randint(0, BERT_LABELS, (B,), generator=gen, device=dev)
+
+    def step():
+        return ts.step_fn(params, opt_state, toks, labels)[2]
+
+    t0 = time.perf_counter()
+    losses = [step().item()]
+    warmup_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # the path's run starts here
+    fx.reset_launches()
+    step_ms, timed_losses, per_step = run_steps(step, 3, counts)
+    launches = counts()  # ... and ends here
+    losses += timed_losses
+    seq_per_s = B / (sum(step_ms) / len(step_ms) / 1e3)
+    n = bert.count_params(cfg)
+    row = dict(params=n, batch=B, seq=T, remat=cfg.remat, losses=losses,
+               warmup_ms=warmup_ms, step_ms=step_ms,
+               sequences_per_sec=seq_per_s, tokens_per_sec=seq_per_s * T,
+               mfu=mfu(n, seq_per_s * T),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches_per_step=per_step, launches=launches)
+    emit("train_bert", **row)
+    row["profile"] = profile_step(step)
+    emit("profile_bert", **row["profile"])
+    # from a random 12-layer post-LN init the first AdamW step overshoots
+    # (the loss rose 1.38 -> 3.92 in the JAX package's step and in the
+    # port's alike, on the CPU at batch 32): the timed steps must fall
+    bad = step_problems(losses, per_step, EXPECTED_BERT_LAUNCHES,
+                        falling_from=1)
+    require(not bad, f"train_bert: {bad}")
+    del params, opt_state, ts
+    torch.cuda.empty_cache()
+    return row
+
+
+def resnet_step(training, resnet, cfg, dev, lr: float = 0.01):
+    """The classifier step over ResNet ``cfg`` on ``dev`` with SGD(lr,
+    momentum 0.9) (bench.py:159-171) and synchronized batch norm; its
+    mesh the runtime's when initialized (on ``dev``)."""
+    return training.make_classifier_train_step(
+        lambda p, s, x, train, process_set: resnet.forward(
+            p, s, x, cfg, train=train, process_set=process_set),
+        lambda seed: resnet.init(cfg, seed, device=dev),
+        optimizer=functools.partial(torch.optim.SGD, lr=lr, momentum=0.9),
+        sync_bn=True, device=dev)
+
+
+def resnet_batch(B: int, img: int, dev, seed: int = 0):
+    """Uniform [0, 1) images ``[B, 3, img, img]`` and labels in [0, 1000),
+    made on the card from ``seed``, as bench.py makes its synthetic
+    batch."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return (torch.rand((B, 3, img, img), generator=gen, device=dev),
+            torch.randint(0, 1000, (B,), generator=gen, device=dev))
+
+
+def train_resnet_phase(fa, fx, dev):
+    """ResNet-50 in bf16 at batch 256 x 224^2 through the classifier step
+    (world 1): 1 warm-up and 3 timed steps, a profiled step; none of the
+    six kernels may launch."""
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import resnet
+    cfg = resnet.ResNetConfig(variant=50)
+    ts = resnet_step(training, resnet, cfg, dev)
+    run = dict(zip(("params", "state", "opt_state"), ts.init_fn(0)))
+    x, y = resnet_batch(RESNET_BATCH, RESNET_IMG, dev)
+
+    def step():
+        (run["params"], run["state"], run["opt_state"], loss,
+         _) = ts.step_fn(run["params"], run["state"], run["opt_state"], x, y)
+        return loss
+
+    def counts():
+        return {**fa.LAUNCHES, **fx.LAUNCHES}
+
+    t0 = time.perf_counter()
+    losses = [step().item()]
+    warmup_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # the path's run starts here
+    fx.reset_launches()
+    step_ms, timed_losses, per_step = run_steps(step, 3, counts)
+    launches = counts()  # ... and ends here
+    losses += timed_losses
+    row = dict(params=resnet.num_params(run["params"]), batch=RESNET_BATCH,
+               image=RESNET_IMG, losses=losses, warmup_ms=warmup_ms,
+               step_ms=step_ms, images_per_sec=RESNET_BATCH / (
+                   sum(step_ms) / len(step_ms) / 1e3),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    emit("train_resnet", **row)
+    row["profile"] = profile_step(step)
+    emit("profile_resnet", **row["profile"])
+    bad = step_problems(losses, per_step, {k: 0 for k in launches},
+                        falling_from=None)
+    require(not bad, f"train_resnet: {bad}")
+    run.clear()
+    torch.cuda.empty_cache()
+    return row
+
+
+def resnet_dp2_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``train_resnet_dp2`` (``--resnet-dp2-rank``): one step
+    of ResNet-50 with synchronized batch norm at dp 2 on this rank's 16
+    images of a batch of 32, over gloo on ``cuda:0``; rank 0's weights and
+    state broadcast and held against this rank's.  Then rank 0, without
+    the runtime, takes the same step on all 32 images and prints both
+    runs as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    cfg = resnet.ResNetConfig(variant=50)
+    x, y = resnet_batch(2 * RESNET_DP2_BATCH, RESNET_IMG, dev, seed=3)
+
+    def flat(tree):
+        return {p: t.detach() for p, t in zip(tree_paths(tree),
+                                              tree_leaves(tree))}
+
+    def one_step(ts, images, labels):
+        params, state, opt_state = ts.init_fn(0)
+        init = {p: t.clone() for p, t in flat(params).items()}
+        params, state, _, loss, _ = ts.step_fn(params, state, opt_state,
+                                               images, labels)
+        return init, flat(params), flat(state), loss.item()
+
+    hvd.init(device=dev)
+    rows = slice(rank * RESNET_DP2_BATCH, (rank + 1) * RESNET_DP2_BATCH)
+    init, params, state, loss = one_step(
+        resnet_step(training, resnet, cfg, dev), x[rows], y[rows])
+    mine = {**params, **{f"state.{p}": t for p, t in state.items()}}
+    same = all([torch.equal(hvd.broadcast(mine[p], 0, name=f"check.{p}"),
+                            mine[p]) for p in sorted(mine)])
+    identical = all(hvd.allgather_object(same))
+    engine = hvd.runtime._state().engine.stats()
+    hvd.shutdown()
+    if rank:
+        return 0
+    _, params1, state1, loss1 = one_step(
+        resnet_step(training, resnet, cfg, dev), x, y)
+    print(json.dumps({
+        "loss": loss, "loss_dp1": loss1, "identical_after_step": identical,
+        "engine": engine,
+        "update_norms": {p: ((params[p] - init[p]).double().norm().item(),
+                             (params1[p] - init[p]).double().norm().item())
+                         for p in init},
+        "update_cos": {p: cosine(params[p] - init[p], params1[p] - init[p])
+                       for p in init},
+        "state_rel": {p: rel(state[p], state1[p]) for p in state}}),
+        flush=True)
+    return 0
+
+
+def resnet_dp2_problems(res):
+    """``train_resnet_dp2``'s gates: the ranks identical; loss, weight
+    updates and running statistics against one process (RESNET_DP2_*).
+    A weight whose update is 0 in one process (the residual branches
+    behind each block's zero-initialized last batch-norm scale) must be
+    0 at dp 2 too."""
+    bad = []
+    if not res["identical_after_step"]:
+        bad.append("the ranks' weights or state differ after the step")
+    a, b = res["loss"], res["loss_dp1"]
+    if not abs(a - b) <= PARITY_LOSS_REL * abs(b):
+        bad.append(f"loss {a} (dp 2) vs {b} (dp 1)")
+    for p, (a, b) in res["update_norms"].items():
+        if b == 0:
+            if a != 0:
+                bad.append(f"update of {p}: {a} at dp 2, 0 at dp 1")
+            continue
+        if not abs(a - b) <= PARITY_NORM_REL * b:
+            bad.append(f"update norm {p}: {a} (dp 2) vs {b} (dp 1)")
+        if not res["update_cos"][p] > PARITY_COS:
+            bad.append(f"update cos {p}: {res['update_cos'][p]}")
+    bad += [f"running statistic {p}: {r} of its largest entry apart"
+            for p, r in res["state_rel"].items()
+            if not r <= RESNET_DP2_STATE_REL]
+    return bad
+
+
+def train_resnet_dp2_phase():
+    """Two ranks of :func:`resnet_dp2_child` on the card over gloo."""
+    res, seconds = _run_pair("--resnet-dp2-rank", RESNET_DP2_TIMEOUT_S)
+    emit("train_resnet_dp2", batch=[RESNET_DP2_BATCH] * 2, image=RESNET_IMG,
+         backend="gloo", seconds=seconds, **res)
+    bad = resnet_dp2_problems(res)
+    require(not bad, f"train_resnet_dp2: {bad}")
+
+
+def mnist_phase(fa, fx, dev):
+    """MNIST_STEPS classifier steps at batch 128 of seeded 28 x 28 images;
+    then ``classifier_forward`` serves a bucket of MNIST rows (the
+    images' bytes) and one of BERT rows (bert_base, seq 128), each
+    answer the argmax of ``eval_fn`` (MNIST) or ``classify`` (BERT) on
+    the same padded bucket."""
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import bert, mnist
+    from horovod_tpu_torch.serving.models import classifier_forward
+    from horovod_tpu_torch.serving.shapes import ShapeBuckets
+    cfg = mnist.MnistConfig()
+    ts = training.make_classifier_train_step(
+        lambda p, s, x, train, process_set: (mnist.forward(p, x, cfg), s),
+        lambda seed: (mnist.init(cfg, seed, device=dev), {}), device=dev)
+    params, state, opt_state = ts.init_fn(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    pixels = torch.randint(0, 256, (MNIST_BATCH, 28 * 28), generator=gen,
+                           device=dev)
+    labels = torch.randint(0, 10, (MNIST_BATCH,), generator=gen, device=dev)
+
+    def preprocess(t):
+        return t.view(-1, 1, 28, 28).float() / 255.0
+
+    images = preprocess(pixels)
+    losses, step_ms = [], []
+    for _ in range(MNIST_STEPS):
+        t0 = time.perf_counter()
+        params, state, opt_state, loss, acc = ts.step_fn(
+            params, state, opt_state, images, labels)
+        losses.append(loss.item())
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    bad = step_problems(losses, [], {})
+
+    n = SERVE_CLASSIFIER_ROWS
+    served = {}
+    bcfg = bert_config(bert)
+    bparams = bert.init_params(bcfg, seed=0, device=dev)
+    rng = np.random.RandomState(0)
+    cases = {
+        "mnist": (lambda p, x: mnist.forward(p, x, cfg), params, preprocess,
+                  pixels[:n - 2].cpu().numpy(), 28 * 28,
+                  lambda t: ts.eval_fn(params, state, preprocess(t))),
+        "bert": (lambda p, x: bert.classify(p, x, bcfg), bparams, None,
+                 rng.randint(0, bcfg.vocab_size, (n - 3, BERT_SEQ)),
+                 BERT_SEQ, lambda t: bert.classify(bparams, t, bcfg)),
+    }
+    fa.reset_launches()
+    for name, (fwd, p, pre, rows, width, reference) in cases.items():
+        tokens = np.zeros((n, width), np.int32)
+        tokens[:len(rows)] = rows
+        lengths = np.array([width] * len(rows) + [0] * (n - len(rows)),
+                           np.int32)
+        serve = classifier_forward(fwd, p, ShapeBuckets((n,), (width,)),
+                                   preprocess=pre)
+        t0 = time.perf_counter()
+        got = serve(tokens, lengths)
+        ms = 1e3 * (time.perf_counter() - t0)
+        with torch.no_grad():
+            want = reference(torch.as_tensor(tokens, dtype=torch.long,
+                                             device=dev)).argmax(-1)
+        want = want.cpu().numpy()[:, None]
+        served[name] = {"rows": len(rows), "bucket": [n, width], "ms": ms,
+                        "answers": got[:len(rows), 0].tolist(),
+                        "equal": bool(np.array_equal(got, want))}
+        if not served[name]["equal"]:
+            bad.append(f"classifier_forward {name}: {got[:, 0].tolist()}, "
+                       f"the reference's argmax {want[:, 0].tolist()}")
+    row = dict(batch=MNIST_BATCH, losses=losses, step_ms=step_ms,
+               accuracy=acc.item(), served=served,
+               bert_serve_launches=dict(fa.LAUNCHES))
+    emit("mnist", **row)
+    require(not bad, f"mnist: {bad}")
+    del bparams, params
+    torch.cuda.empty_cache()
+    return row
+
+
+def cosine_problems(pairs):
+    """``{name: (card, cpu)}`` by the parity rule: norms within
+    PARITY_NORM_REL, cosine above PARITY_COS.  Returns ``(norms, cos,
+    problems)``."""
+    norms = {n: (a.double().norm().item(), b.double().norm().item())
+             for n, (a, b) in pairs.items()}
+    cos = {n: cosine(a, b) for n, (a, b) in pairs.items()}
+    bad = []
+    for n, (a, b) in norms.items():
+        if not abs(a - b) <= PARITY_NORM_REL * b:
+            bad.append(f"norm {n}: {a} (card) vs {b} (cpu)")
+        if not cos[n] > PARITY_COS:
+            bad.append(f"cos {n}: {cos[n]}")
+    return norms, cos, bad
+
+
+def parity_bert_phase(convert, dev):
+    """2 layers of bert_base, card against CPU from the same converted
+    weights: logits, loss and gradients of one fine-tune batch."""
+    from horovod_tpu_torch.models import bert
+    cfg = bert_config(bert, n_layers=PARITY_BERT_LAYERS)
+    cpu = torch.device("cpu")
+    np_params = convert.bert_params_to_numpy(
+        bert.init_params(cfg, seed=1, device=cpu))
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, cfg.vocab_size, (PARITY_BERT_BATCH, BERT_SEQ))
+    labels = rng.randint(0, BERT_LABELS, PARITY_BERT_BATCH)
+    out = {}
+    for name, where in (("card", dev), ("cpu", cpu)):
+        ts = bert.make_dp_finetune_step(cfg, bert.finetune_optimizer,
+                                        device=where)
+        params = convert.bert_params_from_numpy(np_params, device=where)
+        ts.opt_init(params)
+        tk = torch.as_tensor(toks, device=where)
+        lb = torch.as_tensor(labels, device=where)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = bert.classify(params, tk, cfg)
+        loss, grads = ts.grads_fn(params, tk, lb)
+        picked = {"logits": logits, "word_embed": grads["word_embed"],
+                  "wq0": grads["layers"][0]["wq"],
+                  "wk0": grads["layers"][0]["wk"],
+                  "wv1": grads["layers"][1]["wv"],
+                  "w_out1": grads["layers"][1]["w_out"],
+                  "pooler_w": grads["pooler_w"], "cls_w": grads["cls_w"]}
+        out[name] = (loss.item(), {k: v.float().cpu()
+                                   for k, v in picked.items()},
+                     time.perf_counter() - t0)
+        del ts, params, grads, picked
+    (gl, gt, gs), (cl, ct, cs) = out["card"], out["cpu"]
+    norms, cos, bad = cosine_problems({k: (gt[k], ct[k]) for k in gt})
+    if not abs(gl - cl) <= PARITY_LOSS_REL * abs(cl):
+        bad.append(f"loss {gl} (card) vs {cl} (cpu)")
+    emit("parity_bert", layers=cfg.n_layers, batch=PARITY_BERT_BATCH,
+         seq=BERT_SEQ, loss=[gl, cl], norms=norms, cos=cos,
+         seconds={"cuda": gs, "cpu": cs})
+    require(not bad, f"parity_bert: {bad}")
+
+
+def parity_resnet_phase(convert, dev):
+    """ResNet-50 at batch 4 x 64^2, card against CPU from the same
+    converted weights, in fp32 and in bf16: loss, logits, the new running
+    statistics and, in fp32, gradients.  Each block's zero-initialized
+    last batch-norm scale is set to PARITY_RESNET_SCALE, so that every
+    residual branch has a gradient.  bf16 gradients through 50 layers of
+    batch norm at 4 images are rounding-bound (the CPU's own bf16 run
+    lies at cosines of 0.84-0.99 from its fp32 run at these weights), so
+    they are printed beside that distance and held to no gate."""
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    cfg = resnet.ResNetConfig(variant=50)
+    cpu = torch.device("cpu")
+    params, state = resnet.init(cfg, seed=1, device=cpu)
+    for t, path in zip(tree_leaves(params), tree_paths(params)):
+        if path.endswith(".scale") and not t.any():
+            t.fill_(PARITY_RESNET_SCALE)
+    np_params, np_state = convert.resnet_params_to_numpy(params, state)
+    x, y = (t.cpu() for t in resnet_batch(PARITY_RESNET_BATCH,
+                                          PARITY_RESNET_IMG, dev, seed=1))
+    picked = ("stem", "stage0.0.conv1", "stage1.0.proj", "stage2.3.conv2",
+              "stage3.2.conv0", "stage3.2.bn2.scale", "fc.w")
+
+    def run(where, dtype):
+        p, st = convert.resnet_params_from_numpy(np_params, np_state,
+                                                 device=where)
+        flat = dict(zip(tree_paths(p), tree_leaves(p)))
+        for t in flat.values():
+            t.requires_grad_(True)
+        t0 = time.perf_counter()
+        logits, new_state = resnet.forward(
+            p, st, x.to(where), dataclasses.replace(cfg, dtype=dtype))
+        loss = torch.nn.functional.cross_entropy(logits, y.to(where))
+        grads = torch.autograd.grad(loss, [flat[k] for k in picked])
+        stats = torch.cat([t.flatten() for t in tree_leaves(new_state)])
+        return (loss.item(), {"logits": logits.detach().float().cpu(),
+                              "running_stats": stats.cpu()},
+                {k: g.float().cpu() for k, g in zip(picked, grads)},
+                time.perf_counter() - t0)
+
+    out, bad, cpu_fp32_grads = {}, [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        (gl, gv, gg, gs), (cl, cv, cg, cs) = (run(dev, dtype),
+                                              run(cpu, dtype))
+        gated = {**gv, **gg} if dtype == torch.float32 else gv
+        norms, cos, problems = cosine_problems(
+            {k: (a, {**cv, **cg}[k]) for k, a in gated.items()})
+        if not abs(gl - cl) <= PARITY_LOSS_REL * abs(cl):
+            problems.append(f"loss {gl} (card) vs {cl} (cpu)")
+        out[name] = {"loss": [gl, cl], "norms": norms, "cos": cos,
+                     "seconds": {"cuda": gs, "cpu": cs}}
+        if dtype == torch.float32:
+            cpu_fp32_grads = cg
+        else:
+            out[name]["grad_cos"] = {k: cosine(gg[k], cg[k]) for k in gg}
+            out[name]["cpu_grad_cos_bf16_vs_fp32"] = {
+                k: cosine(cg[k], cpu_fp32_grads[k]) for k in cg}
+        bad += [f"{name}: {b}" for b in problems]
+    emit("parity_resnet", batch=PARITY_RESNET_BATCH, image=PARITY_RESNET_IMG,
+         scale=PARITY_RESNET_SCALE, **out)
+    require(not bad, f"parity_resnet: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1814,6 +2374,9 @@ def main() -> int:
                          dev)
     if "--a5-rank" in sys.argv:
         return a5_child(int(sys.argv[sys.argv.index("--a5-rank") + 1]), dev)
+    if "--resnet-dp2-rank" in sys.argv:
+        return resnet_dp2_child(
+            int(sys.argv[sys.argv.index("--resnet-dp2-rank") + 1]), dev)
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import convert, training
     from horovod_tpu_torch.models import generate as gen
@@ -1924,6 +2487,21 @@ def main() -> int:
     timed("train_a5_dp2", train_a5_dp2_phase)
     timed("decode", decode_phase, llama, gen, paging, fa, fx, convert, dev)
     timed("serve", serve_phase, llama, gen, paging, fa, fx, dev)
+
+    # the classifier models: BERT through the flash kernels at head_dim 64
+    # and ResNet-50 under the runtime at world 1, two ranks of ResNet-50
+    # sharing the card, MNIST and the classifier serving forward, and
+    # both models against the CPU
+    hvd.init()
+    try:
+        train_bert = timed("train_bert", train_bert_phase, fa, fx, dev)
+        timed("train_resnet", train_resnet_phase, fa, fx, dev)
+    finally:
+        hvd.shutdown()
+    timed("train_resnet_dp2", train_resnet_dp2_phase)
+    timed("mnist", mnist_phase, fa, fx, dev)
+    timed("parity_bert", parity_bert_phase, convert, dev)
+    timed("parity_resnet", parity_resnet_phase, convert, dev)
     emit("phase_seconds", **phase_s)
 
     # (name, source, replaces, kernels-phase row, launches on its path)
@@ -1942,6 +2520,17 @@ def main() -> int:
             "library_pair_ms": row["library_pair_ms"],
             "tflops": row["tflops"]})
         require(n > 0, f"{label} never ran on its path")
+        if label.startswith("flash_"):
+            # BERT's shape and path: the bert case's numbers and the
+            # launches of train_bert's timed steps
+            k = label.removeprefix("flash_")
+            summary[-1]["bert"] = {
+                key: kernels[("bert", k)][key] for key in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_pair_ms", "tflops")}
+            summary[-1]["bert"]["launches"] = train_bert["launches"][k]
+            require(train_bert["launches"][k] > 0,
+                    f"{label} never ran on train_bert's path")
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ rank and size, the eager collectives with async handles over
 ``torch.distributed`` (``api.py``), ``DistributedOptimizer``,
 ``DistributedGradientTransform`` (planned buckets, ZeRO tiles, the
 quantized wire formats) and the broadcast helpers
-(``optim/distributed.py``), and ``overlapped_backprop``
-(``optim/overlap.py``).
+(``optim/distributed.py``), ``overlapped_backprop``
+(``optim/overlap.py``) and ``SyncBatchNorm`` (``sync_batch_norm.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``:
 :func:`default_device` raises when no card is visible instead of carrying
@@ -71,8 +71,10 @@ from .runtime import (  # noqa: E402
     mpi_threads_supported, nccl_built, rank, remove_process_set,
     rocm_built, shutdown, size, tpu_built, xla_built)
 
+from .sync_batch_norm import SyncBatchNorm  # noqa: E402
+
 #: names of the JAX package's torch surface not ported yet, by ROADMAP item
-_UNPORTED = {"SyncBatchNorm": "A6", "elastic": "A8"}
+_UNPORTED = {"elastic": "A8"}
 
 
 def __getattr__(name):
@@ -101,7 +103,7 @@ __all__ = [
     "allgather_object", "broadcast_parameters", "broadcast_optimizer_state",
     "DistributedOptimizer", "DistributedGradientTransform",
     "fused_reduce_scatter_tree", "all_gather_sharded_tree",
-    "overlapped_backprop", "WireFormat", "WIRE_FORMATS",
+    "overlapped_backprop", "SyncBatchNorm", "WireFormat", "WIRE_FORMATS",
     "resolve_wire_format", "Compression", "HorovodInternalError",
     "ProcessSet", "add_process_set", "remove_process_set",
     "mpi_threads_supported", "mpi_built", "mpi_enabled", "gloo_built",

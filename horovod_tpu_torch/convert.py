@@ -1,40 +1,35 @@
-"""Llama parameters between the JAX package's layout and the port's.
+"""Model parameters between the JAX package's layout and the port's.
 
-Counterpart: none.  ``horovod_tpu.models.llama.init_params`` returns
-``{"embed": [V, D], "layers": {name: [L, ...]}, "final_norm": [D]}`` with
-the layers stacked on a leading axis; the port keeps the same leaves as a
-list of per-layer dicts.  Only the stacking differs: every weight keeps
-its ``[in, out]`` layout.  Arrays cross as numpy, so JAX never runs here.
+Counterpart: none.  Arrays cross as numpy, so JAX never runs here.
+
+* Llama and BERT: the JAX trees stack the layers on a leading axis
+  (``{"layers": {name: [L, ...]}}``); the port keeps the same leaves as a
+  list of per-layer dicts.  Only the stacking differs: every weight keeps
+  its ``[in, out]`` layout.
+* ResNet and MNIST: the trees have the same structure (ResNet's params and
+  batch-norm state alike); convolution weights go from JAX's HWIO to
+  torch's OIHW.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import DeviceLike, resolve_device
+from .tree import tree_map
 
 
-def llama_params_from_numpy(tree: Dict, device: DeviceLike = None,
-                            dtype: Optional[torch.dtype] = None) -> Dict:
-    """JAX-layout numpy arrays → the port's parameters on ``device``
-    (default: the CUDA device), cast to ``dtype`` when given."""
+def _leaf_fn(device: DeviceLike, dtype: Optional[torch.dtype]):
     device = resolve_device(device)
 
     def leaf(a):
         t = torch.from_numpy(np.array(a))  # a writable copy
         return t.to(device=device, dtype=dtype or t.dtype)
 
-    stacked = tree["layers"]
-    n_layers = len(next(iter(stacked.values())))
-    return {
-        "embed": leaf(tree["embed"]),
-        "layers": [{name: leaf(w[i]) for name, w in stacked.items()}
-                   for i in range(n_layers)],
-        "final_norm": leaf(tree["final_norm"]),
-    }
+    return leaf
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -42,12 +37,94 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _unstack(tree: Dict, leaf, keys) -> Dict:
+    """A JAX tree with stacked ``layers`` → the port's, leaf by leaf, its
+    top-level keys in the order of ``keys`` (JAX sorts a dict's keys)."""
+    stacked = tree["layers"]
+    n_layers = len(next(iter(stacked.values())))
+    return {k: ([{name: leaf(w[i]) for name, w in stacked.items()}
+                 for i in range(n_layers)] if k == "layers"
+                else leaf(tree[k])) for k in keys}
+
+
+def _restack(params: Dict) -> Dict:
+    """The port's tree → the JAX layout: the layer list stacked again."""
+    return {k: ({name: np.stack([_to_numpy(lp[name]) for lp in v])
+                 for name in v[0]} if k == "layers" else _to_numpy(v))
+            for k, v in params.items()}
+
+
+def llama_params_from_numpy(tree: Dict, device: DeviceLike = None,
+                            dtype: Optional[torch.dtype] = None) -> Dict:
+    """JAX-layout numpy arrays → the port's parameters on ``device``
+    (default: the CUDA device), cast to ``dtype`` when given."""
+    return _unstack(tree, _leaf_fn(device, dtype),
+                    ("embed", "layers", "final_norm"))
+
+
 def llama_params_to_numpy(params: Dict) -> Dict:
     """The port's parameters → JAX-layout numpy arrays (bf16 as fp32)."""
-    layers = params["layers"]
-    return {
-        "embed": _to_numpy(params["embed"]),
-        "layers": {name: np.stack([_to_numpy(lp[name]) for lp in layers])
-                   for name in layers[0]},
-        "final_norm": _to_numpy(params["final_norm"]),
-    }
+    return _restack(params)
+
+
+# the order of the port's init_params
+_BERT_KEYS = ("word_embed", "pos_embed", "type_embed", "embed_norm_w",
+              "embed_norm_b", "layers", "pooler_w", "pooler_b", "cls_w",
+              "cls_b")
+
+
+def bert_params_from_numpy(tree: Dict, device: DeviceLike = None,
+                           dtype: Optional[torch.dtype] = None) -> Dict:
+    """JAX-layout BERT arrays (``layers`` stacked ``[L, ...]``) → the
+    port's parameters on ``device`` (default: the CUDA device)."""
+    return _unstack(tree, _leaf_fn(device, dtype), _BERT_KEYS)
+
+
+def bert_params_to_numpy(params: Dict) -> Dict:
+    """The port's BERT parameters → JAX-layout numpy arrays."""
+    return _restack(params)
+
+
+def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
+    return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+
+
+def _oihw_to_hwio(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+
+
+def _conv_tree_from_numpy(tree, device, dtype):
+    leaf = _leaf_fn(device, dtype)
+    return tree_map(lambda a: leaf(_hwio_to_oihw(np.asarray(a))), tree)
+
+
+def _conv_tree_to_numpy(tree):
+    return tree_map(lambda t: np.ascontiguousarray(
+        _oihw_to_hwio(_to_numpy(t))), tree)
+
+
+def resnet_params_from_numpy(params: Dict, state: Dict,
+                             device: DeviceLike = None,
+                             dtype: Optional[torch.dtype] = None
+                             ) -> Tuple[Dict, Dict]:
+    """The JAX package's ResNet ``(params, state)`` as numpy → the port's
+    on ``device`` (default: the CUDA device): HWIO convolutions as OIHW."""
+    return (_conv_tree_from_numpy(params, device, dtype),
+            _conv_tree_from_numpy(state, device, dtype))
+
+
+def resnet_params_to_numpy(params: Dict, state: Dict) -> Tuple[Dict, Dict]:
+    """The port's ResNet ``(params, state)`` → the JAX layout as numpy."""
+    return _conv_tree_to_numpy(params), _conv_tree_to_numpy(state)
+
+
+def mnist_params_from_numpy(params: Dict, device: DeviceLike = None,
+                            dtype: Optional[torch.dtype] = None) -> Dict:
+    """The JAX package's MNIST params as numpy → the port's on ``device``
+    (default: the CUDA device): HWIO convolutions as OIHW."""
+    return _conv_tree_from_numpy(params, device, dtype)
+
+
+def mnist_params_to_numpy(params: Dict) -> Dict:
+    """The port's MNIST params → the JAX layout as numpy."""
+    return _conv_tree_to_numpy(params)

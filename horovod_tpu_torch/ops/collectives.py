@@ -20,7 +20,9 @@ plan order, as the JAX package's in-jit ``*_p`` forms run inside the
 compiled step: :func:`reduce_scatter_flat`, :func:`all_gather_flat` and
 the quantized staging (JAX ``quantized_sum_scatter_p``,
 ``quantized_all_gather_p``, ``quantized_allreduce_p``).  Over gloo, CUDA
-tensors of these flat forms travel through host memory.
+tensors of these flat forms travel through host memory.  Synchronized
+batch norm (``ops/sync_batch_norm.py``) sums its statistics with
+:func:`allreduce_sum`, as the JAX package's ``lax.psum`` inside the step.
 
 Not here yet: the tail-policy and hierarchical paths and Adasum (ROADMAP.md
 A5), and the model-parallel forms (A6).
@@ -124,6 +126,15 @@ def allreduce_arrays(tensors: Sequence[torch.Tensor], ps,
             outs = list(tensors)
     mark("end")
     return outs
+
+
+def allreduce_sum(x: torch.Tensor, ps) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``ps``, as a new tensor, on the
+    calling thread (JAX ``lax.psum`` inside a program; the engine is not
+    involved): for collectives inside a model's forward or backward."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(ps))
+    return out
 
 
 def allgather_array(x: torch.Tensor, ps,

@@ -10,12 +10,13 @@ array — the one signature the serving worker speaks:
   shape bucket, allocated on the bucket's first call and reused;
 * ``paged_llama_decode_forward`` — the same through the paged KV pool
   (``serving/paging.py``);
+* ``classifier_forward`` — a BERT- or MNIST-shaped classifier, one
+  argmax label a row;
 * ``toy_echo_forward`` — a deterministic verification forward.
 
 Each row of a decode continues its own prompt; per-row parity with
 sequential ``greedy_generate`` is the micro-batching correctness floor.
-The model-parallel decode and the classifier forwards (BERT, MNIST) wait
-for ROADMAP.md A6.
+The model-parallel decode waits for ROADMAP.md A6.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import DeviceLike
+from ..tree import tree_leaves
 from .shapes import ShapeBuckets
 from .worker import BucketedForward
 
@@ -87,11 +89,21 @@ def mp_llama_decode_forward(params, cfg, max_new_tokens: int,
 
 def classifier_forward(forward: Callable, params, buckets: ShapeBuckets,
                        preprocess: Callable = None) -> BucketedForward:
-    """A plain classifier forward as a serving function: not ported yet
-    (its models, BERT and MNIST, are not)."""
-    raise NotImplementedError(
-        "classifier_forward serves BERT/MNIST-shaped models, which are "
-        "not ported yet (ROADMAP.md A6)")
+    """A plain forward (bert/mnist-shaped ``forward(params, x) ->
+    logits``) as a serving function on the params' device: rows are flat
+    inputs, the output is the ``[B, 1]`` argmax label.  ``preprocess``
+    maps the int64 token batch to the model's input (e.g. reshape and
+    scale image bytes)."""
+    device = tree_leaves(params)[0].device
+
+    def fn(bufs):
+        tokens = bufs["tokens"]
+        x = tokens if preprocess is None else preprocess(tokens)
+        with torch.inference_mode():
+            logits = forward(params, x)
+        return logits.argmax(-1).to(torch.int32)[:, None]
+
+    return BucketedForward(fn, buckets, device=device)
 
 
 def toy_echo_forward(buckets: ShapeBuckets, burn_dim: int = 200,

@@ -1,4 +1,4 @@
-"""Train-step assembly for the Llama model.
+"""Train-step assembly: the Llama step and the image-classifier step.
 
 Counterpart: ``horovod_tpu/training.py``.  The JAX package compiles one
 ``shard_map`` program per step; here the step is eager PyTorch: loss and
@@ -26,6 +26,11 @@ the mesh then holds the global process set), the gradient plane is:
 scales them by 1/k, then reduces once and updates once.  Without
 ``hvd.init()`` the step runs on one device and reduces nothing.
 ``attn="ulysses"`` raises ``NotImplementedError``.
+
+:func:`make_classifier_train_step` is the data-parallel step of the image
+classifiers (ResNet, MNIST): batch norm synchronized over dp through the
+model's forward, then the gradients, the loss and the accuracy averaged
+through the engine in one submission.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import functools
 from typing import Any, Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import DeviceLike, api, resolve_device, runtime
 from .models import llama as llama_mod
@@ -63,6 +69,41 @@ class TrainStep:
     # the overlapped step's DistributedGradientTransform (its plan is
     # optim.overlap.plan_for(transform)); None for the other steps
     transform: Any = None
+
+
+def sum_scaled_(tensors, names, ps, scale: float) -> None:
+    """Allreduce ``tensors`` in place over ``ps`` in one engine submission
+    (op Sum, postscale ``scale``), so one cycle plans them into buckets
+    together; returns when every one is reduced.  ``names`` must be the
+    same on every rank."""
+    for h in api._allreduce_each_async_(tensors, names, op=runtime.Sum,
+                                        postscale_factor=scale,
+                                        process_set=ps):
+        h.synchronize()
+
+
+def resolve_mesh(pmesh: Optional[ParallelMesh],
+                 device: DeviceLike = None) -> ParallelMesh:
+    """A step's mesh: ``pmesh``; else ``MeshConfig(dp=hvd.size())`` when
+    the runtime is initialized; else one device, ``device`` or the CUDA
+    device when None (raising without one).  A ``device`` other than the
+    mesh's raises."""
+    if pmesh is None and runtime.is_initialized():
+        pmesh = ParallelMesh(MeshConfig(dp=runtime.size()))
+    if pmesh is None:
+        return ParallelMesh(MeshConfig(), devices=[resolve_device(device)])
+    if device is not None and torch.device(device) != pmesh.devices[0]:
+        raise ValueError(f"device={device} is not the mesh's device "
+                         f"{pmesh.devices[0]}")
+    return pmesh
+
+
+def trainable_leaves(params):
+    """The leaves of ``params``, each set to require a gradient."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    return leaves
 
 
 def _axis_or_none(pmesh: ParallelMesh, name: str) -> Optional[str]:
@@ -107,13 +148,7 @@ def make_llama_train_step(cfg: LlamaConfig,
     if attn == "ulysses":
         raise NotImplementedError(
             "attn='ulysses' is not ported yet (ROADMAP.md A6)")
-    if pmesh is None and runtime.is_initialized():
-        pmesh = ParallelMesh(MeshConfig(dp=runtime.size()))
-    if pmesh is None:
-        pmesh = ParallelMesh(MeshConfig(), devices=[resolve_device(device)])
-    elif device is not None and torch.device(device) != pmesh.devices[0]:
-        raise ValueError(f"device={device} is not the mesh's device "
-                         f"{pmesh.devices[0]}")
+    pmesh = resolve_mesh(pmesh, device)
     device = pmesh.devices[0]
     par = make_llama_parallel_spec(pmesh, attn, use_ep=cfg.n_experts > 0)
     dp, sp = pmesh.config.dp, pmesh.config.sp
@@ -173,11 +208,8 @@ def make_llama_train_step(cfg: LlamaConfig,
                     collectives._scale_(r, scale)
                     rows[path] = r.view((g.shape[0] // dp,) + g.shape[1:])
         rest = [(p, g) for p, g in zip(paths, leaves) if p not in rows]
-        for h in api._allreduce_each_async_(
-                [g for _, g in rest] + [loss],
-                [f"grad.{p}" for p, _ in rest] + ["loss"],
-                op=runtime.Sum, postscale_factor=scale, process_set=ps):
-            h.synchronize()
+        sum_scaled_([g for _, g in rest] + [loss],
+                    [f"grad.{p}" for p, _ in rest] + ["loss"], ps, scale)
         if rows:
             it = iter(paths)
             grads = tree_map(lambda g: rows.get(next(it), g), grads)
@@ -220,12 +252,6 @@ def make_llama_train_step(cfg: LlamaConfig,
     def grads_fn(params, tokens, targets):
         return reduce_grads(*loss_and_grads(params, tokens, targets))
 
-    def mark_trainable(params):
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        return leaves
-
     if overlap:
         tx = DistributedGradientTransform(make_opt, op=runtime.Average,
                                           process_set=ps, overlap=True)
@@ -243,7 +269,7 @@ def make_llama_train_step(cfg: LlamaConfig,
             return params, opt_state, loss
 
         def opt_init(params):
-            mark_trainable(params)
+            trainable_leaves(params)
             return tx.init(params)
     else:
         def step_fn(params, opt_state, tokens, targets):
@@ -267,7 +293,7 @@ def make_llama_train_step(cfg: LlamaConfig,
             return params, opt_state, loss
 
         def opt_init(params):
-            leaves = mark_trainable(params)
+            leaves = trainable_leaves(params)
             if not use_zero:
                 return make_opt(leaves)
             views = [zero_rows(p) for p in leaves]
@@ -283,3 +309,88 @@ def make_llama_train_step(cfg: LlamaConfig,
     return TrainStep(step_fn=step_fn, init_fn=init_fn, opt_init=opt_init,
                      grads_fn=grads_fn, par=par, mesh=pmesh, device=device,
                      transform=tx if overlap else None)
+
+
+#: ``optax.sgd(0.1, momentum=0.9)``, the JAX classifier step's default:
+#: torch's SGD with dampening 0 and no Nesterov keeps the same trace
+default_classifier_optimizer = functools.partial(torch.optim.SGD, lr=0.1,
+                                                 momentum=0.9)
+
+
+@dataclasses.dataclass
+class ClassifierTrainStep:
+    """A data-parallel image-classifier step (BASELINE configs 1, 2, 5)."""
+    step_fn: Callable   # (params, state, opt_state, images, labels) ->
+    #                     (params, state, opt_state, loss, accuracy)
+    init_fn: Callable   # (seed) -> (params, state, opt_state)
+    eval_fn: Callable   # (params, state, images) -> logits
+    opt_init: Callable  # (params) -> opt_state
+    mesh: ParallelMesh
+    device: torch.device
+
+
+def make_classifier_train_step(forward_fn: Callable, model_init_fn: Callable,
+                               pmesh: Optional[ParallelMesh] = None,
+                               optimizer: Optional[Callable[..., Any]] = None,
+                               sync_bn: bool = True,
+                               device: DeviceLike = None
+                               ) -> ClassifierTrainStep:
+    """The data-parallel training step of an image classifier.
+
+    ``forward_fn(params, state, images, train, process_set)`` returns
+    ``(logits, new_state)``: stateless models pass ``state`` through.
+    ``model_init_fn(seed)`` returns ``(params, state)``, which ``init_fn``
+    moves to the step's device.  With ``sync_bn`` the forward gets the dp
+    process set, over which batch norm computes its statistics; without
+    it each rank normalizes over its own batch and the new batch-norm
+    state is averaged over dp, so the replicas stay equal.
+
+    ``optimizer`` is a factory called with the list of parameters; the
+    default matches ``optax.sgd(0.1, momentum=0.9)``.  The mesh as in
+    :func:`make_llama_train_step`.
+    """
+    pmesh = resolve_mesh(pmesh, device)
+    device = pmesh.devices[0]
+    ps, dp = pmesh.process_set, pmesh.config.dp
+    reduce = ps is not None and dp > 1
+    bn_ps = ps if (sync_bn and reduce) else None
+    make_opt = optimizer if optimizer is not None \
+        else default_classifier_optimizer
+
+    def step_fn(params, state, opt_state, images, labels):
+        logits, state = forward_fn(params, state, images, train=True,
+                                   process_set=bn_ps)
+        loss = F.cross_entropy(logits, labels.long())
+        acc = (logits.detach().argmax(-1) == labels).float().mean()
+        loss.backward()
+        loss = loss.detach()
+        if reduce:
+            # the per-rank means, summed and scaled by 1/dp: the gradient
+            # of the global batch's mean loss, its loss and its accuracy
+            grads = [p.grad for p in tree_leaves(params)]
+            sum_scaled_(grads + [loss, acc],
+                        [f"grad.{p}" for p in tree_paths(params)]
+                        + ["loss", "accuracy"], ps, 1.0 / dp)
+            stats = tree_leaves(state)
+            if not sync_bn and stats:
+                sum_scaled_(stats, [f"state.{p}" for p in tree_paths(state)],
+                            ps, 1.0 / dp)
+        opt_state.step()
+        opt_state.zero_grad(set_to_none=True)
+        return params, state, opt_state, loss, acc
+
+    def eval_fn(params, state, images):
+        with torch.no_grad():
+            return forward_fn(params, state, images, train=False,
+                              process_set=None)[0]
+
+    def opt_init(params):
+        return make_opt(trainable_leaves(params))
+
+    def init_fn(seed: int = 0):
+        params, state = tree_map(lambda t: t.to(device), model_init_fn(seed))
+        return params, state, opt_init(params)
+
+    return ClassifierTrainStep(step_fn=step_fn, init_fn=init_fn,
+                               eval_fn=eval_fn, opt_init=opt_init,
+                               mesh=pmesh, device=device)

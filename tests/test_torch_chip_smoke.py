@@ -458,3 +458,111 @@ def test_decode_bound_at_the_1b_geometry():
     assert b["kv_bytes"] == mean_kv
     assert b["bound_ms"] == pytest.approx(
         1e3 * (b["weight_bytes"] + mean_kv) / 3.35e12)
+
+
+# -- the classifier phases ----------------------------------------------------
+
+def test_flash_bounds_at_bert_shape_are_bytes():
+    """At BERT's fine-tune shape (B 512, T 128, 12 heads of 64,
+    non-causal) bytes bound all three flash kernels: the forward moves
+    q, k, v, o (bf16) and lse (fp32), 405.8 MB, in 0.121 ms at 3.35 TB/s
+    against 25.8 GFLOP in 0.026 ms."""
+    case = dict(chip_smoke.KERNEL_CASES)["bert"]
+    assert case == (512, 128, 12, 12, 64, False)
+    want = {"fwd": (0.1211, 405_798_912), "dq": (0.1521, 509_607_936),
+            "dkv": (0.1822, 610_271_232)}
+    for kernel, (ms, nbytes) in want.items():
+        bound_ms, by, flops, got = chip_smoke.bound(kernel, case)
+        assert by == "bytes" and got == nbytes
+        assert bound_ms == pytest.approx(ms, abs=1e-4)
+        assert flops / chip_smoke.PEAK_BF16_FLOPS * 1e3 < bound_ms / 2
+
+
+def test_mfu_is_six_n_tokens_over_the_peak():
+    assert chip_smoke.mfu(109_485_316, 1e5) == pytest.approx(
+        6 * 109_485_316 * 1e5 / 989e12)
+
+
+def test_step_problems():
+    ok = {"fwd": 24, "dq": 12}
+    assert chip_smoke.step_problems([2.0, 1.5, 1.0], [ok, ok], ok) == []
+    assert chip_smoke.step_problems([2.0, float("nan")], [], ok)
+    assert chip_smoke.step_problems([2.0, 2.0], [], ok)
+    assert chip_smoke.step_problems([2.0, 2.0], [], ok,
+                                    falling_from=None) == []
+    # the timed steps after an overshooting first step
+    assert chip_smoke.step_problems([1.4, 3.5, 2.2, 1.6], [], ok,
+                                    falling_from=1) == []
+    assert chip_smoke.step_problems([1.4, 3.5, 2.2, 1.6], [], ok)
+    assert chip_smoke.step_problems([2.0, 1.0], [dict(ok, dq=11)], ok)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_bert_step_runs_each_flash_kernel_as_train_bert_expects(
+        monkeypatch, remat):
+    """The fine-tune step at head_dim 64 and seq 128 calls the flash
+    forward twice a layer with remat (the block's recompute) and once
+    without, dq and dK/dV once a layer: EXPECTED_BERT_LAUNCHES at
+    bert_base's 12 layers.  On the CPU the wrappers run their plain
+    versions, so their calls are counted here."""
+    import dataclasses
+    from horovod_tpu_torch.models import bert
+    from horovod_tpu_torch.ops import flash_attention as fa
+    calls = {"fwd": 0, "dq": 0, "dkv": 0}
+    for kernel, name in (("fwd", "_flash_fwd_bhtd"), ("dq", "_dq"),
+                         ("dkv", "_dkv")):
+        def counted(*a, _f=getattr(fa, name), _k=kernel, **k):
+            calls[_k] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(fa, name, counted)
+    cfg = dataclasses.replace(chip_smoke.bert_config(bert), vocab_size=256,
+                              d_model=128, n_heads=2, d_ff=256, n_layers=2,
+                              remat=remat)
+    ts = bert.make_dp_finetune_step(cfg, bert.finetune_optimizer,
+                                    device="cpu")
+    params, opt_state = ts.init_fn(0)
+    toks = torch.zeros((2, chip_smoke.BERT_SEQ), dtype=torch.long)
+    ts.step_fn(params, opt_state, toks, toks[:, 0])
+    L = cfg.n_layers
+    assert calls == {"fwd": (2 if remat else 1) * L, "dq": L, "dkv": L}
+    assert fa.LAUNCHES == {"fwd": 0, "dq": 0, "dkv": 0}
+    full = chip_smoke.bert_config(bert)
+    assert full.remat and chip_smoke.EXPECTED_BERT_LAUNCHES == {
+        "fwd": 2 * full.n_layers, "dq": full.n_layers,
+        "dkv": full.n_layers, "xent_fwd": 0, "xent_dh": 0, "xent_dw": 0}
+
+
+def _dp2_result():
+    return {"loss": 6.9, "loss_dp1": 6.9001, "identical_after_step": True,
+            "update_norms": {"stem": (1.0, 1.001), "stage0.0.conv0": (0.0,
+                                                                      0.0)},
+            "update_cos": {"stem": 0.9999, "stage0.0.conv0": 0.0},
+            "state_rel": {"stem_bn.mean": 1e-3}}
+
+
+def test_resnet_dp2_problems():
+    """The gates of train_resnet_dp2: a leaf whose update is exactly 0 at
+    dp 1 (behind a zero-initialized scale) passes only as an exact 0."""
+    assert chip_smoke.resnet_dp2_problems(_dp2_result()) == []
+    for change in ({"identical_after_step": False}, {"loss": 7.0},
+                   {"update_norms": {"stem": (1.1, 1.0)}},
+                   {"update_norms": {"stem": (1e-9, 0.0)}},
+                   {"update_cos": {"stem": 0.98}},
+                   {"state_rel": {"stem_bn.var": 0.02}}):
+        assert chip_smoke.resnet_dp2_problems(
+            dict(_dp2_result(), **change)), change
+
+
+def test_cosine_problems():
+    a = torch.arange(1.0, 101.0)
+    norms, cos, bad = chip_smoke.cosine_problems(
+        {"same": (a, a.clone()), "scaled": (a * 1.05, a),
+         "turned": (a.flip(0), a)})
+    assert cos["same"] == pytest.approx(1.0)
+    assert [b.split()[1] for b in bad] == ["scaled:", "turned:"]
+
+
+def test_parse_clocks():
+    assert chip_smoke.parse_clocks("1980, 2619, 312.45") == {
+        "sm_mhz": 1980.0, "mem_mhz": 2619.0, "power_w": 312.45}
+    assert chip_smoke.parse_clocks("1755, 2619, [N/A]")["power_w"] is None

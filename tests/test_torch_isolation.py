@@ -40,6 +40,11 @@ def test_importing_every_module_loads_no_jax():
               "metrics.flight", "metrics.aggregate", "chaos",
               "chaos.schedule"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # the classifier models, synchronized batch norm and their step
+    for m in ("models.bert", "models.resnet", "models.mnist",
+              "ops.sync_batch_norm", "sync_batch_norm", "training",
+              "convert"):
+        assert f"horovod_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -70,7 +75,7 @@ def no_card():
 
 def test_entry_points_raise_without_a_card(no_card):
     from horovod_tpu_torch import convert, default_device, training
-    from horovod_tpu_torch.models import generate, llama
+    from horovod_tpu_torch.models import bert, generate, llama, mnist, resnet
     from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
     from horovod_tpu_torch.serving.models import toy_echo_forward
     from horovod_tpu_torch.serving.shapes import ShapeBuckets
@@ -82,6 +87,15 @@ def test_entry_points_raise_without_a_card(no_card):
                  lambda: convert.llama_params_from_numpy({}),
                  lambda: generate.init_kv_cache(cfg, 1, 8),
                  lambda: generate.init_paged_kv_cache(cfg, 2, 4),
-                 lambda: toy_echo_forward(ShapeBuckets((1,), (8,)))):
+                 lambda: toy_echo_forward(ShapeBuckets((1,), (8,))),
+                 lambda: bert.init_params(bert.tiny()),
+                 lambda: bert.make_dp_finetune_step(
+                     bert.tiny(), bert.finetune_optimizer),
+                 lambda: resnet.init(resnet.ResNetConfig(variant=18)),
+                 lambda: mnist.init(),
+                 lambda: training.make_classifier_train_step(
+                     None, None),
+                 lambda: convert.resnet_params_from_numpy({}, {}),
+                 lambda: convert.mnist_params_from_numpy({})):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()

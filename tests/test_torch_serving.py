@@ -515,10 +515,53 @@ def test_llama_bucket_buffers_are_reused():
 
 
 def test_classifier_forward_is_not_ported():
+    """The test that pinned ``classifier_forward`` as unported now holds
+    it against the JAX package's: the same BERT-tiny and MNIST params,
+    the same padded batches, the same ``[B, 1]`` argmax labels."""
+    import jax
+    import jax.numpy as jnp
+    from horovod_tpu.models import bert as jb
+    from horovod_tpu.models import mnist as jm
+    from horovod_tpu.serving import models as jmodels
+    from horovod_tpu.serving.shapes import ShapeBuckets as JBuckets
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models import bert as tb
+    from horovod_tpu_torch.models import mnist as tm
     from horovod_tpu_torch.serving.models import classifier_forward
-    with pytest.raises(NotImplementedError, match="A6"):
-        classifier_forward(lambda p, x: x, None,
-                           ShapeBuckets((1,), (8,)))
+    rng = np.random.RandomState(6)
+    jbert = jb.tiny(vocab=64, seq=16, num_labels=5)
+    tbert = tb.tiny(vocab=64, seq=16, num_labels=5)
+    bert_p = jax.tree_util.tree_map(np.asarray, jb.init_params(
+        jbert, jax.random.PRNGKey(1)))
+    jmc, tmc = jm.MnistConfig(dtype=jnp.float32), tm.MnistConfig(
+        dtype=torch.float32)
+    mnist_p = jax.tree_util.tree_map(np.asarray, jm.init(
+        jmc, jax.random.PRNGKey(2)))
+    cases = {
+        "bert": (
+            lambda p, x: jb.classify(p, x, jbert, jb.ParallelSpec()),
+            lambda p, x: tb.classify(p, x, tbert), bert_p,
+            convert.bert_params_from_numpy(bert_p, device=CPU), None, None,
+            (4, 16), rng.randint(0, 64, (3, 16))),
+        "mnist": (
+            lambda p, x: jm.forward(p, x, jmc),
+            lambda p, x: tm.forward(p, x, tmc), mnist_p,
+            convert.mnist_params_from_numpy(mnist_p, device=CPU),
+            lambda t: (t.reshape(-1, 28, 28, 1) / 255.0),
+            lambda t: (t.view(-1, 1, 28, 28) / 255.0),
+            (4, 784), rng.randint(0, 256, (3, 784))),
+    }
+    for name, (jf, tf, jp, tp, jpre, tpre, (b, s), rows) in cases.items():
+        tokens = np.zeros((b, s), np.int32)
+        tokens[:len(rows)] = rows
+        lengths = np.array([s] * len(rows) + [0] * (b - len(rows)), np.int32)
+        want = jmodels.classifier_forward(jf, jax.tree_util.tree_map(
+            jnp.asarray, jp), JBuckets((b,), (s,)),
+                                          preprocess=jpre)(tokens, lengths)
+        got = classifier_forward(tf, tp, ShapeBuckets((b,), (s,)),
+                                 preprocess=tpre)(tokens, lengths)
+        assert got.shape == (b, 1) and got.dtype == np.int32, name
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=name)
 
 
 # -- metrics: edge resolution + job merge -------------------------------------

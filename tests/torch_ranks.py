@@ -59,6 +59,22 @@ def launch(world, cases, tmp_path, port=None, env=None, timeout=300):
         port = None
 
 
+class Worlds(dict):
+    """``worlds[n]``: each rank's results of ``cases`` at world size ``n``,
+    launched on the first read, so a failed launch of one world leaves
+    the tests of another alone."""
+
+    def __init__(self, tmp_path_factory, cases):
+        super().__init__()
+        self._tmp = tmp_path_factory
+        self._cases = list(cases)
+
+    def __missing__(self, world):
+        self[world] = launch(world, self._cases,
+                             self._tmp.mktemp(f"w{world}"))
+        return self[world]
+
+
 def _launch_once(world, cases, tmp_path, port, env, timeout):
     out = tmp_path / f"ranks{world}-{port}"
     out.mkdir()
@@ -608,6 +624,213 @@ def case_overlap(hvd, rank, world):
             "final_norm": _np(params["final_norm"]),
             "w": np.stack([_np(lp["w"]) for lp in params["layers"]]),
             "b": np.stack([_np(lp["b"]) for lp in params["layers"]])}
+    return out
+
+
+# -- the classifier models (A6) ---------------------------------------------
+
+SBN_C = 5
+SBN_BATCH = 8
+SBN_STEPS = 2
+#: hvd.SyncBatchNorm options, each held against torch.nn.BatchNorm2d
+SBN_CONFIGS = {
+    "affine": {},
+    "no_affine": {"affine": False},
+    "cumulative": {"momentum": None},
+    "untracked": {"track_running_stats": False},
+}
+
+
+def sbn_batch(step):
+    """Step ``step``'s global batch ``[8, C, 3, 3]``, each channel with its
+    own offset and spread, and the upstream gradient."""
+    rng = np.random.RandomState(30 + step)
+    x = (rng.randn(SBN_BATCH, SBN_C, 3, 3)
+         * rng.uniform(0.5, 2.0, (1, SBN_C, 1, 1))
+         + rng.randn(1, SBN_C, 1, 1)).astype(np.float32)
+    return x, rng.randn(SBN_BATCH, SBN_C, 3, 3).astype(np.float32)
+
+
+def sbn_affine():
+    """(weight, bias) of the affine configs."""
+    return (np.linspace(0.5, 1.5, SBN_C).astype(np.float32),
+            np.linspace(-1.0, 1.0, SBN_C).astype(np.float32))
+
+
+def _rows(rank, world, n):
+    k = n // world
+    return slice(rank * k, (rank + 1) * k)
+
+
+def case_sync_bn(hvd, rank, world):
+    """hvd.SyncBatchNorm on this rank's rows of :func:`sbn_batch`, per
+    :data:`SBN_CONFIGS`: SBN_STEPS training steps (output, input and
+    parameter gradients of ``sum(y * g)``, running statistics), then eval;
+    and the functional ``sync_batch_norm`` over the global process set,
+    train (with gradients) and eval."""
+    import torch
+    from horovod_tpu_torch.ops.sync_batch_norm import sync_batch_norm
+    rows = _rows(rank, world, SBN_BATCH)
+    out = {}
+    for name, kw in SBN_CONFIGS.items():
+        m = hvd.SyncBatchNorm(SBN_C, **kw)
+        if m.affine:
+            w, b = sbn_affine()
+            with torch.no_grad():
+                m.weight.copy_(_t(w))
+                m.bias.copy_(_t(b))
+        steps = []
+        for step in range(SBN_STEPS):
+            xg, gg = sbn_batch(step)
+            x = _t(xg[rows]).requires_grad_()
+            y = m(x)
+            (y * _t(gg[rows])).sum().backward()
+            rec = {"y": _np(y), "dx": _np(x.grad)}
+            if m.affine:
+                rec.update(dw=_np(m.weight.grad).copy(),
+                           db=_np(m.bias.grad).copy())
+                m.zero_grad()
+            if m.track_running_stats:   # copies: the buffers change in place
+                rec.update(mean=_np(m.running_mean).copy(),
+                           var=_np(m.running_var).copy())
+            steps.append(rec)
+        m.eval()
+        out[name] = {"steps": steps,
+                     "eval": _np(m(_t(sbn_batch(SBN_STEPS)[0][rows])))}
+    ps = hvd.runtime._get_global_process_set()
+    xg, gg = sbn_batch(0)
+    w, b = sbn_affine()
+    x, scale, bias = (_t(xg[rows]).requires_grad_(), _t(w).requires_grad_(),
+                      _t(b).requires_grad_())
+    rm, rv = _t(np.full(SBN_C, 0.5, np.float32)), _t(np.full(SBN_C, 2.0,
+                                                             np.float32))
+    y, mean, var = sync_batch_norm(x, scale, bias, rm, rv, process_set=ps)
+    (y * _t(gg[rows])).sum().backward()
+    y_eval = sync_batch_norm(x.detach(), scale.detach(), bias.detach(),
+                             mean, var, process_set=ps, train=False)[0]
+    out["functional"] = {"y": _np(y), "mean": _np(mean), "var": _np(var),
+                         "dx": _np(x.grad), "dscale": _np(scale.grad),
+                         "dbias": _np(bias.grad), "eval": _np(y_eval)}
+    return out
+
+
+def resnet_cfg():
+    import torch
+    from horovod_tpu_torch.models import resnet
+    return resnet.ResNetConfig(variant=18, num_classes=10, width=8,
+                               dtype=torch.float32)
+
+
+CLS_BATCH = 8
+CLS_STEPS = 2
+
+
+def classifier_batch(step, img=32):
+    rng = np.random.RandomState(40 + step)
+    return (rng.randn(CLS_BATCH, 3, img, img).astype(np.float32),
+            rng.randint(0, 10, CLS_BATCH).astype(np.int64))
+
+
+def resnet_step(device, sync_bn=True):
+    """The port's classifier step over ResNet-18 at width 8 (its mesh: the
+    runtime's when initialized) and its initial weights from seed 0."""
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import resnet
+    cfg = resnet_cfg()
+    return training.make_classifier_train_step(
+        lambda p, s, x, train, process_set: resnet.forward(
+            p, s, x, cfg, train=train, process_set=process_set),
+        lambda seed: resnet.init(cfg, seed, device=device),
+        sync_bn=sync_bn, device=device)
+
+
+def case_classifier(hvd, rank, world):
+    """The ResNet classifier step at dp = world on this rank's rows of
+    :func:`classifier_batch`: CLS_STEPS steps with sync_bn=True (losses,
+    accuracies, parameters and state after), and one with sync_bn=False
+    (the state after it)."""
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    rows = _rows(rank, world, CLS_BATCH)
+
+    def flat(tree):
+        return {p: _np(t).copy() for p, t in zip(tree_paths(tree),
+                                                 tree_leaves(tree))}
+
+    out = {}
+    for sync_bn, steps in ((True, CLS_STEPS), (False, 1)):
+        ts = resnet_step("cpu", sync_bn)
+        params, state, opt_state = ts.init_fn(0)
+        losses, accs = [], []
+        for step in range(steps):
+            x, y = classifier_batch(step)
+            params, state, opt_state, loss, acc = ts.step_fn(
+                params, state, opt_state, _t(x[rows]), _t(y[rows]))
+            losses.append(loss.item())
+            accs.append(acc.item())
+        out[f"sync_bn={sync_bn}"] = {"losses": losses, "accuracy": accs,
+                                     "params": flat(params),
+                                     "state": flat(state)}
+    return out
+
+
+def bert_cfg():
+    from horovod_tpu_torch.models import bert
+    return bert.tiny(vocab=64, seq=16)
+
+
+BERT_BATCH = 8
+BERT_STEPS = 3
+
+
+def bert_batch(step):
+    rng = np.random.RandomState(50 + step)
+    return (rng.randint(0, 64, (BERT_BATCH, 16)).astype(np.int64),
+            rng.randint(0, 2, BERT_BATCH).astype(np.int64))
+
+
+def case_bert_overlap(hvd, rank, world):
+    """BERT tiny at dp = world on this rank's rows of :func:`bert_batch`,
+    BERT_STEPS steps from seed 0: make_dp_finetune_step(reduce_grads=True)
+    and the same model under overlapped_backprop with an overlapped
+    DistributedGradientTransform; the losses and parameters of each."""
+    import torch
+    from horovod_tpu_torch.models import bert
+    from horovod_tpu_torch.tree import tree_leaves, tree_map, tree_paths
+    cfg = bert_cfg()
+    rows = _rows(rank, world, BERT_BATCH)
+    batches = [tuple(_t(a[rows]) for a in bert_batch(s))
+               for s in range(BERT_STEPS)]
+
+    def flat(tree):
+        return {p: _np(t).copy() for p, t in zip(tree_paths(tree),
+                                                 tree_leaves(tree))}
+
+    ts = bert.make_dp_finetune_step(cfg, bert.finetune_optimizer,
+                                    reduce_grads=True)
+    params, opt_state = ts.init_fn(0)
+    plain = []
+    for toks, labels in batches:
+        params, opt_state, loss = ts.step_fn(params, opt_state, toks,
+                                             labels)
+        plain.append(loss.item())
+    out = {"plain": {"losses": plain, "params": flat(params)}}
+
+    tx = hvd.DistributedGradientTransform(bert.finetune_optimizer,
+                                          overlap=True)
+    params = bert.init_params(cfg, 0, device="cpu")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    state = tx.init(params)
+    losses = []
+    for toks, labels in batches:
+        with hvd.overlapped_backprop(tx):
+            loss = bert.loss_fn(params, toks, labels, cfg)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        it = iter(grads)
+        tx.update(tree_map(lambda _: next(it), params), state, params)
+        losses.append(hvd.allreduce(loss.detach(), name="loss").item())
+    out["overlap"] = {"losses": losses, "params": flat(params)}
     return out
 
 
