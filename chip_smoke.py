@@ -119,6 +119,23 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            in the forward and backward passes), against one process on the
            32: ranks identical, loss, weight updates and running
            statistics within RESNET_DP2_* and the parity gates
+  elastic_resnet   elastic Horovod: the port's ElasticDriver in this
+           process, a discovery script over a hostfile the phase rewrites,
+           workers (this script with --elastic-worker) sharing the card over
+           gloo; ResNet-50 in bf16 at 224^2, 32 images a rank a step,
+           SGD(0.01, momentum 0.9), synchronized batch norm, seeded images
+           through ElasticSampler, a TensorState (weights, statistics,
+           momentum, step, data epoch, sampler) committed every step.  Size
+           2 for steps 1-3; worker 1 SIGKILLed in the backward pass of step
+           4, the survivor restores commit 3, a replacement syncs, steps
+           4-6; the hostfile shrinks to 1 (steps 7-8), then grows to 2
+           (steps 9-10).  Against an uninterrupted 2-rank run of steps 1-6
+           under the static launcher (python -m horovod_tpu_torch.runner):
+           every transition formed at its size, digests equal across ranks
+           after every sync, the restore exact, steps 4-6 bit for bit (cuDNN
+           deterministic), the sampler's indices each taken once; recover_s,
+           reform_s, sync_ms, step ms at sizes 1 and 2, peak memory, gloo
+           bytes a step
   mnist    5 classifier steps of the MNIST convnet at batch 128 of seeded
            28 x 28 images (losses falling); then serving/models.py's
            classifier_forward on a bucket of MNIST rows and one of BERT
@@ -255,6 +272,29 @@ RESNET_BATCH, RESNET_IMG = 256, 224
 RESNET_DP2_BATCH = 16
 RESNET_DP2_STATE_REL = 1e-2
 RESNET_DP2_TIMEOUT_S = 300
+# elastic_resnet: ResNet-50 in bf16 at 224^2, 32 images per rank a step,
+# SGD(0.01, momentum 0.9), synchronized batch norm, under the port's
+# elastic driver; the images are ELASTIC_DATASET seeded ones indexed
+# through ElasticSampler (5 steps of an epoch at size 2).  Transitions:
+# size 2 for steps 1-3; rank 1 SIGKILLed in the backward pass of step
+# 4 (ELASTIC_KILL_STEP) and the job re-formed at size 2 for steps 4-6;
+# a shrink to size 1 after step 6 for steps 7-8; a growth to size 2
+# after step 8 for steps 9-10.  The workers wait before committing the
+# steps of ELASTIC_PAUSE_STEPS until the phase has changed the hostfile
+# and the driver has applied the epoch, so each resize lands at its step.
+# An uninterrupted 2-rank run of steps 1-6 under the static launcher is
+# the reference: steps 4-6 must equal it bit for bit (cuDNN
+# deterministic, benchmark off in both runs)
+ELASTIC_BATCH = 32
+ELASTIC_DATASET = 320
+ELASTIC_STEPS = 10
+ELASTIC_REFERENCE_STEPS = 6
+ELASTIC_KILL_STEP = 4
+ELASTIC_PAUSE_STEPS = (6, 8)
+ELASTIC_DIGEST_STEPS = (3, 6)
+# the epoch_formed sizes of the four transitions, in order
+ELASTIC_FORMED_SIZES = [2, 2, 1, 2]
+ELASTIC_TIMEOUT_S = 180
 # mnist: batch 128 of seeded 28 x 28 images, 5 steps; classifier_forward
 # buckets of 8 rows
 MNIST_BATCH, MNIST_STEPS = 128, 5
@@ -2159,6 +2199,413 @@ def train_resnet_dp2_phase():
     require(not bad, f"train_resnet_dp2: {bad}")
 
 
+def tree_digest(tree):
+    """``[fp64 sum, sha256]`` of a tree's tensors, leaves by sorted path
+    (a step returns the batch-norm state in another key order than
+    ``resnet.init``): equal digests mean equal bytes."""
+    import hashlib
+
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    leaves = [t.detach() for _, t in sorted(
+        zip(tree_paths(tree), tree_leaves(tree)), key=lambda pt: pt[0])]
+    total = torch.stack([t.double().sum() for t in leaves]).sum().item()
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in leaves])
+    return [total, hashlib.sha256(flat.cpu().numpy()).hexdigest()]
+
+
+def elastic_child(dev: torch.device, out: str) -> int:
+    """One worker of ``elastic_resnet`` (``--elastic-worker OUT``), started
+    by the elastic driver (or, for the reference run, by the static
+    launcher): ResNet-50 under ``@hvd.elastic.run`` with a TensorState of
+    the weights, batch-norm statistics, momentum, step, data epoch and
+    sampler, committed every step.  Appends JSON records to
+    ``OUT/worker-<id>.jsonl``: each step's start, and its end (indices,
+    loss, ms, engine bytes, peak memory so far), the digests of the
+    commits of ELASTIC_DIGEST_STEPS, of the state right after each restore
+    and after each sync (with its ms and bytes).  Worker 1 stops in the backward pass of step
+    ELASTIC_KILL_STEP, writes ``kill.marker`` and waits to be killed."""
+    import pathlib
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.elastic import ElasticSampler, TensorState, worker
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.tree import tree_leaves
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = pathlib.Path(out)
+    elastic = worker.worker_id() is not None
+    total = ELASTIC_STEPS if elastic else ELASTIC_REFERENCE_STEPS
+    wid = worker.worker_id() if elastic else int(os.environ["HOROVOD_RANK"])
+    log = out / f"worker-{wid}.jsonl"
+
+    def record(kind, **rec):
+        with open(log, "a") as f:
+            f.write(json.dumps({"kind": kind, "wid": wid, "t": time.time(),
+                                "epoch": worker._last_epoch,
+                                "rank": hvd.rank(), "size": hvd.size(),
+                                **rec}) + "\n")
+
+    def digests(state):
+        return {"params": tree_digest(state.params),
+                "bn": tree_digest(state.state),
+                "momentum": tree_digest(state.opt_state)}
+
+    class Recorded(TensorState):
+        def restore(self):
+            super().restore()
+            record("restore", step=self.step, digest=digests(self))
+
+        def sync(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().sync()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            nbytes = sum(t.numel() * t.element_size()
+                         for tree in (self.params, self.state,
+                                      self.opt_state)
+                         for t in tree_leaves(tree))
+            record("sync", step=self.step, ms=ms, bytes=nbytes,
+                   digest=digests(self))
+
+    hvd.init(device=dev)
+    cfg = resnet.ResNetConfig(variant=50)
+    params, bn = resnet.init(cfg, 0, device=dev)
+    images, labels = resnet_batch(ELASTIC_DATASET, RESNET_IMG, dev, seed=7)
+    state = Recorded(
+        params=params, state=bn,
+        opt_state=[torch.zeros_like(p) for p in tree_leaves(params)],
+        step=0, data_epoch=0,
+        sampler=ElasticSampler(ELASTIC_DATASET, shuffle=True, seed=5))
+    # the sums of synchronized batch norm a step: [sum, sq_sum] of every
+    # channel of every batch norm (the state holds a mean and a variance
+    # of each), forward and backward, in fp32
+    bn_bytes = 2 * 2 * 4 * (sum(t.numel() for t in tree_leaves(bn)) // 2)
+
+    def stop_in_backward(grad):
+        (out / "kill.marker").write_text(json.dumps(
+            {"wid": wid, "t": time.time()}))
+        time.sleep(ELASTIC_TIMEOUT_S)
+        raise RuntimeError("worker 1 was not killed in its backward pass")
+
+    @hvd.elastic.run
+    def train(state):
+        ts = resnet_step(training, resnet, cfg, dev)
+        opt = ts.opt_init(state.params)
+        # SGD's momentum buffers are the state's tensors, updated in place
+        for p, buf in zip(tree_leaves(state.params), state.opt_state):
+            opt.state[p]["momentum_buffer"] = buf
+        sampler = state.sampler
+        sampler.reset()
+        engine = hvd.runtime._state().engine
+        batch = 0
+        while state.step < total:
+            mine = list(sampler)[batch * ELASTIC_BATCH:
+                                 (batch + 1) * ELASTIC_BATCH]
+            if len(mine) < ELASTIC_BATCH:     # the data epoch is done
+                state.data_epoch += 1
+                sampler.set_epoch(state.data_epoch)
+                batch = 0
+                continue
+            step = state.step + 1
+            hook = None
+            if elastic and wid == 1 and step == ELASTIC_KILL_STEP:
+                hook = state.params["fc"]["w"].register_hook(
+                    stop_in_backward)
+            record("begin", step=step)
+            bytes0 = engine.stats()["bytes"]
+            t0 = time.perf_counter()
+            idx = torch.tensor(mine, device=dev)
+            (_, state.state, _, loss, _) = ts.step_fn(
+                state.params, state.state, opt, images[idx], labels[idx])
+            loss = loss.item()
+            ms = 1e3 * (time.perf_counter() - t0)
+            if hook is not None:
+                hook.remove()
+            sampler.record_batch(batch, ELASTIC_BATCH)
+            batch += 1
+            state.step = step
+            record("step", step=step, data_epoch=state.data_epoch,
+                   indices=mine, loss=loss, ms=ms,
+                   engine_bytes=engine.stats()["bytes"] - bytes0,
+                   bn_bytes=bn_bytes, peak=torch.cuda.max_memory_allocated())
+            if elastic and step in ELASTIC_PAUSE_STEPS:
+                release = out / f"release-{step}"
+                deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+                while not release.exists():
+                    require(time.monotonic() < deadline,
+                            f"no {release.name} from the phase")
+                    time.sleep(0.02)
+            state.save()
+            if step in ELASTIC_DIGEST_STEPS:
+                record("commit", step=step, digest=digests(state))
+            state.check_host_updates()
+        return state.step
+
+    train(state)
+    hvd.shutdown()
+    return 0
+
+
+def elastic_records(out):
+    """Every worker's records of an ``elastic_resnet`` run, by time."""
+    recs = []
+    for f in sorted(out.glob("worker-*.jsonl")):
+        recs += [json.loads(line) for line in f.read_text().splitlines()]
+    return sorted(recs, key=lambda r: r["t"])
+
+
+def digest_problems(recs, kind: str):
+    """Records of ``kind`` ("sync", "commit") whose digests differ from
+    another rank's of the same epoch and step."""
+    groups = {}
+    for r in recs:
+        if r["kind"] == kind:
+            groups.setdefault((r["epoch"], r["step"]), []).append(r)
+    bad = []
+    for (epoch, step), rs in sorted(groups.items()):
+        if len({json.dumps(r["digest"], sort_keys=True) for r in rs}) > 1:
+            bad.append(f"{kind} digests of epoch {epoch} step {step} "
+                       f"differ across ranks {[r['rank'] for r in rs]}")
+    return bad
+
+
+def sampler_problems(steps, dataset: int):
+    """Within each data epoch the committed steps' indices are each taken
+    once, and a finished epoch (every epoch but the last) took all
+    ``dataset``."""
+    by_epoch = {}
+    for r in steps:
+        by_epoch.setdefault(r["data_epoch"], []).extend(r["indices"])
+    bad = []
+    for epoch, idx in sorted(by_epoch.items()):
+        dup = len(idx) - len(set(idx))
+        if dup:
+            bad.append(f"data epoch {epoch}: {dup} indices taken twice")
+        if epoch < max(by_epoch) and sorted(idx) != list(range(dataset)):
+            bad.append(f"data epoch {epoch} ended with {len(set(idx))} "
+                       f"of {dataset} indices")
+    return bad
+
+
+def transition_problems(events, sizes):
+    """The driver's lifecycle ``events`` ((name, info) pairs) must form
+    epochs of ``sizes`` in order, each after its own ``epoch_applied``;
+    returns (problems, [reform seconds of each formed epoch])."""
+    applied = {}
+    formed = []
+    for name, info in events:
+        if name == "epoch_applied":
+            applied[info["epoch"]] = info
+        elif name == "epoch_formed":
+            formed.append(info)
+    bad, reform = [], []
+    if [f["size"] for f in formed] != list(sizes):
+        bad.append(f"epochs formed at sizes {[f['size'] for f in formed]}, "
+                   f"expected {list(sizes)}")
+    for f in formed:
+        a = applied.get(f["epoch"])
+        if a is None or a["size"] != f["size"]:
+            bad.append(f"epoch {f['epoch']} formed at size {f['size']} "
+                       f"without its epoch_applied at that size")
+        else:
+            reform.append(f["t"] - a["t"])
+    return bad, reform
+
+
+def elastic_resnet_phase(worker_script=None):
+    """``elastic_resnet``: the reference run (2 ranks, steps 1-6, through
+    ``python -m horovod_tpu_torch.runner``), then the elastic job through
+    the port's ElasticDriver in this process with a discovery script over
+    a hostfile the phase rewrites; the gates of ELASTIC_* and the
+    transition numbers (recover_s, reform_s, sync_ms, step ms, peak).
+    The workers run ``worker_script --elastic-worker OUT`` (default: this
+    script)."""
+    import pathlib
+    import shutil
+    import signal
+    import socket
+    import threading
+
+    from horovod_tpu_torch.elastic import discovery
+    from horovod_tpu_torch.elastic.driver import ElasticDriver
+    t_phase = time.monotonic()
+    deadline = t_phase + ELASTIC_TIMEOUT_S
+    root = pathlib.Path(__file__).resolve().parent
+    # the records go under the checkout's build/ (git ignores it)
+    work = root / "build" / "elastic_resnet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = {"HOROVOD_CONTROLLER": "gloo", "PYTHONPATH": str(root),
+           "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "120"}
+    worker_cmd = [sys.executable, str(worker_script or root / "chip_smoke.py"),
+                  "--elastic-worker"]
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    try:
+        # the reference: two ranks, steps 1-6, no failure, no resize
+        ref = work / "reference"
+        ref.mkdir()
+        t0 = time.monotonic()
+        launch = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
+             "-p", str(free_port()), "--network-interface", "lo",
+             *worker_cmd, str(ref)], cwd=root, env={**os.environ, **env},
+            capture_output=True, text=True,
+            timeout=max(deadline - time.monotonic(), 1))
+        require(launch.returncode == 0, "elastic_resnet reference run "
+                f"exited {launch.returncode}:\n{launch.stdout[-4000:]}")
+        reference_s = time.monotonic() - t0
+        ref_recs = elastic_records(ref)
+
+        # the elastic job
+        run = work / "elastic"
+        run.mkdir()
+        hostfile = run / "hosts.txt"
+        hostfile.write_text("localhost:2\n")
+        events = []
+
+        class Driver(ElasticDriver):
+            def _emit(self, event, **info):
+                info["t"] = time.monotonic()
+                events.append((event, dict(info)))
+                super()._emit(event, **info)
+
+        driver = Driver(
+            discovery.HostDiscoveryScript(f"cat {hostfile}"),
+            worker_cmd + [str(run)], min_np=1, port=free_port(),
+            discovery_interval=0.3, start_timeout=60.0,
+            blacklist_threshold=5, env=env, network_interface="lo")
+        result = {}
+        thread = threading.Thread(
+            target=lambda: result.update(rc=driver.run()), daemon=True)
+        t0 = time.monotonic()
+        thread.start()
+
+        def left():
+            return max(deadline - time.monotonic(), 0.1)
+
+        def wait_for(pred, what):
+            while True:
+                recs = elastic_records(run)
+                if pred(recs):
+                    return recs
+                require(time.monotonic() < deadline and thread.is_alive(),
+                        f"elastic_resnet: {what} (driver "
+                        f"{'alive' if thread.is_alive() else result})")
+                time.sleep(0.05)
+
+        def steps_done(step, size):
+            return lambda recs: sum(
+                1 for r in recs if r["kind"] == "step" and r["step"] == step
+                and r["size"] == size) == size
+
+        try:
+            marker = run / "kill.marker"
+            wait_for(lambda _: marker.exists(), "worker 1 never reached "
+                     f"the backward pass of step {ELASTIC_KILL_STEP}")
+            with driver._lock:
+                victim = driver._workers[json.loads(marker.read_text())[
+                    "wid"]]
+            t_kill = time.time()
+            os.kill(victim.proc.popen.pid, signal.SIGKILL)
+            wait_for(steps_done(6, 2), "steps 4-6 after the kill")
+            hostfile.write_text("localhost:1\n")
+            driver.wait_event("epoch_applied", left(),
+                              match=lambda e: e["size"] == 1)
+            (run / "release-6").touch()
+            wait_for(steps_done(8, 1), "steps 7-8 at size 1")
+            hostfile.write_text("localhost:2\n")
+            n = len(events)
+            driver.wait_event("epoch_applied", left(),
+                              match=lambda e: e["size"] == 2, since=n)
+            (run / "release-8").touch()
+            thread.join(left())
+            require(not thread.is_alive(), "elastic_resnet: the driver "
+                    "did not finish")
+        finally:
+            driver._terminate_all()
+            driver._server.close()
+        elastic_s = time.monotonic() - t0
+        recs = elastic_records(run)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    steps = [r for r in recs if r["kind"] == "step"]
+    rank0 = {r["step"]: r for r in steps if r["rank"] == 0}
+    ref0 = {r["step"]: r for r in ref_recs
+            if r["kind"] == "step" and r["rank"] == 0}
+    bad, reform_s = transition_problems(events, ELASTIC_FORMED_SIZES)
+    if result.get("rc") != 0:
+        bad.append(f"the driver exited {result.get('rc')}")
+    bad += digest_problems(recs, "sync") + digest_problems(recs, "commit")
+    bad += digest_problems(ref_recs, "commit")
+    bad += sampler_problems(steps, ELASTIC_DATASET)
+    if sorted(rank0) != list(range(1, ELASTIC_STEPS + 1)):
+        bad.append(f"rank 0 recorded steps {sorted(rank0)}")
+    bad += [f"step {r['step']} rank {r['rank']}: loss {r['loss']}"
+            for r in steps + ref_recs if r["kind"] == "step"
+            and not math.isfinite(r["loss"])]
+    commits = {(r["rank"], r["step"]): r["digest"] for r in recs
+               if r["kind"] == "commit" and r["epoch"] == 0}
+    restores = [r for r in recs if r["kind"] == "restore"]
+    if [r["step"] for r in restores] != [ELASTIC_KILL_STEP - 1]:
+        bad.append(f"restores at steps {[r['step'] for r in restores]}")
+    for r in restores:
+        if r["digest"] != commits.get((r["rank"], r["step"])):
+            bad.append(f"rank {r['rank']}'s state after restore is not its "
+                       f"commit of step {r['step']}")
+    after = range(ELASTIC_KILL_STEP, ELASTIC_REFERENCE_STEPS + 1)
+    losses = {s: [rank0[s]["loss"], ref0[s]["loss"]] for s in after
+              if s in rank0 and s in ref0}
+    if any(a != b for a, b in losses.values()) or len(losses) != len(after):
+        bad.append(f"losses of steps 4-6 (elastic, reference): {losses}")
+    final = {r["rank"]: r["digest"] for r in recs if r["kind"] == "commit"
+             and r["step"] == ELASTIC_REFERENCE_STEPS}
+    ref_final = {r["rank"]: r["digest"] for r in ref_recs
+                 if r["kind"] == "commit"
+                 and r["step"] == ELASTIC_REFERENCE_STEPS}
+    if final.get(0) is None or final.get(0) != ref_final.get(0):
+        bad.append(f"weights after step {ELASTIC_REFERENCE_STEPS}: "
+                   f"{final.get(0)} (elastic) vs {ref_final.get(0)} "
+                   f"(reference)")
+    first_after = min((r["t"] for r in steps
+                       if r["step"] == ELASTIC_KILL_STEP), default=None)
+    sizes = {1: [r["ms"] for r in steps if r["size"] == 1],
+             2: [r["ms"] for r in steps if r["size"] == 2]}
+    syncs = [r for r in recs if r["kind"] == "sync"]
+    row = dict(
+        model="resnet50", image=RESNET_IMG, batch_per_rank=ELASTIC_BATCH,
+        dataset=ELASTIC_DATASET, backend="gloo",
+        formed=[[info["epoch"], info["size"]] for name, info in events
+                if name == "epoch_formed"],
+        recover_s=(None if first_after is None else first_after - t_kill),
+        reform_s=reform_s,
+        sync_ms=[r["ms"] for r in syncs], sync_bytes=[r["bytes"]
+                                                     for r in syncs],
+        steps_reexecuted=sum(1 for r in recs if r["kind"] == "begin"
+                             and r["rank"] == 0) - len(rank0),
+        step_ms_size1=sizes[1], step_ms_size2=sizes[2],
+        peak_bytes={wid: max(r["peak"] for r in steps if r["wid"] == wid)
+                    for wid in sorted({r["wid"] for r in steps})},
+        engine_bytes_per_step=sorted({r["engine_bytes"] for r in steps}),
+        sync_bn_bytes_per_step=steps[0]["bn_bytes"] if steps else None,
+        losses={s: rank0[s]["loss"] for s in sorted(rank0)},
+        losses_vs_reference=losses,
+        exits=[info for name, info in events if name == "worker_exit"],
+        reference_s=reference_s, elastic_s=elastic_s,
+        seconds=time.monotonic() - t_phase)
+    emit("elastic_resnet", **row)
+    if row["seconds"] > ELASTIC_TIMEOUT_S:
+        bad.append(f"the phase took {row['seconds']:.1f} s")
+    require(not bad, f"elastic_resnet: {bad}")
+
+
 def mnist_phase(fa, fx, dev):
     """MNIST_STEPS classifier steps at batch 128 of seeded 28 x 28 images;
     then ``classifier_forward`` serves a bucket of MNIST rows (the
@@ -2377,6 +2824,9 @@ def main() -> int:
     if "--resnet-dp2-rank" in sys.argv:
         return resnet_dp2_child(
             int(sys.argv[sys.argv.index("--resnet-dp2-rank") + 1]), dev)
+    if "--elastic-worker" in sys.argv:
+        return elastic_child(
+            dev, sys.argv[sys.argv.index("--elastic-worker") + 1])
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import convert, training
     from horovod_tpu_torch.models import generate as gen
@@ -2499,6 +2949,7 @@ def main() -> int:
     finally:
         hvd.shutdown()
     timed("train_resnet_dp2", train_resnet_dp2_phase)
+    timed("elastic_resnet", elastic_resnet_phase)
     timed("mnist", mnist_phase, fa, fx, dev)
     timed("parity_bert", parity_bert_phase, convert, dev)
     timed("parity_resnet", parity_resnet_phase, convert, dev)

@@ -10,7 +10,11 @@ rank and size, the eager collectives with async handles over
 ``DistributedGradientTransform`` (planned buckets, ZeRO tiles, the
 quantized wire formats) and the broadcast helpers
 (``optim/distributed.py``), ``overlapped_backprop``
-(``optim/overlap.py``) and ``SyncBatchNorm`` (``sync_batch_norm.py``).
+(``optim/overlap.py``), ``SyncBatchNorm`` (``sync_batch_norm.py``) and
+``hvd.elastic`` (``elastic/``: ``run``, ``TensorState``, ``TorchState``,
+``ElasticSampler``).  ``horovod_tpu_torch.checkpoint`` and
+``horovod_tpu_torch.data`` are imported on their own, and
+``python -m horovod_tpu_torch.runner`` launches a job.
 
 Entry points run on the card unless the caller passes ``device="cpu"``:
 :func:`default_device` raises when no card is visible instead of carrying
@@ -55,7 +59,7 @@ from .api import (  # noqa: E402
     reducescatter_async, synchronize, wait)
 from .compression import (  # noqa: E402
     WIRE_FORMATS, Compression, WireFormat, resolve_wire_format)
-from .exceptions import HorovodInternalError  # noqa: E402
+from .exceptions import HorovodInternalError, HostsUpdatedInterrupt  # noqa: E402,E501
 from .optim.distributed import (  # noqa: E402
     DistributedGradientTransform, DistributedOptimizer,
     all_gather_sharded_tree, broadcast_optimizer_state, broadcast_parameters,
@@ -73,17 +77,16 @@ from .runtime import (  # noqa: E402
 
 from .sync_batch_norm import SyncBatchNorm  # noqa: E402
 
-#: names of the JAX package's torch surface not ported yet, by ROADMAP item
-_UNPORTED = {"elastic": "A8"}
-
 
 def __getattr__(name):
     if name == "global_process_set":
         from .runtime import _get_global_process_set
         return _get_global_process_set()
-    if name in _UNPORTED:
-        raise NotImplementedError(f"hvd.{name} is not ported yet "
-                                  f"(ROADMAP.md {_UNPORTED[name]})")
+    if name == "elastic":
+        # loaded at first use: the driver and its RPC transport stay out
+        # of a plain ``import horovod_tpu_torch``
+        import importlib
+        return importlib.import_module(".elastic", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -105,6 +108,7 @@ __all__ = [
     "fused_reduce_scatter_tree", "all_gather_sharded_tree",
     "overlapped_backprop", "SyncBatchNorm", "WireFormat", "WIRE_FORMATS",
     "resolve_wire_format", "Compression", "HorovodInternalError",
+    "HostsUpdatedInterrupt", "elastic",
     "ProcessSet", "add_process_set", "remove_process_set",
     "mpi_threads_supported", "mpi_built", "mpi_enabled", "gloo_built",
     "gloo_enabled", "nccl_built", "ddl_built", "ccl_built", "cuda_built",

@@ -13,7 +13,8 @@ feature it asked for.  ``HOROVOD_COMPRESSION`` (with its block size and
 ``HOROVOD_OVERLAP`` are parsed and validated as in the JAX package and
 read by ``optim/distributed.py`` (the transform's defaults) and the
 engine (the eager wire format); the ``HOROVOD_SERVE_*`` knobs likewise,
-read by ``serving/plane.py``.
+read by ``serving/plane.py``; ``HOROVOD_ELASTIC`` by ``runtime.init``
+(the elastic driver's epoch assignment).
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ UNPORTED = (
     ("HOROVOD_TAIL_POLICY", "tail_policy", "A5"),
     ("HOROVOD_HIERARCHICAL_ALLREDUCE", "hierarchical_allreduce", "A5"),
     ("HOROVOD_HIERARCHICAL_ALLGATHER", "hierarchical_allgather", "A5"),
-    ("HOROVOD_ELASTIC", "elastic", "A8"),
     ("HOROVOD_RECOVERY", "recovery", "A8"),
     ("HOROVOD_TIMELINE", "timeline_path", "A9"),
     ("HOROVOD_AUTOTUNE", "autotune", "A9"),

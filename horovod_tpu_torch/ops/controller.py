@@ -29,6 +29,13 @@ Rounds are scoped per **member group** (the sorted ranks of the entry's
 process set) with a round counter each, so a collective on a subset never
 waits on non-members.
 
+Under the elastic driver a SIGKILLed peer writes no leave marker; the
+driver's re-form notice (``runtime.note_superseded``) names the dead
+ranks, and a round stops waiting for them at once, and for any peer
+``superseded_grace_s`` after the notice, raising
+``HorovodInternalError``.  (The JAX package gets this bound from the
+coordination service's heartbeat.)
+
 ``join()`` semantics (reference: JoinOp): a joined rank keeps answering
 global-group rounds with an empty request list and a joined flag;
 collectives ready on every *non-joined* rank dispatch, with joined ranks
@@ -141,6 +148,11 @@ class Controller:
         self._poll_max_s = 0.002
         self._left_check_grace_s = 0.5
         self._left_check_s = 2.0
+        # elastic: ranks the driver reported dead, and when this
+        # incarnation's epoch was superseded (runtime.note_superseded)
+        self._lost: frozenset = frozenset()
+        self._superseded_at: Optional[float] = None
+        self.superseded_grace_s = 10.0
         self.rounds = 0
         self.fast_rounds = 0
         self.full_rounds = 0
@@ -176,6 +188,19 @@ class Controller:
                 self.kv_sets += 2
         except (RuntimeError, ValueError):   # the store may be gone
             logger.debug("could not publish leave marker", exc_info=True)
+
+    def mark_superseded(self, lost=()):
+        """The elastic driver re-formed the job past this incarnation's
+        epoch; ``lost`` are ranks whose processes died."""
+        with self._lock:
+            self._lost = self._lost | frozenset(int(r) for r in lost)
+            if self._superseded_at is None:
+                self._superseded_at = time.monotonic()
+
+    @property
+    def lost(self) -> frozenset:
+        with self._lock:
+            return self._lost
 
     def set_joined(self, joined: bool):
         with self._lock:
@@ -418,6 +443,23 @@ class Controller:
                     f"was waiting for {waiting_for} (peer shutdown or "
                     f"failure)")
 
+    def _check_superseded(self, seq: int, waiting_for: List[int]) -> None:
+        """Raise if a rank we wait on died, or if we have waited
+        ``superseded_grace_s`` since the driver re-formed the job."""
+        with self._lock:
+            lost = sorted(self._lost & set(waiting_for))
+            since = self._superseded_at
+        if lost:
+            raise HorovodInternalError(
+                f"rank {lost} died while negotiation round {seq} was "
+                f"waiting for {waiting_for} (the elastic driver re-formed "
+                f"the job)")
+        if time.monotonic() - since > self.superseded_grace_s:
+            raise HorovodInternalError(
+                f"negotiation round {seq} still waits for {waiting_for} "
+                f"{self.superseded_grace_s:.0f} s after the elastic driver "
+                f"re-formed the job")
+
     def _gather_round(self, gk: str, seq: int, phase: str, need: List[int],
                       pending_tokens: List[str]) -> Dict[int, str]:
         """The round keys of the ``need`` members: ``check`` polls (one
@@ -439,6 +481,9 @@ class Controller:
                 with self._lock:
                     self.kv_multi_gets += 1
                 return {q: v.decode() for q, v in zip(need, raw)}
+            if self._superseded_at is not None:
+                self._check_superseded(seq, [q for q, k in zip(need, keys)
+                                             if not self.store.check([k])])
             waited = time.monotonic() - t0
             if waited >= next_left_check:
                 # a rank that left has published all it ever will: only

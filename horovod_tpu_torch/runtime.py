@@ -13,6 +13,14 @@ The topology comes from the launcher's environment (``HOROVOD_RANK``,
 group's rendezvous and the controller's negotiation rounds.  Without that
 environment ``init`` makes a world of one on an in-process store.
 
+Under the elastic driver (``HOROVOD_ELASTIC=1`` with the driver's
+address) the topology and the rendezvous come from the driver's epoch
+assignment instead (``elastic/worker.fetch_assignment``), retried until
+``HOROVOD_ELASTIC_START_TIMEOUT``: each epoch forms around a store of its
+own that the epoch's rank 0 hosts on the epoch's port, within
+``HOROVOD_ELASTIC_INIT_TIMEOUT``.  Its teardown waits for no peer the
+driver reported dead.
+
 The collectives run over one ``torch.distributed`` process group per
 process set: NCCL on ``cuda:<local_rank>`` by default, gloo with
 ``init(device="cpu")``.  ``HOROVOD_CONTROLLER=gloo`` puts CUDA tensors
@@ -27,6 +35,7 @@ from __future__ import annotations
 import atexit
 import datetime
 import logging
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
@@ -43,6 +52,10 @@ logger = logging.getLogger("horovod_tpu_torch")
 #: how long a process group waits in one collective, and the bound of a
 #: negotiation round, when HOROVOD_STALL_SHUTDOWN_TIME_SECONDS is 0
 DEFAULT_TIMEOUT_S = 300.0
+
+
+def _env_seconds(name: str, default: float) -> float:
+    return float(os.environ.get(name) or default)
 
 
 # Reduction op enums, mirroring the reference's hvd.Sum/Average/Adasum/Min/Max
@@ -180,6 +193,7 @@ class _RuntimeState:
         self.backend: Optional[str] = None
         self.store = None
         self.namespace = ""
+        self.epoch: Optional[int] = None   # the elastic driver's epoch
         self.process_set_table = ProcessSetTable()
         self.global_process_set: Optional[ProcessSet] = None
         self.engine = None          # ops.engine.CollectiveEngine
@@ -189,6 +203,13 @@ class _RuntimeState:
 _STATE = _RuntimeState()
 _INIT_GENERATION = 0  # survives shutdown(); processes re-init in lockstep
 _ATEXIT_REGISTERED = False
+_LAST_INIT_DEVICE: DeviceLike = None  # the device the last init() was given
+
+
+def last_init_device() -> DeviceLike:
+    """The ``device`` argument of the last :func:`init`: what an elastic
+    re-initialization passes again."""
+    return _LAST_INIT_DEVICE
 
 
 def _state() -> _RuntimeState:
@@ -247,7 +268,7 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
     ``comm`` is accepted for API compatibility; only ``None`` is supported.
     ``process_sets`` are created at init, in order, on every rank.
     """
-    global _INIT_GENERATION, _ATEXIT_REGISTERED
+    global _INIT_GENERATION, _ATEXIT_REGISTERED, _LAST_INIT_DEVICE
     with _STATE._init_lock:
         if _STATE.initialized:
             return
@@ -265,29 +286,14 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
         import torch._dynamo  # noqa: F401
         cfg = Config.from_env()
         _setup_logging(cfg)
-        size = cfg.size if cfg.size is not None else 1
-        rank = cfg.rank if cfg.rank is not None else 0
-        if not 0 <= rank < size:
-            raise ValueError(f"HOROVOD_RANK={rank} is outside "
-                             f"HOROVOD_SIZE={size}")
-        local_rank = cfg.local_rank if cfg.local_rank is not None else rank
-        dev = _resolve_device(device, local_rank)
-        backend = _backend(cfg, dev)
-        timeout = datetime.timedelta(seconds=timeout_s(cfg))
-        if size > 1:
-            if not cfg.rendezvous_addr or cfg.rendezvous_port is None:
-                raise ValueError(
-                    "HOROVOD_SIZE > 1 needs HOROVOD_GLOO_RENDEZVOUS_ADDR and "
-                    "HOROVOD_GLOO_RENDEZVOUS_PORT (rank 0 hosts the store)")
-            store = dist.TCPStore(cfg.rendezvous_addr, cfg.rendezvous_port,
-                                  size, rank == 0, timeout=timeout)
+        _LAST_INIT_DEVICE = device
+        if cfg.elastic:
+            rank, size, local_rank, dev, backend, store, epoch = \
+                _elastic_form(cfg, device)
         else:
-            store = dist.HashStore()
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
-        dist.init_process_group(
-            backend, store=store, rank=rank, world_size=size,
-            timeout=timeout, device_id=dev if backend == "nccl" else None)
+            rank, size, local_rank, dev, backend = _topology(cfg, device)
+            store, epoch = _form(cfg, rank, size, dev, backend,
+                                 timeout_s(cfg)), None
 
         _INIT_GENERATION += 1
         st = _STATE
@@ -299,9 +305,13 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
         st.cross_rank = cfg.cross_rank if cfg.cross_rank is not None else 0
         st.cross_size = cfg.cross_size if cfg.cross_size is not None else 1
         st.device, st.backend, st.store = dev, backend, store
+        st.epoch = epoch
         # controller keys are namespaced per incarnation, so init →
-        # shutdown → init never reads an earlier incarnation's rounds
-        st.namespace = f"g{_INIT_GENERATION}"
+        # shutdown → init never reads an earlier incarnation's rounds:
+        # elastic re-forms by the driver's epoch, plain re-inits by
+        # generations counted in lockstep
+        st.namespace = (f"e{epoch}" if epoch is not None
+                        else f"g{_INIT_GENERATION}")
         st.process_set_table.clear()
         st.global_process_set = ProcessSet(None)
         st.process_set_table.register(st.global_process_set, size)
@@ -313,53 +323,187 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
         controller = Controller(
             cfg, dist.PrefixStore(f"hvdctl/{st.namespace}", store), rank,
             size, deadline_s=timeout_s(cfg))
+        controller.superseded_grace_s = _env_seconds(
+            "HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT", 10.0)
         st.engine = CollectiveEngine(cfg, dev, backend, controller)
         st.engine.start()
         st.initialized = True
         if not _ATEXIT_REGISTERED:
             atexit.register(shutdown)
             _ATEXIT_REGISTERED = True
+        if epoch is not None:
+            # rendezvous complete: the driver now counts a death of this
+            # worker as a real host failure, not re-rendezvous churn
+            from .elastic.worker import record_running
+            record_running()
         logger.info("horovod_tpu_torch initialized: rank %d of %d on %s "
-                    "over %s", rank, size, dev, backend)
+                    "over %s%s", rank, size, dev, backend,
+                    "" if epoch is None else f", elastic epoch {epoch}")
+
+
+def _topology(cfg: Config, device: DeviceLike):
+    """(rank, size, local rank, device, backend) from ``cfg``."""
+    size = cfg.size if cfg.size is not None else 1
+    rank = cfg.rank if cfg.rank is not None else 0
+    if not 0 <= rank < size:
+        raise ValueError(f"HOROVOD_RANK={rank} is outside "
+                         f"HOROVOD_SIZE={size}")
+    local_rank = cfg.local_rank if cfg.local_rank is not None else rank
+    dev = _resolve_device(device, local_rank)
+    return rank, size, local_rank, dev, _backend(cfg, dev)
+
+
+def _form(cfg: Config, rank: int, size: int, dev: torch.device,
+          backend: str, limit_s: float):
+    """The store (rank 0's ``TCPStore``, or an in-process one at size 1)
+    and the default process group over it; returns the store."""
+    timeout = datetime.timedelta(seconds=limit_s)
+    if size > 1:
+        if not cfg.rendezvous_addr or cfg.rendezvous_port is None:
+            raise ValueError(
+                "HOROVOD_SIZE > 1 needs HOROVOD_GLOO_RENDEZVOUS_ADDR and "
+                "HOROVOD_GLOO_RENDEZVOUS_PORT (rank 0 hosts the store)")
+        store = dist.TCPStore(cfg.rendezvous_addr, cfg.rendezvous_port,
+                              size, rank == 0, timeout=timeout)
+    else:
+        store = dist.HashStore()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, store=store, rank=rank, world_size=size,
+        timeout=timeout, device_id=dev if backend == "nccl" else None)
+    return store
+
+
+def _elastic_form(cfg: Config, device: DeviceLike):
+    """Join the elastic driver's current epoch (the JAX package's elastic
+    rendezvous loop, ``horovod_tpu/runtime.py``): take rank, size, local
+    and cross ranks and the store's address and port from the epoch's
+    assignment and form the world, at most HOROVOD_ELASTIC_INIT_TIMEOUT
+    an attempt; a failed attempt fetches the latest assignment again,
+    until HOROVOD_ELASTIC_START_TIMEOUT.  Rank 0 that cannot listen on
+    the epoch's port asks the driver for a new epoch (a new port).
+    Without the driver's address the launcher's environment decides, as
+    without HOROVOD_ELASTIC.  Returns :func:`_topology`'s tuple, the
+    store and the epoch (None without the driver)."""
+    from .elastic import worker
+    deadline = time.monotonic() + _env_seconds(
+        "HOROVOD_ELASTIC_START_TIMEOUT", 600.0)
+    limit_s = min(timeout_s(cfg), _env_seconds(
+        "HOROVOD_ELASTIC_INIT_TIMEOUT", 60.0))
+    attempt = 0
+    while True:
+        # the first attempt wants an epoch newer than the last one this
+        # worker saw (a re-form guarantees the bump); retries accept the
+        # latest published epoch, whatever it is
+        asg = worker.fetch_assignment(
+            min_epoch=None if attempt == 0 else max(worker._last_epoch, 0),
+            timeout=max(deadline - time.monotonic(), 1.0))
+        if asg is not None:
+            cfg.rank, cfg.size = asg["rank"], asg["size"]
+            cfg.local_rank, cfg.local_size = (asg["local_rank"],
+                                              asg["local_size"])
+            cfg.cross_rank, cfg.cross_size = (asg["cross_rank"],
+                                              asg["cross_size"])
+            cfg.rendezvous_addr = asg["coordinator_addr"]
+            cfg.rendezvous_port = asg["coordinator_port"]
+            cfg.num_processes, cfg.process_id = asg["size"], asg["rank"]
+        topo = _topology(cfg, device)
+        rank, size, _, dev, backend = topo
+        try:
+            store = _form(cfg, rank, size, dev, backend, limit_s)
+        except RuntimeError as e:
+            # a peer that never came (it died, or formed another epoch),
+            # or a port someone else holds
+            if asg is None or time.monotonic() > deadline:
+                raise
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            attempt += 1
+            logger.warning("elastic rendezvous into epoch %d failed (%s); "
+                           "fetching the assignment again", asg["epoch"], e)
+            if rank == 0 and "address already in use" in str(e).lower():
+                worker.request_reform()
+            continue
+        return (*topo, store, None if asg is None else asg["epoch"])
+
+
+def note_superseded(epoch: int, lost: Sequence[int] = ()) -> None:
+    """The elastic driver applied ``epoch``; ``lost`` are the ranks of the
+    epoch before it whose processes died.  If this runtime belongs to an
+    older epoch, its negotiation rounds stop waiting for the lost ranks at
+    once and for the others after HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT, and
+    its teardown waits for no lost rank.  Called from the worker's
+    notification thread; takes no runtime lock."""
+    st = _STATE
+    engine = st.engine
+    ctl = engine._controller if engine is not None else None
+    if (not st.initialized or st.epoch is None or st.epoch >= epoch
+            or ctl is None):
+        return
+    ctl.mark_superseded(lost if st.epoch == epoch - 1 else ())
 
 
 def shutdown():
-    """Tear down the runtime (reference: horovod_shutdown)."""
+    """Tear down the runtime (reference: horovod_shutdown).
+
+    Every rank meets the others at a barrier first, at most as long as one
+    collective may take.  Under the elastic driver the process group goes
+    before the barrier, so a peer blocked in a collective with this rank
+    fails at once; the barrier waits for no rank the driver reported
+    dead and at most HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT; and each epoch's
+    store has a port of its own, so no rank waits for rank 0's store to
+    close."""
     with _STATE._init_lock:
         st = _STATE
         if not st.initialized:
             return
         ctl = st.engine._controller if st.engine is not None else None
+        elastic = st.epoch is not None
         # a client rank keeps its connection until rank 0's server is
         # gone: returning earlier, a re-init could reach the old server
-        client = st.store if st.size > 1 and st.rank != 0 else None
+        client = (st.store if st.size > 1 and st.rank != 0 and not elastic
+                  else None)
         try:
             if st.engine is not None:
                 st.engine.stop()
+            if elastic:
+                # the sets hold the groups: with them gone, destroying
+                # closes the sockets, and a peer blocked in a collective
+                # with this rank fails at once
+                st.global_process_set = None
+                st.process_set_table.clear()
+                dist.destroy_process_group()
             if st.size > 1:
-                _shutdown_barrier(st)
+                _shutdown_barrier(st, ctl, _env_seconds(
+                    "HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT", 10.0)
+                    if elastic else timeout_s(st.config))
         finally:
             if ctl is not None:
                 ctl.release()
-            dist.destroy_process_group()
+            if dist.is_initialized():
+                dist.destroy_process_group()
             st.initialized = False
             st.engine = None
             st.store = None
+            st.epoch = None
             st.global_process_set = None
             st.process_set_table.clear()
             if client is not None:
                 _await_server_close(client, timeout_s(st.config))
 
 
-def _shutdown_barrier(st: _RuntimeState):
-    """Wait until every rank has reached shutdown, at most as long as one
-    collective may take: a rank may still be reading the last negotiation
-    round, whose keys and rank 0's store must outlive it."""
+def _shutdown_barrier(st: _RuntimeState, ctl, limit_s: float):
+    """Wait until every rank has reached shutdown, at most ``limit_s``: a
+    rank may still be reading the last negotiation round, whose keys and
+    rank 0's store must outlive it.  Ranks the elastic driver reported
+    dead are not waited for."""
     key = f"hvd_shutdown/{st.namespace}"
     try:
         st.store.add(key, 1)
-        deadline = time.monotonic() + timeout_s(st.config)
-        while (st.store.add(key, 0) < st.size
+        deadline = time.monotonic() + limit_s
+        while (st.store.add(key, 0) < st.size - len(ctl.lost if ctl
+                                                       else ())
                and time.monotonic() < deadline):
             time.sleep(0.005)
     except (RuntimeError, dist.DistError):  # a peer's store may be gone

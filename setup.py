@@ -46,6 +46,7 @@ setup(
     entry_points={
         "console_scripts": [
             "hvdrun = horovod_tpu.runner.launch:main",
+            "hvdrun-torch = horovod_tpu_torch.runner.launch:main",
         ],
     },
     python_requires=">=3.10",

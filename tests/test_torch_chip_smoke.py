@@ -1,7 +1,12 @@
 """Helpers of chip_smoke.py that run on the CPU.
 
-The script itself needs a CUDA card; its gates' arithmetic does not.
+The script itself needs a CUDA card; its gates' arithmetic does not, and
+the elastic_resnet phase runs whole here with workers that train a tiny
+ResNet on the CPU.
 """
+
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -566,3 +571,117 @@ def test_parse_clocks():
     assert chip_smoke.parse_clocks("1980, 2619, 312.45") == {
         "sm_mhz": 1980.0, "mem_mhz": 2619.0, "power_w": 312.45}
     assert chip_smoke.parse_clocks("1755, 2619, [N/A]")["power_w"] is None
+
+
+# --- elastic_resnet's gates -------------------------------------------------
+
+def _digest(v):
+    return {"params": [float(v), f"p{v}"], "bn": [1.0, "b"],
+            "momentum": [0.0, "m"]}
+
+
+def test_digest_problems_groups_by_epoch_and_step():
+    recs = [{"kind": "sync", "epoch": 2, "step": 3, "rank": r,
+             "digest": _digest(1)} for r in (0, 1)]
+    recs += [{"kind": "commit", "epoch": 0, "step": 3, "rank": 0,
+              "digest": _digest(1)},
+             {"kind": "commit", "epoch": 0, "step": 3, "rank": 1,
+              "digest": _digest(2)},
+             {"kind": "commit", "epoch": 4, "step": 6, "rank": 0,
+              "digest": _digest(2)}]
+    assert chip_smoke.digest_problems(recs, "sync") == []
+    bad = chip_smoke.digest_problems(recs, "commit")
+    assert len(bad) == 1 and "epoch 0 step 3" in bad[0]
+    assert "[0, 1]" in bad[0]
+
+
+def test_tree_digest_orders_leaves_by_path_and_sees_one_bit():
+    a = {"x": torch.arange(4.0), "y": {"z": torch.ones(2, 2)}}
+    b = {"y": {"z": torch.ones(2, 2)}, "x": torch.arange(4.0)}
+    assert chip_smoke.tree_digest(a) == chip_smoke.tree_digest(b)
+    c = {"x": torch.arange(4.0), "y": {"z": torch.ones(2, 2)}}
+    c["x"].view(torch.int32)[0] ^= 1          # one bit of one leaf
+    assert chip_smoke.tree_digest(c)[1] != chip_smoke.tree_digest(a)[1]
+    assert chip_smoke.tree_digest(a)[0] == 10.0
+
+
+def _step(epoch, idx):
+    return {"kind": "step", "data_epoch": epoch, "indices": idx}
+
+
+def test_sampler_problems():
+    whole = [_step(0, list(range(0, 5))), _step(0, list(range(5, 10))),
+             _step(1, [3, 4])]
+    assert chip_smoke.sampler_problems(whole, 10) == []
+    twice = whole + [_step(1, [4, 7])]
+    assert chip_smoke.sampler_problems(twice, 10) == [
+        "data epoch 1: 1 indices taken twice"]
+    dropped = [_step(0, list(range(0, 9))), _step(1, [0])]
+    assert chip_smoke.sampler_problems(dropped, 10) == [
+        "data epoch 0 ended with 9 of 10 indices"]
+
+
+def _events(*seq):
+    out, t = [], 0.0
+    for name, epoch, size in seq:
+        t += 1.5
+        out.append((name, {"epoch": epoch, "size": size, "t": t}))
+    return out
+
+
+def test_transition_problems_and_reform_seconds():
+    ev = _events(("epoch_applied", 0, 2), ("epoch_formed", 0, 2),
+                 ("epoch_applied", 1, 2), ("epoch_applied", 2, 2),
+                 ("epoch_formed", 2, 2), ("epoch_applied", 3, 1),
+                 ("epoch_formed", 3, 1))
+    bad, reform = chip_smoke.transition_problems(ev, [2, 2, 1])
+    assert bad == [] and reform == [1.5, 1.5, 1.5]
+    bad, _ = chip_smoke.transition_problems(ev, [2, 2, 1, 2])
+    assert bad == ["epochs formed at sizes [2, 2, 1], expected "
+                   "[2, 2, 1, 2]"]
+    wrong = _events(("epoch_applied", 0, 3), ("epoch_formed", 0, 2))
+    bad, reform = chip_smoke.transition_problems(wrong, [2])
+    assert bad == ["epoch 0 formed at size 2 without its epoch_applied "
+                   "at that size"] and reform == []
+
+
+_REHEARSAL = '''
+import sys
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+from horovod_tpu_torch.models import resnet
+torch.cuda.synchronize = lambda *a: None
+torch.cuda.max_memory_allocated = lambda *a: 0
+_cfg = resnet.ResNetConfig
+resnet.ResNetConfig = lambda variant=50, **kw: _cfg(
+    variant=18, num_classes=10, width=8, dtype=torch.float32)
+chip_smoke.RESNET_IMG = 32
+
+
+def batch(b, img, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand((b, 3, img, img), generator=g),
+            torch.randint(0, 10, (b,), generator=g))
+
+
+chip_smoke.resnet_batch = batch
+sys.exit(chip_smoke.elastic_child(torch.device("cpu"), sys.argv[2]))
+'''
+
+
+def test_chip_smoke_elastic_phase_on_the_cpu(tmp_path, capsys):
+    """chip_smoke.py's elastic_resnet, whole, with workers that run a
+    tiny fp32 ResNet-18 on the CPU: the reference run under the static
+    launcher, the kill in rank 1's backward pass, the shrink and the
+    growth, and every gate of the phase (transitions, digests, the exact
+    restore, steps 4-6 bit for bit, the sampler)."""
+    wrapper = tmp_path / "worker.py"
+    wrapper.write_text(_REHEARSAL.format(
+        root=str(pathlib.Path(__file__).resolve().parents[1])))
+    chip_smoke.elastic_resnet_phase(worker_script=wrapper)
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["phase"] == "elastic_resnet"
+    assert [size for _, size in row["formed"]] == [2, 2, 1, 2]
+    assert row["steps_reexecuted"] == 1 and row["recover_s"] > 0
+    assert len(row["step_ms_size1"]) == 2

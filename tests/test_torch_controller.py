@@ -229,6 +229,23 @@ def test_unported_knobs_raise_naming_their_item(monkeypatch, env, field,
         tconfig.Config.from_env()
 
 
+def test_elastic_knob_parses_and_elastic_is_ported(monkeypatch):
+    """HOROVOD_ELASTIC=1 validates (its field as the JAX package parses
+    it) and no longer names A8; HOROVOD_RECOVERY still does."""
+    import os
+    from horovod_tpu import config as jconfig
+    for k in [k for k in os.environ if k.startswith("HOROVOD_")]:
+        monkeypatch.delenv(k)
+    monkeypatch.setenv("HOROVOD_ELASTIC", "1")
+    c = tconfig.Config.from_env()
+    assert c.elastic
+    assert dataclasses.asdict(c) == dataclasses.asdict(
+        jconfig.Config.from_env())
+    unported = {u[0]: u[2] for u in tconfig.UNPORTED}
+    assert "HOROVOD_ELASTIC" not in unported
+    assert unported["HOROVOD_RECOVERY"] == "A8"
+
+
 def test_config_copies_the_knob_table(monkeypatch):
     import os
     from horovod_tpu import config as jconfig

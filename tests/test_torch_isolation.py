@@ -45,6 +45,13 @@ def test_importing_every_module_loads_no_jax():
               "ops.sync_batch_norm", "sync_batch_norm", "training",
               "convert"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # elastic Horovod, the launcher, checkpoints and the data loaders
+    for m in ("elastic", "elastic.driver", "elastic.worker",
+              "elastic.state", "elastic.runner", "elastic.sampler",
+              "elastic.discovery", "elastic.registration", "runner.launch",
+              "runner.spawn", "runner.hosts", "runner.network",
+              "runner.__main__", "checkpoint", "data", "data.data_loader"):
+        assert f"horovod_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -52,6 +59,25 @@ def test_importing_every_module_loads_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
         "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_elastic_surface_imports_without_jax():
+    """``hvd.elastic``'s names, ``checkpoint`` and ``data`` come with a
+    plain ``import horovod_tpu_torch`` and load no jax."""
+    code = (
+        "import sys\n"
+        "import horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch import checkpoint, data\n"
+        "names = [hvd.elastic.run, hvd.elastic.TensorState,\n"
+        "         hvd.elastic.TorchState, hvd.elastic.ElasticSampler,\n"
+        "         hvd.HostsUpdatedInterrupt, checkpoint.save,\n"
+        "         checkpoint.restore, data.ShardedLoader]\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -6,9 +6,9 @@ hvd_serve_* metric families and the config knobs, each replayed on
 ``horovod_tpu_torch``'s copy; then the toy echo forward end to end
 through a real ``JsonRpcServer``, ``ServingWorker`` and ``ServingPlane``,
 and the transport's HMAC signing, metrics registry and chaos schedules
-beside the JAX package's.  Left out, and listed in ROADMAP.md: the
-elastic driver's ``attach_serving`` (A8) and the pinned hvdsched
-schedule (A9).
+beside the JAX package's.  The elastic driver's ``attach_serving`` is
+replayed in tests/test_torch_elastic_driver.py; left out, and listed in
+ROADMAP.md: the pinned hvdsched schedule (A9).
 
 Every server binds an ephemeral loopback port and closes in a
 ``finally``; every wait on a socket or thread has its own timeout.

@@ -842,6 +842,94 @@ def _reversed_keys(tree):
     return tree
 
 
+def case_elastic_state(hvd, rank, world):
+    """TensorState and TorchState: rank-dependent values, then sync (rank
+    0's in place everywhere) and restore (back to the synced commit)."""
+    import torch
+    from horovod_tpu_torch.elastic import TensorState, TorchState
+    w = torch.nn.Parameter(torch.full((3,), float(rank + 1)))
+    bn = {"mean": torch.full((2,), 10.0 * (rank + 1))}
+    buf = [torch.full((3,), -1.0 * rank)]
+    st = TensorState(params={"w": w}, state=bn, opt_state=buf, step=rank,
+                     tag=f"r{rank}")
+    st.sync()
+    same = (st.params["w"] is w and st.state["mean"] is bn["mean"]
+            and st.opt_state[0] is buf[0])
+    tensor = [_np(w).tolist(), _np(bn["mean"]).tolist(),
+              _np(buf[0]).tolist()]
+    scalars = dict(st._scalar_state)
+    with torch.no_grad():
+        w.add_(5.0)
+    st.restore()
+    restored = bool(torch.equal(w.detach(), torch.ones(3)))
+    torch.manual_seed(rank)
+    model = torch.nn.Linear(2, 2)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    if rank == 0:
+        model(torch.ones(1, 2)).sum().backward()
+        opt.step()
+    ts = TorchState(model=model, optimizer=opt, epoch=rank)
+    ts.sync()
+    torch_vals = {k: _np(v).tolist() for k, v in model.state_dict().items()}
+    torch_vals["momentum"] = [
+        _np(s["momentum_buffer"]).tolist()
+        for _, s in sorted(opt.state_dict()["state"].items())]
+    torch_vals["epoch"] = ts.epoch
+    return {"tensor": tensor, "scalars": scalars, "same_objects": same,
+            "restored": restored, "torch": torch_vals}
+
+
+def case_checkpoint(hvd, rank, world):
+    """checkpoint.save (rank 0 writes), an asynchronous save, a forced
+    overwrite, latest_step and restore onto another dtype, on every rank;
+    the directory is HVD_TEST_CKPT."""
+    import torch
+    from horovod_tpu_torch import checkpoint
+    d = os.environ["HVD_TEST_CKPT"]
+
+    def tree(v):
+        return {"w": torch.full((2, 3), v),
+                "layers": [{"b": torch.arange(4, dtype=torch.bfloat16) + v}],
+                "step": int(v)}
+
+    checkpoint.save(d, tree(float(rank)), step=1)
+    checkpoint.save(d, tree(10.0 + rank), step=2, asynchronous=True)
+    checkpoint.wait()
+    latest = checkpoint.latest_step(d)
+    checkpoint.save(d, tree(20.0 + rank), step=1, force=True)
+    like = {"w": torch.zeros(2, 3, dtype=torch.float64),
+            "layers": [{"b": torch.zeros(4, dtype=torch.bfloat16)}],
+            "step": 0}
+    out = {"latest": latest}
+    for step in (1, 2):
+        r = checkpoint.restore(d, like, step=step)
+        out[step] = {"w": _np(r["w"]).tolist(), "w_dtype": str(r["w"].dtype),
+                     "b": _np(r["layers"][0]["b"]).tolist(),
+                     "b_dtype": str(r["layers"][0]["b"].dtype),
+                     "step": r["step"]}
+    return out
+
+
+def case_sharded_loader(hvd, rank, world):
+    """This rank's ShardedLoader batches (plain and asynchronous)."""
+    from horovod_tpu_torch.data import AsyncDataLoaderMixin, ShardedLoader
+
+    class AsyncSharded(AsyncDataLoaderMixin, ShardedLoader):
+        pass
+
+    x, y = loader_data()
+    plain = [[_np(a).tolist() for a in b]
+             for b in ShardedLoader((x, y), global_batch_size=16)]
+    prefetched = [[_np(a).tolist() for a in b] for b in AsyncSharded(
+        (x, y), global_batch_size=16, async_loader_queue_size=2)]
+    return {"plain": plain, "async": prefetched}
+
+
+def loader_data():
+    return (np.arange(64, dtype=np.float32).reshape(32, 2),
+            np.arange(32, dtype=np.int32))
+
+
 def main(out_dir, cases):
     import horovod_tpu_torch as hvd
     hvd.init(device="cpu")
