@@ -68,6 +68,14 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            equal to train's, the later ones within WIRE_LOSS_REL, the
            wire's quantization error within WIRE_ERROR_REL of the
            gradient, and the wire bytes a step against full width
+  train_dp_tools train_dp's step again under HOROVOD_TIMELINE (with cycle
+           marks) and HOROVOD_AUTOTUNE (a warm-up of 1 sample of 2 cycles):
+           6 steps, the losses train's bit for bit, every gradient
+           tensor's NEGOTIATE_ALLREDUCE span, ALLREDUCE activity and DONE
+           mark a step in the timeline, the cycle marks, the autotune log's
+           header and 2 sample rows; then stop_timeline()/start_timeline()
+           around one more step, which the second file must hold whole;
+           step ms and engine host ms beside train_dp's
   train_dp2      two processes (this script with --dp2-rank) share the card
            over gloo (HOROVOD_CONTROLLER=gloo): 2 layers at full width with
            fused_xent=True, batch 8 x 1024 split 4 + 4, rank 1 submitting
@@ -81,6 +89,22 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            grad_accum within train_dp2's parity gates of one process on
            the whole batch, the quantized overlap within its own
            (A5_WIRE_*); zero1's optimizer state half the dp-1 run's
+  train_hier_dp4 four processes (--hier-rank) share the card over gloo as
+           two hosts of two (HOROVOD_LOCAL_SIZE=2, HOROVOD_CROSS_SIZE=2):
+           an eager sub-check on multiples of 1/4 (the hierarchical
+           allreduce and allgather exact, a stall naming rank 3, bounded
+           and stale rounds with host 1 late), then 2 layers at full width
+           with fused_xent=True, batch 8 x 1024 split 2 a rank, 2 steps
+           each of flat, hier, hier_int8 (only the cross stage quantized),
+           bounded and stale (host 1's cross stage 0.2 s late on step 2,
+           past a 50 ms deadline), and one step of
+           DistributedOptimizer(SGD, op=Adasum); weights identical on all
+           four after every step; parity with one process on the whole
+           batch (step 1 only where step 2 excluded a host), bounded's
+           step 1 bit for bit hier's, one tail round per hierarchical
+           bucket, the late host's ranks scoring above the others, and
+           Adasum's applied gradient within ADASUM_REL of the plain tree
+           in fp64
   decode   the KV-cache decode at the 1B geometry in bf16 (max_new 32):
            batched_greedy_decode and paged_greedy_decode at batch 1 and 8,
            seq 128, each with its prefill ms, decode ms a token, tokens/s,
@@ -250,6 +274,56 @@ EXPECTED_A5_LAUNCHES = {
 }
 # the three variants and the dp-1 run of both processes, build included
 A5_TIMEOUT_S = 480
+
+# train_hier_dp4: four processes (--hier-rank) share the card over gloo,
+# laid out as two hosts of two (HOROVOD_LOCAL_SIZE=2, HOROVOD_CROSS_SIZE=2,
+# ranks host by host), 2 layers at full width with fused_xent=True, batch
+# 8 x 1024 split 2 a rank, 2 steps a variant; each variant's environment
+# (on top of the layout) for hvd.init().  bounded and stale delay host 1's
+# cross stage by HIER_DELAY_S on step 2's rounds, past the deadline
+HIER_DEADLINE_MS = 50
+HIER_DELAY_S = 0.2
+HIER_VARIANTS = (
+    ("flat", {}),
+    ("hier", {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1"}),
+    ("hier_int8", {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                   "HOROVOD_COMPRESSION": "int8"}),
+    ("bounded", {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                 "HOROVOD_TAIL_POLICY": "bounded",
+                 "HOROVOD_TAIL_DEADLINE_MS": str(HIER_DEADLINE_MS)}),
+    ("stale", {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+               "HOROVOD_TAIL_POLICY": "stale",
+               "HOROVOD_TAIL_DEADLINE_MS": str(HIER_DEADLINE_MS),
+               "HOROVOD_TAIL_MAX_STALENESS": "1"}),
+)
+# the variants whose cross stage a straggler policy bounds
+HIER_LATE = ("bounded", "stale")
+# the adasum variant: one step of DistributedOptimizer(SGD(lr), op=Adasum)
+ADASUM_LR = 1e-3
+# its gradient against the plain tree in fp64 on the four ranks' local
+# gradients (193M fp32 entries): each fp32 dot product of the tree sums
+# blockwise in cuBLAS, erring by ~log2(N)·2^-24 ≈ 1.7e-6 of its terms'
+# magnitude, so each pair's coefficients err by ~1e-6 and the combined
+# vector by ~1e-6 of its norm; the gate allows 1e-4 in norm
+ADASUM_REL = 1e-4
+# the four processes: the dp-1 reference, the eager sub-check and six
+# variants, the kernels' build included
+HIER_TIMEOUT_S = 600
+
+# train_dp_tools: train_dp's step under HOROVOD_TIMELINE (cycle marks on)
+# and HOROVOD_AUTOTUNE, with a warm-up of 1 sample of 2 cycles: 6 steps
+# give the warm-up and 2 samples (one cycle a step), then one step into a
+# second timeline after stop_timeline()/start_timeline()
+TOOLS_ENV = {"HOROVOD_TIMELINE": "build/timeline.json",
+             "HOROVOD_TIMELINE_MARK_CYCLES": "1",
+             "HOROVOD_AUTOTUNE": "1",
+             "HOROVOD_AUTOTUNE_LOG": "build/autotune.csv",
+             "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+             "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2"}
+TOOLS_STEPS = 6
+TOOLS_TIMELINE2 = "build/timeline2.json"
+AUTOTUNE_HEADER = ("timestamp,fusion_threshold_bytes,cycle_time_ms,cache,"
+                   "hierarchical,compression,score_bytes_per_sec,phase")
 
 # the classifier models.  train_bert: bert_base(num_labels=4) at batch 512
 # x seq 128 (bench.py:98-101), remat on, AdamW(5e-5); with remat each
@@ -1357,18 +1431,26 @@ def a5_problems(res):
     return bad
 
 
-def _run_pair(flag: str, timeout_s: float):
-    """This script with ``flag R`` in two processes sharing the card over
-    gloo; returns rank 0's last line as JSON and the seconds taken."""
+def _run_pair(flag: str, timeout_s: float, world: int = 2,
+              local_size: int = 0):
+    """This script with ``flag R`` in ``world`` processes (two by default)
+    sharing the card over gloo, as hosts of ``local_size`` ranks each
+    (default: one host), numbered host by host; returns rank 0's last line
+    as JSON and the seconds taken."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     procs = []
     t0 = time.perf_counter()
-    for rank in range(2):
-        env = dict(os.environ, HOROVOD_RANK=str(rank), HOROVOD_SIZE="2",
-                   HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE="2",
+    n_local = local_size or world
+    for rank in range(world):
+        env = dict(os.environ, HOROVOD_RANK=str(rank),
+                   HOROVOD_SIZE=str(world),
+                   HOROVOD_LOCAL_RANK=str(rank % n_local),
+                   HOROVOD_LOCAL_SIZE=str(n_local),
+                   HOROVOD_CROSS_RANK=str(rank // n_local),
+                   HOROVOD_CROSS_SIZE=str(world // n_local),
                    HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
                    HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
                    HOROVOD_CONTROLLER="gloo",
@@ -1422,6 +1504,524 @@ def train_dp2_phase():
                 f"train_dp2 update norm {p}: {a} (dp 2) vs {b} (dp 1)")
         cos = res["update_cos"][p]
         require(cos > PARITY_COS, f"train_dp2 update cos {p}: {cos}")
+
+
+def plain_adasum(rows):
+    """The Adasum tree of ``rows`` in their order, written plainly (pairs
+    (0, 1), (2, 3), ... a level, an odd last row carried up; a zero-norm
+    side keeps coefficient 1), in the rows' dtype."""
+    level = list(rows)
+    while len(level) > 1:
+        nxt = []
+        for a, b in zip(level[0::2], level[1::2]):
+            dot, na, nb = torch.dot(a, b), torch.dot(a, a), torch.dot(b, b)
+            ca = 1.0 - dot / (2.0 * na) if na > 0 else 1.0
+            cb = 1.0 - dot / (2.0 * nb) if nb > 0 else 1.0
+            nxt.append(ca * a + cb * b)
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return level[0]
+
+
+def _counter(name: str, **labels) -> float:
+    """A metric family's value summed over the series matching
+    ``labels``, from this process's ``metrics.snapshot()``."""
+    from horovod_tpu_torch import metrics
+    fam = metrics.snapshot().get("families", {}).get(name, {})
+    return sum(x["value"] for x in fam.get("series", ())
+               if all(x["labels"].get(k) == v for k, v in labels.items()))
+
+
+def _with_env(env, fn):
+    """``fn()`` with ``env`` set in os.environ, then unset."""
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k in env:
+            os.environ.pop(k)
+
+
+def hier_eager(hvd, rank: int, dev: torch.device) -> dict:
+    """train_hier_dp4's eager sub-check on known tensors (multiples of
+    1/4, so every sum is exact): the hierarchical allreduce (Sum,
+    Average) and allgather, a stall (rank 3 submits 2 s late under a 1 s
+    check time: rank 0's log must name it), then bounded and stale rounds
+    with host 1 delayed past the deadline; returns each check's outcome
+    and, on rank 0, the stall log."""
+    import logging
+    from horovod_tpu_torch import chaos
+
+    def x(r, n=37):
+        return ((torch.arange(n, device=dev) % 13 - 6 + r) / 4).float()
+
+    def host(k, hosts=(0, 1)):
+        return sum(k * x(r) for r in range(4) if r // 2 in hosts)
+
+    hier = {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+            "HOROVOD_HIERARCHICAL_ALLGATHER": "1"}
+    late = chaos.FaultSchedule.parse(
+        f"collective.dcn group=1 action=delay:{HIER_DELAY_S}")
+    checks, log = {}, []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            log.append(record.getMessage())
+
+    def plain():
+        hvd.init(device=dev)
+        try:
+            ps = hvd.runtime._get_global_process_set()
+            checks["shape"] = ps.hier_shape() == (2, 2)
+            checks["sum"] = torch.equal(
+                hvd.allreduce(x(rank), op=hvd.Sum, name="e.sum"), host(1))
+            checks["average"] = torch.equal(
+                hvd.allreduce(x(rank), name="e.avg"), host(1) / 4)
+            rows = x(rank, 6).view(3, 2) + 100 * rank
+            checks["allgather"] = torch.equal(
+                hvd.allgather(rows, name="e.ag"), torch.cat(
+                    [x(r, 6).view(3, 2) + 100 * r for r in range(4)]))
+            keep = Keep()
+            logging.getLogger("horovod_tpu_torch").addHandler(keep)
+            if rank == 3:
+                time.sleep(2.0)
+            checks["stall_completes"] = torch.equal(
+                hvd.allreduce(torch.ones(2, device=dev), op=hvd.Sum,
+                              name="e.stall"), torch.full((2,), 4.0,
+                                                          device=dev))
+            logging.getLogger("horovod_tpu_torch").removeHandler(keep)
+        finally:
+            hvd.shutdown()
+
+    def tail(policy):
+        hvd.init(device=dev)
+        try:
+            got = [hvd.allreduce(x(rank), op=hvd.Sum, name=f"e.{policy}")]
+            chaos.install(late)
+            try:
+                for k in (2, 3):
+                    got.append(hvd.allreduce(k * x(rank), op=hvd.Sum,
+                                             name=f"e.{policy}"))
+            finally:
+                chaos.uninstall()
+        finally:
+            hvd.shutdown()
+        # bounded: host 1 excluded twice, host 0's sum times n/k = 2;
+        # stale (cap 1): host 1's first contribution substituted once,
+        # then waited out at the cap
+        want = ([host(1), 2 * host(2, (0,)), 2 * host(3, (0,))]
+                if policy == "bounded" else
+                [host(1), host(2, (0,)) + host(1, (1,)), host(3)])
+        checks[policy] = all(torch.equal(g, w) for g, w in zip(got, want))
+
+    _with_env(dict(hier, HOROVOD_STALL_CHECK_TIME_SECONDS="1"), plain)
+    for policy in HIER_LATE:
+        _with_env(dict(hier, HOROVOD_TAIL_POLICY=policy,
+                       HOROVOD_TAIL_DEADLINE_MS=str(HIER_DEADLINE_MS),
+                       HOROVOD_TAIL_MAX_STALENESS="1"),
+                  lambda: tail(policy))
+    if rank == 0:
+        checks["stall_names_rank_3"] = any(
+            "for ranks [3]" in m and "'e.stall'" in m for m in log)
+    return {"checks": checks, "stall_log": log if rank == 0 else []}
+
+
+def hier_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``train_hier_dp4`` (``--hier-rank``).  Rank 0 first runs
+    the 2 steps at dp 1 on the whole batch without the runtime (the
+    parity reference); then every rank runs the eager sub-check and, for
+    each variant of HIER_VARIANTS, hvd.init() under the variant's
+    environment and 2 steps on its 2 rows of the batch, rank 0's weights
+    broadcast and held against this rank's after each step; then one step
+    of DistributedOptimizer(op=Adasum), its applied gradient held on rank
+    0 against plain_adasum in fp64 of the four ranks' local gradients.
+    Rank 0 prints every run as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import chaos, training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_xent as fx
+    from horovod_tpu_torch.ops.fusion import dtype_name
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    t_phase = time.perf_counter()
+    cfg = bench_config(llama, n_layers=2, fused_xent=True)
+    rng = np.random.RandomState(2)
+    batch = [torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                         (8, cfg.max_seq_len)),
+                             dtype=torch.long, device=dev) for _ in range(2)]
+    toks, tgts = (b[2 * rank:2 * (rank + 1)] for b in batch)
+
+    def flat(params):
+        return dict(zip(tree_paths(params), tree_leaves(params)))
+
+    def counts():
+        return {**fa.LAUNCHES, **fx.LAUNCHES}
+
+    def identical(mine, tag):
+        same = all([torch.equal(hvd.broadcast(mine[p].detach(), 0,
+                                              name=f"{tag}.{p}"), mine[p])
+                    for p in sorted(mine)])
+        return all(hvd.allgather_object(same))
+
+    # the dp-1 reference (rank 0): losses and the weights before and after
+    # each step
+    ref = None
+    if rank == 0:
+        ts = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
+                                            device=dev)
+        params = llama.init_params(cfg, seed=2, device=dev)
+        opt_state = ts.opt_init(params)
+        ref = {"weights": [{p: t.detach().clone()
+                            for p, t in flat(params).items()}],
+               "losses": []}
+        for _ in range(2):
+            params, opt_state, loss = ts.step_fn(params, opt_state, *batch)
+            ref["losses"].append(loss.item())
+            ref["weights"].append({p: t.detach().clone()
+                                   for p, t in flat(params).items()})
+        del params, opt_state, ts
+        torch.cuda.empty_cache()
+
+    def parity(mine, step):
+        init, want = ref["weights"][0], ref["weights"][step + 1]
+        return {"update_norms": {p: ((mine[p] - init[p]).double().norm()
+                                     .item(), (want[p] - init[p]).double()
+                                     .norm().item()) for p in init},
+                "update_cos": {p: cosine(mine[p] - init[p],
+                                         want[p] - init[p]) for p in init}}
+
+    out = {"eager": hier_eager(hvd, rank, dev)}
+    hier_step1 = None
+    for name, env in HIER_VARIANTS:
+        os.environ.update(env)
+        hvd.init(device=dev)
+        try:
+            st = hvd.runtime._state()
+            policy = env.get("HOROVOD_TAIL_POLICY", "strict")
+            params = llama.init_params(cfg, seed=2, device=dev)
+            ts = training.make_llama_train_step(
+                cfg, optimizer=adamw_lp(3e-4), device=dev)
+            opt_state = ts.opt_init(params)
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            fx.reset_launches()
+            steps = []
+            for step in range(2):
+                n_rounds = len(collectives.TAIL_ROUNDS)
+                counted0 = _counter("hvd_tail_rounds_total", policy=policy)
+                wire0 = {f: _counter("hvd_wire_bytes_total", format=f)
+                         for f in ("float32", "int8")}
+                s0, c0 = st.engine.stats(), counts()
+                if name in HIER_LATE and step == 1:
+                    chaos.install(chaos.FaultSchedule.parse(
+                        f"collective.dcn group=1 action=delay:"
+                        f"{HIER_DELAY_S}"))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    params, opt_state, loss = ts.step_fn(params, opt_state,
+                                                         toks, tgts)
+                    torch.cuda.synchronize()
+                finally:
+                    chaos.uninstall()
+                ms = 1e3 * (time.perf_counter() - t0)
+                s1, c1 = st.engine.stats(), counts()
+                mine = flat(params)
+                rec = {
+                    "loss": loss.item(), "ms": ms,
+                    "launches": {k: c1[k] - c0[k] for k in c0},
+                    "buckets": s1["buckets"] - s0["buckets"],
+                    "payload_bytes": s1["bytes"] - s0["bytes"],
+                    "wire_bytes": {f: _counter("hvd_wire_bytes_total",
+                                               format=f) - v
+                                   for f, v in wire0.items()},
+                    "tail_rounds_counted": _counter(
+                        "hvd_tail_rounds_total", policy=policy) - counted0,
+                    "rounds": [{k: r[k] for k in ("excluded", "wait_s",
+                                                  "seconds")}
+                               for r in list(collectives.TAIL_ROUNDS)
+                               [n_rounds:]],
+                    "identical": identical(mine, f"{name}{step}")}
+                if rank == 0:
+                    rec.update(parity(mine, step))
+                    if step == 0 and name == "hier":
+                        hier_step1 = {p: t.detach().clone()
+                                      for p, t in mine.items()}
+                    if step == 0 and name in HIER_LATE:
+                        rec["equals_hier_step1"] = all(
+                            torch.equal(mine[p], hier_step1[p])
+                            for p in mine)
+                steps.append(rec)
+            out[name] = {
+                "steps": steps,
+                "straggler_scores": st.stall_inspector.straggler_scores(),
+                "peak_bytes": hvd.allgather_object(
+                    torch.cuda.max_memory_allocated())}
+            del params, opt_state, ts
+        finally:
+            hvd.shutdown()
+            for k in env:
+                os.environ.pop(k)
+        torch.cuda.empty_cache()
+
+    # Adasum through the optimizer wrapper, over the whole vector; the
+    # parity references are done with
+    dp1_losses = ref["losses"] if ref is not None else None
+    ref = hier_step1 = None
+    torch.cuda.empty_cache()
+    hvd.init(device=dev)
+    try:
+        params = llama.init_params(cfg, seed=2, device=dev)
+        named = sorted(zip(tree_paths(params),
+                           training.trainable_leaves(params)))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([p for _, p in named], lr=ADASUM_LR),
+            named_parameters=named, op=hvd.Adasum)
+        order = sorted(range(len(named)),
+                       key=lambda i: (dtype_name(named[i][1].dtype), i))
+        fa.reset_launches()
+        fx.reset_launches()
+        c0 = counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = llama.loss_fn(params, toks, tgts, cfg)
+        loss.backward()
+        local = torch.cat([named[i][1].grad.reshape(-1) for i in order])
+        opt.synchronize()
+        applied = torch.cat([named[i][1].grad.reshape(-1) for i in order])
+        with opt.skip_synchronize():
+            opt.step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        c1 = counts()
+        rec = {"loss": loss.item(), "ms": ms,
+               "launches": {k: c1[k] - c0[k] for k in c0},
+               "identical": identical(flat(params), "adasum"),
+               "numel": local.numel(),
+               "peak_bytes": hvd.allgather_object(
+                   torch.cuda.max_memory_allocated())}
+        # each rank's local gradient to rank 0, one at a time, kept on
+        # the host: the fp64 tree runs there, leaving the card's memory to
+        # the four ranks
+        rows = []
+        for r in range(4):
+            buf = local if r == rank else torch.empty_like(local)
+            hvd.broadcast_(buf, r, name=f"adasum.local{r}")
+            if rank == 0:
+                rows.append(buf.cpu().double())
+        if rank == 0:
+            want = plain_adasum(rows)
+            got = applied.cpu().double()
+            rec["rel_err"] = ((got - want).norm() / want.norm()).item()
+            rec["local_norms"] = [x.norm().item() for x in rows]
+            rec["applied_norm"] = got.norm().item()
+            del want, got
+        del rows, local, applied, opt, params
+        out["adasum"] = {"steps": [rec]}
+    finally:
+        hvd.shutdown()
+    if rank:
+        return 0
+    out["dp1_losses"] = dp1_losses
+    out["seconds_rank0"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def hier_problems(res):
+    """``train_hier_dp4``'s gates: the eager sub-check; after every step of
+    every variant the four ranks' weights identical and the launches of
+    the 2-layer model; flat, hier and step 1 of bounded and stale within
+    the parity gates of the dp-1 run, hier_int8 within A5_WIRE_*; bounded's
+    step 1 bit for bit hier's; on the hierarchical path one tail round
+    counted per bucket; step 2 of bounded and stale with host 1 excluded
+    from every round, each waiting at least the deadline, finite losses,
+    and host 1's ranks scoring above host 0's; Adasum's applied gradient
+    within ADASUM_REL of the plain tree."""
+    bad = [f"eager: {k} failed" for k, ok in
+           res["eager"]["checks"].items() if not ok]
+    dp1 = res["dp1_losses"]
+    for name in [v for v, _ in HIER_VARIANTS] + ["adasum"]:
+        run = res[name]
+        for i, st in enumerate(run["steps"]):
+            if not st["identical"]:
+                bad.append(f"{name}: the ranks' weights differ after step "
+                           f"{i + 1}")
+            if st["launches"] != EXPECTED_DP2_LAUNCHES:
+                bad.append(f"{name}: launches per step {st['launches']}, "
+                           f"expected {EXPECTED_DP2_LAUNCHES}")
+        if name == "adasum":
+            err = run["steps"][0].get("rel_err", float("inf"))
+            if not err <= ADASUM_REL:
+                bad.append(f"adasum: applied gradient {err} from the plain "
+                           f"tree in norm (> {ADASUM_REL})")
+            continue
+        wire = name == "hier_int8"
+        loss_rel, norm_rel, min_cos = (
+            (A5_WIRE_LOSS_REL, A5_WIRE_NORM_REL, A5_WIRE_COS) if wire
+            else (PARITY_LOSS_REL, PARITY_NORM_REL, PARITY_COS))
+        gated = run["steps"][:1] if name in HIER_LATE else run["steps"]
+        for i, st in enumerate(gated):
+            if not abs(st["loss"] - dp1[i]) <= loss_rel * abs(dp1[i]):
+                bad.append(f"{name}: loss {st['loss']} (dp 4) vs {dp1[i]} "
+                           f"(dp 1) at step {i + 1}")
+        last = gated[-1]
+        for p, (a, b) in last["update_norms"].items():
+            if not abs(a - b) <= norm_rel * b:
+                bad.append(f"{name}: update norm {p}: {a} vs {b}")
+            if not last["update_cos"][p] > min_cos:
+                bad.append(f"{name}: update cos {p}: "
+                           f"{last['update_cos'][p]}")
+        for i, st in enumerate(run["steps"]):
+            want = st["buckets"] if name != "flat" else 0
+            if st["tail_rounds_counted"] != want or len(st["rounds"]) != \
+                    want:
+                bad.append(f"{name}: step {i + 1} counted "
+                           f"{st['tail_rounds_counted']} tail rounds "
+                           f"({len(st['rounds'])} recorded) for {want} "
+                           f"hierarchical buckets")
+        if name not in HIER_LATE:
+            continue
+        if name == "bounded" and not run["steps"][0].get(
+                "equals_hier_step1"):
+            bad.append("bounded: step 1 (every host on time) is not hier's "
+                       "step 1 bit for bit")
+        second = run["steps"][1]
+        if not math.isfinite(second["loss"]):
+            bad.append(f"{name}: step 2 loss {second['loss']}")
+        for r in second["rounds"]:
+            if r["excluded"] != [1] or r["seconds"] < \
+                    HIER_DEADLINE_MS / 1000:
+                bad.append(f"{name}: step 2 round {r}: host 1 not excluded "
+                           f"past the deadline")
+        sc = {int(k): v for k, v in run["straggler_scores"].items()}
+        if not min(sc.get(2, 0), sc.get(3, 0)) > max(sc.get(0, 0),
+                                                      sc.get(1, 0)):
+            bad.append(f"{name}: straggler scores {sc}: host 1's ranks "
+                       f"(2, 3) not above host 0's")
+    return bad
+
+
+def train_hier_dp4_phase():
+    """Four ranks of :func:`hier_child` on the card over gloo as two hosts
+    of two; the gates."""
+    # the four ranks share the card with this process's own memory
+    torch.cuda.empty_cache()
+    parent = {"allocated": torch.cuda.memory_allocated(),
+              "reserved": torch.cuda.memory_reserved()}
+    res, seconds = _run_pair("--hier-rank", HIER_TIMEOUT_S, world=4,
+                             local_size=2)
+    emit("train_hier_dp4", layers=2, batch=[2, 2, 2, 2], seq=1024,
+         fused_xent=True, backend="gloo", hosts=[[0, 1], [2, 3]],
+         seconds=seconds, parent_bytes=parent, **res)
+    bad = hier_problems(res)
+    require(not bad, f"train_hier_dp4: {bad}")
+
+
+def _lanes(events):
+    """{tensor name: [names of its lane's begin and instant events]}."""
+    lanes = {e["tid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M"}
+    out = {name: [] for name in lanes.values()}
+    for e in events:
+        if e.get("ph") in ("B", "i") and e["tid"] in lanes:
+            out[lanes[e["tid"]]].append(e["name"])
+    return out
+
+
+def tools_phase(hvd, fa, fx, llama, training, adamw_lp, dev):
+    """``train_dp_tools``: train_dp's step at world 1 over NCCL under the
+    runtime that TOOLS_ENV configured: TOOLS_STEPS steps with their losses,
+    step ms, engine host ms and launches, then the timeline closed and a
+    second one opened for one more step; returns the emitted line, with
+    the timelines' lanes and the autotune log read back."""
+    cfg = bench_config(llama)
+    ts = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
+                                        device=dev)
+    params, opt_state = ts.init_fn(0)
+    rng = np.random.RandomState(0)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, 1024)),
+                           dtype=torch.long, device=dev)
+    tgts = torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, 1024)),
+                           dtype=torch.long, device=dev)
+    engine = hvd.runtime._state().engine
+    losses, step_ms, host_ms, per_step = [], [], [], []
+    fa.reset_launches()
+    fx.reset_launches()
+    for _ in range(TOOLS_STEPS):
+        s0, c0 = engine.stats(), {**fa.LAUNCHES, **fx.LAUNCHES}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = ts.step_fn(params, opt_state, toks, tgts)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        s1, c1 = engine.stats(), {**fa.LAUNCHES, **fx.LAUNCHES}
+        host_ms.append(s1["dispatch_ms"] - s0["dispatch_ms"])
+        per_step.append({k: c1[k] - c0[k] for k in c0})
+    autotune = engine.stats()["autotune"]
+    hvd.stop_timeline()
+    hvd.start_timeline(TOOLS_TIMELINE2, mark_cycles=True)
+    ts.step_fn(params, opt_state, toks, tgts)
+    torch.cuda.synchronize()
+    hvd.stop_timeline()
+    from horovod_tpu_torch.tree import tree_paths
+    grads = [f"grad.{p}" for p in tree_paths(params)]   # sum_scaled_'s names
+    del params, opt_state, ts
+    torch.cuda.empty_cache()
+    timelines = []
+    for path in (TOOLS_ENV["HOROVOD_TIMELINE"], TOOLS_TIMELINE2):
+        with open(path) as f:
+            timelines.append(json.load(f))
+    with open(TOOLS_ENV["HOROVOD_AUTOTUNE_LOG"]) as f:
+        log = f.read().strip().splitlines()
+    row = dict(steps=TOOLS_STEPS, losses=losses, step_ms=step_ms,
+               engine_host_ms=host_ms, launches_per_step=per_step,
+               autotune=autotune, autotune_log=log,
+               timeline_events=[len(t) for t in timelines],
+               cycle_marks=[sum(1 for e in t if e["name"] == "CYCLE_START")
+                            for t in timelines])
+    emit("train_dp_tools", **row)
+    row["lanes"] = [_lanes(t) for t in timelines]
+    row["tensors"] = grads + ["loss"]
+    return row
+
+
+def tools_problems(row, train_row, expected):
+    """``train_dp_tools``' gates: ``train``'s losses bit for bit (averaging
+    at world 1 is exact whatever the buckets); the launches; every
+    gradient tensor's lane holding a NEGOTIATE_ALLREDUCE span, an
+    ALLREDUCE activity and a DONE mark a step, in the first timeline for
+    the steps before stop_timeline() and in the second for the step after
+    start_timeline() (no event lost across the two), with the cycle
+    marks; the autotune log's header and at least 2 sample rows."""
+    bad = []
+    n = min(len(train_row["losses"]), len(row["losses"]))
+    if row["losses"][:n] != train_row["losses"][:n]:
+        bad.append(f"losses {row['losses'][:n]} are not train's "
+                   f"{train_row['losses'][:n]}")
+    bad += [f"launches per step {st}, expected {expected}"
+            for st in row["launches_per_step"] if st != expected]
+    for lanes, marks, steps in zip(row["lanes"], row["cycle_marks"],
+                                   (row["steps"], 1)):
+        for name in row["tensors"]:
+            ev = lanes.get(name, [])
+            for kind in ("NEGOTIATE_ALLREDUCE", "ALLREDUCE", "DONE"):
+                if ev.count(kind) != steps:
+                    bad.append(f"timeline: {name} has {ev.count(kind)} "
+                               f"{kind} for {steps} steps")
+        if marks < steps:
+            bad.append(f"timeline: {marks} cycle marks for {steps} steps")
+    log = row["autotune_log"]
+    if not log or log[0] != AUTOTUNE_HEADER:
+        bad.append(f"autotune log header {log[:1]}")
+    if sum(1 for line in log[1:] if line.endswith(",sample")) < 2:
+        bad.append(f"autotune log has fewer than 2 sample rows: {log}")
+    return bad
 
 
 def cosine(a, b) -> float:
@@ -2821,6 +3421,9 @@ def main() -> int:
                          dev)
     if "--a5-rank" in sys.argv:
         return a5_child(int(sys.argv[sys.argv.index("--a5-rank") + 1]), dev)
+    if "--hier-rank" in sys.argv:
+        return hier_child(int(sys.argv[sys.argv.index("--hier-rank") + 1]),
+                          dev)
     if "--resnet-dp2-rank" in sys.argv:
         return resnet_dp2_child(
             int(sys.argv[sys.argv.index("--resnet-dp2-rank") + 1]), dev)
@@ -2921,6 +3524,25 @@ def main() -> int:
                                   for st in train_dp["gradient_plane"]])
     bad = overlap_problems(train_overlap, train, expected)
     require(not bad, f"train_overlap: {bad}")
+    # train_dp's step again with the timeline and the autotuner on: the
+    # runtime reads their knobs at init
+    os.makedirs("build", exist_ok=True)
+    os.environ.update(TOOLS_ENV)
+    hvd.init()
+    try:
+        tools = timed("train_dp_tools", tools_phase, hvd, fa, fx, llama,
+                      training, adamw_lp, dev)
+    finally:
+        hvd.shutdown()
+        for k in TOOLS_ENV:
+            os.environ.pop(k)
+    emit("train_dp_tools_vs_train_dp",
+         step_ms=[tools["step_ms"], train_dp["step_ms"]],
+         engine_host_ms=[tools["engine_host_ms"],
+                         [st["dispatch_ms"]
+                          for st in train_dp["gradient_plane"]]])
+    bad = tools_problems(tools, train, expected)
+    require(not bad, f"train_dp_tools: {bad}")
     # the same step with the int8 wire: the runtime reads the knob at init
     os.environ["HOROVOD_COMPRESSION"] = "int8"
     hvd.init()
@@ -2935,6 +3557,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("train_dp2", train_dp2_phase)
     timed("train_a5_dp2", train_a5_dp2_phase)
+    timed("train_hier_dp4", train_hier_dp4_phase)
     timed("decode", decode_phase, llama, gen, paging, fa, fx, convert, dev)
     timed("serve", serve_phase, llama, gen, paging, fa, fx, dev)
 

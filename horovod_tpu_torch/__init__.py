@@ -10,7 +10,8 @@ rank and size, the eager collectives with async handles over
 ``DistributedGradientTransform`` (planned buckets, ZeRO tiles, the
 quantized wire formats) and the broadcast helpers
 (``optim/distributed.py``), ``overlapped_backprop``
-(``optim/overlap.py``), ``SyncBatchNorm`` (``sync_batch_norm.py``) and
+(``optim/overlap.py``), ``start_timeline``/``stop_timeline``
+(``timeline.py``), ``SyncBatchNorm`` (``sync_batch_norm.py``) and
 ``hvd.elastic`` (``elastic/``: ``run``, ``TensorState``, ``TorchState``,
 ``ElasticSampler``).  ``horovod_tpu_torch.checkpoint`` and
 ``horovod_tpu_torch.data`` are imported on their own, and
@@ -59,7 +60,8 @@ from .api import (  # noqa: E402
     reducescatter_async, synchronize, wait)
 from .compression import (  # noqa: E402
     WIRE_FORMATS, Compression, WireFormat, resolve_wire_format)
-from .exceptions import HorovodInternalError, HostsUpdatedInterrupt  # noqa: E402,E501
+from .exceptions import (  # noqa: E402
+    HorovodInternalError, HostsUpdatedInterrupt, NotInitializedError)
 from .optim.distributed import (  # noqa: E402
     DistributedGradientTransform, DistributedOptimizer,
     all_gather_sharded_tree, broadcast_optimizer_state, broadcast_parameters,
@@ -70,10 +72,11 @@ from .optim.overlap import overlapped_backprop  # noqa: E402
 from .runtime import (  # noqa: E402
     Adasum, Average, Max, Min, Product, ProcessSet, ReduceOp, Sum,
     add_process_set, ccl_built, cross_rank, cross_size, cuda_built,
-    ddl_built, gloo_built, gloo_enabled, init, is_homogeneous,
-    is_initialized, local_rank, local_size, mpi_built, mpi_enabled,
-    mpi_threads_supported, nccl_built, rank, remove_process_set,
-    rocm_built, shutdown, size, tpu_built, xla_built)
+    ddl_built, get_process_set_ids_and_ranks, gloo_built, gloo_enabled,
+    init, is_homogeneous, is_initialized, local_rank, local_size,
+    mpi_built, mpi_enabled, mpi_threads_supported, nccl_built, rank,
+    remove_process_set, rocm_built, shutdown, size, start_timeline,
+    stop_timeline, tpu_built, xla_built)
 
 from .sync_batch_norm import SyncBatchNorm  # noqa: E402
 
@@ -108,8 +111,9 @@ __all__ = [
     "fused_reduce_scatter_tree", "all_gather_sharded_tree",
     "overlapped_backprop", "SyncBatchNorm", "WireFormat", "WIRE_FORMATS",
     "resolve_wire_format", "Compression", "HorovodInternalError",
-    "HostsUpdatedInterrupt", "elastic",
+    "HostsUpdatedInterrupt", "NotInitializedError", "elastic",
     "ProcessSet", "add_process_set", "remove_process_set",
+    "get_process_set_ids_and_ranks", "start_timeline", "stop_timeline",
     "mpi_threads_supported", "mpi_built", "mpi_enabled", "gloo_built",
     "gloo_enabled", "nccl_built", "ddl_built", "ccl_built", "cuda_built",
     "rocm_built", "xla_built", "tpu_built",

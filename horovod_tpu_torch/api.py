@@ -6,8 +6,9 @@ Counterpart: ``horovod_tpu/api.py`` and the tensor functions of
 same surface (sync and ``_async`` forms, ``grouped_*`` forms,
 ``synchronize``/``poll``/``wait``, ``join``, ``barrier``, the object
 collectives) with the same defaults (``op=Average``, call-site tensor
-names, prescale/postscale factors, compression).  Every call goes through
-the background engine, which negotiates and fuses it.
+names, prescale/postscale factors, compression) and the same ops
+(``op=Adasum`` included).  Every call goes through the background
+engine, which negotiates and fuses it.
 
 Differences from the JAX package, all deliberate: each rank passes its own
 tensor and gets its own result (one process per GPU: no stacked
@@ -52,8 +53,6 @@ def _resolve_op(average: Optional[bool], op: Optional[str]) -> str:
     if op is None:
         return ReduceOp.AVERAGE if (average is None or average) \
             else ReduceOp.SUM
-    if op == ReduceOp.ADASUM:
-        raise NotImplementedError("Adasum is not ported yet (ROADMAP.md A5)")
     return op
 
 

@@ -14,7 +14,9 @@ feature it asked for.  ``HOROVOD_COMPRESSION`` (with its block size and
 read by ``optim/distributed.py`` (the transform's defaults) and the
 engine (the eager wire format); the ``HOROVOD_SERVE_*`` knobs likewise,
 read by ``serving/plane.py``; ``HOROVOD_ELASTIC`` by ``runtime.init``
-(the elastic driver's epoch assignment).
+(the elastic driver's epoch assignment); ``HOROVOD_HIERARCHICAL_*`` and
+``HOROVOD_TAIL_*`` by the engine and the transform; ``HOROVOD_TIMELINE*``,
+``HOROVOD_STALL_*`` and ``HOROVOD_AUTOTUNE*`` by ``runtime.init``.
 """
 
 from __future__ import annotations
@@ -36,12 +38,7 @@ RECOVERY_MODES = ("off", "neighbor", "parity")
 #: (environment variable, Config field, ROADMAP.md item) of every knob
 #: whose feature is not ported yet
 UNPORTED = (
-    ("HOROVOD_TAIL_POLICY", "tail_policy", "A5"),
-    ("HOROVOD_HIERARCHICAL_ALLREDUCE", "hierarchical_allreduce", "A5"),
-    ("HOROVOD_HIERARCHICAL_ALLGATHER", "hierarchical_allgather", "A5"),
     ("HOROVOD_RECOVERY", "recovery", "A8"),
-    ("HOROVOD_TIMELINE", "timeline_path", "A9"),
-    ("HOROVOD_AUTOTUNE", "autotune", "A9"),
     ("HOROVOD_SLO", "slo", "A9"),
 )
 

@@ -24,19 +24,44 @@ tensors of these flat forms travel through host memory.  Synchronized
 batch norm (``ops/sync_batch_norm.py``) sums its statistics with
 :func:`allreduce_sum`, as the JAX package's ``lax.psum`` inside the step.
 
-Not here yet: the tail-policy and hierarchical paths and Adasum (ROADMAP.md
-A5), and the model-parallel forms (A6).
+Adasum (``ops/adasum.py``) reduces a bucket by one all-gather and a
+combining tree.  A process set with a hierarchy
+(``runtime.ProcessSet.hier_shape``) reduces a bucket in three stages
+(:func:`hierarchical_allreduce`, JAX ``_hier_allreduce_fn``): a
+reduce-scatter within each host, the cross-host reduction of the chunk,
+an all-gather within each host; under a quantized wire only the cross
+stage is quantized.  The cross stage takes a straggler policy
+(``HOROVOD_TAIL_POLICY``, :data:`TAIL_POLICIES`): each dispatch runs one
+:func:`tail_round`, which decides from the ``collective.dcn`` chaos site
+which hosts made ``HOROVOD_TAIL_DEADLINE_MS`` and waits accordingly, and
+:func:`tail_cross_reduce` does the policy's arithmetic (JAX
+``tail_allreduce_p``) after the ranks agree on the mask with an
+allreduce-MIN over the whole set.  :func:`hierarchical_allgather` gathers
+within each host, then across hosts.
+
+Not here yet: the model-parallel forms (ROADMAP.md A6).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+import collections
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import chaos as _chaos
+from .. import metrics as _metrics
 from ..compression import WireFormat, dequantize_blocks, quantize_blocks
+from ..config import TAIL_POLICIES
 from ..runtime import ReduceOp
+
+_m_tail_rounds = _metrics.counter(
+    "hvd_tail_rounds_total",
+    "DCN tail rounds of the hierarchical reduce, by effective policy",
+    labels=("policy",))
 
 _DIST_OPS = {
     ReduceOp.SUM: dist.ReduceOp.SUM,
@@ -77,7 +102,10 @@ def allreduce_arrays(tensors: Sequence[torch.Tensor], ps,
                      postscale_factor: Optional[float] = None,
                      inplace: bool = False,
                      mark: Optional[Callable[[str], None]] = None,
-                     wire: Optional[WireFormat] = None
+                     wire: Optional[WireFormat] = None,
+                     hierarchical: bool = False,
+                     tail_policy: str = "strict",
+                     tail_names: Sequence[str] = ("allreduce",)
                      ) -> List[torch.Tensor]:
     """Fused allreduce of one bucket (tensors of one dtype) over ``ps``.
 
@@ -87,15 +115,31 @@ def allreduce_arrays(tensors: Sequence[torch.Tensor], ps,
     phase begins and with ``"end"`` after the last (the engine's device
     timing).  ``wire`` quantizes the bucket (Sum or Average only, no error
     feedback: the eager path carries no state), as the JAX engine does.
+    Adasum combines the bucket's vector (``ops/adasum.py``).
+
+    ``hierarchical`` (a Sum or Average over a set with a hierarchy) runs
+    :func:`hierarchical_allreduce`: ``wire`` then quantizes its cross
+    stage only, and ``tail_policy`` is that stage's straggler policy;
+    ``tail_names`` are the bucket's tensor names, which name its tail
+    rounds and key its stale state.
     """
-    if op == ReduceOp.ADASUM:
-        raise NotImplementedError("Adasum is not ported yet (ROADMAP.md A5)")
-    if op not in _DIST_OPS:
+    if op not in _DIST_OPS and op != ReduceOp.ADASUM:
         raise ValueError(f"unsupported reduce op: {op}")
     if len({t.dtype for t in tensors}) != 1:
         raise ValueError("a fused allreduce takes tensors of one dtype")
-    group = _group(ps)
+    if hierarchical and op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(f"a hierarchical allreduce sums; got op {op!r}")
     mark = mark or (lambda phase: None)
+    if op == ReduceOp.ADASUM:
+        from .adasum import adasum_arrays
+        mark("reduce")
+        outs = adasum_arrays(tensors, ps, prescale_factor, postscale_factor)
+        if inplace:
+            torch._foreach_copy_(list(tensors), outs)
+            outs = list(tensors)
+        mark("end")
+        return outs
+    group = _group(ps)
     mark("pack")
     direct = inplace and len(tensors) == 1 and tensors[0].is_contiguous()
     if direct:
@@ -107,12 +151,16 @@ def allreduce_arrays(tensors: Sequence[torch.Tensor], ps,
     if prescale_factor is not None:
         _scale_(flat, prescale_factor)
     mark("reduce")
-    if wire is not None:
+    if hierarchical:
+        flat.copy_(hierarchical_allreduce(flat, ps, op, wire=wire,
+                                          tail_policy=tail_policy,
+                                          tail_names=tail_names))
+    elif wire is not None:
         flat.copy_(quantized_allreduce(flat, ps, wire, op=op)[0])
     else:
         dist.all_reduce(flat, op=_DIST_OPS[op], group=group)
     mark("unpack")
-    if op == ReduceOp.AVERAGE and wire is None:
+    if op == ReduceOp.AVERAGE and wire is None and not hierarchical:
         _average_(flat, ps.size())
     if postscale_factor is not None:
         _scale_(flat, postscale_factor)
@@ -157,6 +205,18 @@ def allgather_array(x: torch.Tensor, ps,
     outs = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(outs, x, group=group)
     return torch.cat([o[:r] for o, r in zip(outs, rows)])
+
+
+def hierarchical_allgather(x: torch.Tensor, ps) -> torch.Tensor:
+    """Every rank's ``x`` (one dim-0 size on every rank) concatenated in
+    rank order, in two stages: within each host, then across hosts (JAX
+    ``_hier_allgather_fn``; HOROVOD_HIERARCHICAL_ALLGATHER)."""
+    if x.dim() == 0:
+        raise ValueError("allgather needs a tensor of at least one dim")
+    local, cross = ps.hier_groups()
+    host = all_gather_flat(x.contiguous().view(-1), local)
+    return all_gather_flat(host, cross).view(
+        (-1,) + tuple(x.shape[1:]))
 
 
 def broadcast_array(x: torch.Tensor, root_rank: int, ps,
@@ -355,3 +415,296 @@ def quantized_allreduce(x: torch.Tensor, ps, fmt: WireFormat,
     if new_res is not None:
         new_res = new_res[:total].reshape(shape)
     return red.reshape(shape).to(dtype), new_res
+
+
+# ---------------------------------------------------------------------------
+# the hierarchical allreduce and its tail-tolerant cross stage
+# ---------------------------------------------------------------------------
+
+#: Per-bucket stale state: ``(prev, staleness)``, the previous round's
+#: agreed per-host chunks ``[n_cross, chunk]`` and the consecutive
+#: substitution counters (int32 ``[n_cross]``), keyed by the bucket's
+#: signature and tensor names (JAX ``_TAIL_STATE``).  Cleared at
+#: ``hvd.init()``.
+_TAIL_STATE: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+#: The latest tail rounds, oldest first: ``name``, ``policy``, the
+#: ``excluded`` host groups, the planned ``wait_s`` and the ``seconds``
+#: the round took on the wall clock.  Cleared at ``hvd.init()``.
+TAIL_ROUNDS: "collections.deque[dict]" = collections.deque(maxlen=4096)
+
+
+def reset_tail_state() -> None:
+    _TAIL_STATE.clear()
+    TAIL_ROUNDS.clear()
+
+
+def _check_policy(tail_policy: str) -> None:
+    if tail_policy not in TAIL_POLICIES:
+        raise ValueError(f"tail_policy must be one of {TAIL_POLICIES}, "
+                         f"got {tail_policy!r}")
+
+
+def plan_tail_round(name: str, tail_policy: str, n_groups: int,
+                    deadline_s: float, max_staleness: int = 0,
+                    staleness=None, stall=None, group_ranks=None):
+    """Decide one cross-host tail round: which host groups count, and how
+    long the round waits on the wall clock (JAX ``plan_tail_round``; pure,
+    it does not sleep).
+
+    A group's lateness comes from the ``collective.dcn`` chaos site
+    (``action=delay:<s>``: its contribution arrives that late;
+    ``action=drop``: never this round); without a schedule every group is
+    on time.  ``strict`` waits out the slowest group and raises
+    ``ChaosConnectionError`` on a drop; ``bounded`` and ``stale`` exclude
+    (mask 0) the groups later than ``deadline_s`` and then wait the
+    deadline, except that under ``stale`` a group whose ``staleness`` has
+    reached ``max_staleness`` is waited out.  Each group's lateness (a
+    drop counts as the deadline) feeds ``stall.note_lateness`` for every
+    rank of ``group_ranks[g]`` (default: the group index itself).
+
+    Returns ``(present, wait_s, lateness)``: the float32 mask, the wait
+    and the per-group lateness.
+    """
+    _check_policy(tail_policy)
+    lateness = [0.0] * n_groups
+    dropped = [False] * n_groups
+    if _chaos.ACTIVE:
+        for g in range(n_groups):
+            act = _chaos.fire("collective.dcn", name=name, group=g,
+                              policy=tail_policy,
+                              _defer=("delay", "drop"))
+            if act is None:
+                continue
+            if act.kind == "delay":
+                lateness[g] = act.arg_float(0.05)
+            elif act.kind == "drop":
+                dropped[g] = True
+    present = np.ones((n_groups,), np.float32)
+    if tail_policy == "strict":
+        if any(dropped):
+            raise _chaos.ChaosConnectionError(
+                f"chaos: DCN contribution of groups "
+                f"{[g for g in range(n_groups) if dropped[g]]} dropped "
+                f"at collective.dcn ({name})")
+        wait_s = max(lateness) if lateness else 0.0
+    else:
+        waited = []
+        deadline_fired = False
+        for g in range(n_groups):
+            late = float("inf") if dropped[g] else lateness[g]
+            at_cap = (tail_policy == "stale" and staleness is not None
+                      and int(staleness[g]) >= max_staleness)
+            if late > deadline_s and not at_cap:
+                present[g] = 0.0
+                deadline_fired = True
+            else:
+                # waited out: on time, or stale-capped (the cap beats a
+                # drop: the round blocks until the host answers)
+                waited.append(min(late, deadline_s)
+                              if not at_cap else lateness[g])
+        wait_s = max(waited) if waited else 0.0
+        if deadline_fired:
+            wait_s = max(wait_s, deadline_s)
+    if stall is not None:
+        for g in range(n_groups):
+            obs = (max(lateness[g], deadline_s) if dropped[g]
+                   else lateness[g])
+            for r in (group_ranks[g] if group_ranks is not None else (g,)):
+                stall.note_lateness(r, obs)
+    return present, wait_s, lateness
+
+
+def tail_round(name: str, tail_policy: str, n_groups: int,
+               deadline_s: float, max_staleness: int = 0,
+               staleness=None, stall=None, group_ranks=None):
+    """One cross-host tail round: plan it (:func:`plan_tail_round`), wait
+    the planned time, count it (``hvd_tail_rounds_total{policy}``),
+    record it in :data:`TAIL_ROUNDS`, and return the mask."""
+    t0 = time.monotonic()
+    present, wait_s, _ = plan_tail_round(
+        name, tail_policy, n_groups, deadline_s,
+        max_staleness=max_staleness, staleness=staleness, stall=stall,
+        group_ranks=group_ranks)
+    if _metrics.ACTIVE:
+        _m_tail_rounds.inc(policy=tail_policy)
+    if wait_s > 0:
+        time.sleep(wait_s)
+    TAIL_ROUNDS.append({
+        "name": name, "policy": tail_policy,
+        "excluded": [g for g in range(n_groups) if present[g] == 0.0],
+        "wait_s": float(wait_s), "seconds": time.monotonic() - t0})
+    return present
+
+
+def _tail_params():
+    """(deadline_s, max_staleness, stall inspector) from the runtime."""
+    from .. import runtime
+    st = runtime._state()
+    cfg = st.config
+    deadline_s = cfg.tail_deadline_ms / 1000.0 if cfg is not None else 0.25
+    max_stal = cfg.tail_max_staleness if cfg is not None else 4
+    return deadline_s, max_stal, st.stall_inspector
+
+
+def _agree_min(mask: torch.Tensor, ps, device: torch.device) -> torch.Tensor:
+    """The elementwise minimum of every rank's ``mask`` over ``ps``: a
+    host counts only if every rank has it (JAX ``pmin`` over both
+    axes)."""
+    group = _group(ps)
+    t = (mask.to(device) if dist.get_backend(group) == "nccl"
+         else mask.clone())
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return t.cpu()
+
+
+def _sum_over(chunk: torch.Tensor, cross, wire: Optional[WireFormat]
+              ) -> torch.Tensor:
+    """The sum of ``chunk`` over ``cross``, full width or quantized."""
+    if wire is not None:
+        return quantized_allreduce(chunk, cross, wire, op=ReduceOp.SUM)[0]
+    out = chunk.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(cross))
+    return out
+
+
+def _gather_rows(chunk: torch.Tensor, cross, wire: Optional[WireFormat]
+                 ) -> torch.Tensor:
+    """Every host's ``chunk`` as the rows of ``[n_cross, len]``, full width
+    or through the quantized wire (each row as its host quantized it)."""
+    n = cross.size()
+    if wire is None:
+        return all_gather_flat(chunk, cross).view(n, -1)
+    pad = (-chunk.numel()) % wire.block_size
+    padded = (torch.cat([chunk, chunk.new_zeros(pad)]) if pad else chunk)
+    q, s = quantize_blocks(padded, wire)
+    deq = dequantize_blocks(all_gather_flat(q, cross),
+                            all_gather_flat(s, cross), wire).view(n, -1)
+    return deq[:, :chunk.numel()].to(chunk.dtype)
+
+
+def tail_cross_reduce(chunk: torch.Tensor, cross, tail_policy: str,
+                      present=None, agree=None, prev=None, staleness=None,
+                      max_staleness: int = 0,
+                      wire: Optional[WireFormat] = None):
+    """The sum of ``chunk`` over the cross group ``cross`` under a
+    straggler policy (the eager counterpart of JAX ``tail_allreduce_p``).
+
+    ``present`` is the round's float32 mask over the cross group; it is
+    first agreed over ``agree`` (the whole process set) as an
+    allreduce-MIN, so every rank sums the same contributions.
+
+    * ``strict``: the plain (or quantized) sum; ``present`` is ignored.
+    * ``bounded``: this host's contribution is zeroed when it is masked,
+      the rest summed and multiplied by n/k when k < n hosts are present;
+      an all-ones round is bit for bit ``strict``.
+    * ``stale``: the chunks are all-gathered, a missing host's row is its
+      ``prev`` row, hosts at ``max_staleness`` count as present, and the
+      counters of the substituted hosts advance.
+
+    Returns ``(reduced, new_prev, new_staleness)``; the state is None
+    except under ``stale``.
+    """
+    _check_policy(tail_policy)
+    if tail_policy == "strict":
+        return _sum_over(chunk, cross, wire), None, None
+    n = cross.size()
+    if present is None:
+        raise ValueError(
+            f"tail_policy={tail_policy!r} needs a participation mask "
+            f"(present=[{n}] floats; all ones = no deadline fired)")
+    m = torch.as_tensor(np.asarray(present, np.float32))
+    if agree is not None:
+        m = _agree_min(m, agree, chunk.device)
+    if tail_policy == "bounded":
+        own = float(m[cross.rank()])
+        red = _sum_over(chunk * torch.tensor(own).to(chunk.dtype), cross,
+                        wire)
+        k = float(m.sum())
+        if k < n:
+            # the n/k correction in fp32, cast to the dtype (JAX: a full
+            # round skips it, so it stays bit for bit strict)
+            _scale_(red, float(torch.tensor(float(n)) /
+                               torch.tensor(max(k, 1.0))))
+        return red, None, None
+    if prev is None or staleness is None:
+        raise ValueError(
+            "tail_policy='stale' carries per-bucket state: pass prev "
+            f"([{n}, len(chunk)] previous-round chunks) and staleness "
+            f"(int32 [{n}]), zeros on the first round")
+    staleness = torch.as_tensor(staleness, dtype=torch.int32)
+    if max_staleness >= 0:
+        m = torch.where(staleness >= max_staleness, torch.ones_like(m), m)
+    rows = _gather_rows(chunk, cross, wire)
+    keep = (m > 0).to(chunk.device)[:, None]
+    eff = torch.where(keep, rows, prev.to(chunk.dtype))
+    new_staleness = torch.where(m > 0, torch.zeros_like(staleness),
+                                staleness + 1)
+    return eff.sum(dim=0), eff, new_staleness
+
+
+def hierarchical_allreduce(flat: torch.Tensor, ps, op: str = ReduceOp.SUM,
+                           wire: Optional[WireFormat] = None,
+                           tail_policy: str = "strict",
+                           tail_names: Sequence[str] = ("allreduce",)
+                           ) -> torch.Tensor:
+    """Sum or average of a 1-D ``flat`` over ``ps`` in three stages (JAX
+    ``_hier_allreduce_fn``, after NCCLHierarchicalAllreduce): zero-padded
+    to a multiple of the host size, reduce-scattered within each host; the
+    chunk reduced across hosts (quantized when ``wire`` is given, under
+    ``tail_policy``, one :func:`tail_round` a call, which also runs under
+    ``strict`` when chaos or metrics are on); all-gathered within each
+    host, unpadded, divided by the set's size for Average.  Returns a new
+    tensor of ``flat``'s length and dtype.
+
+    ``tail_names`` are the bucket's tensor names: the first names the tail
+    round, all of them key the bucket's ``stale`` state, with its
+    signature.
+    """
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(f"a hierarchical allreduce sums; got op {op!r}")
+    _check_policy(tail_policy)
+    n_cross, n_local = ps.hier_shape()
+    local, cross = ps.hier_groups()
+    total = flat.numel()
+    pad = (-total) % n_local
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    chunk = reduce_scatter_flat(flat, local)
+    deadline_s, max_stal, stall = _tail_params()
+    groups = [ps.ranks[g * n_local:(g + 1) * n_local]
+              for g in range(n_cross)]
+    name = tail_names[0]
+    if tail_policy == "strict":
+        if _chaos.ACTIVE or _metrics.ACTIVE:
+            # strict rounds observe injected arrival delays too (they wait
+            # them out) and count toward the round metric
+            tail_round(name, "strict", n_cross, deadline_s, stall=stall,
+                       group_ranks=groups)
+        chunk = _sum_over(chunk, cross, wire)
+    elif tail_policy == "bounded":
+        present = tail_round(name, "bounded", n_cross, deadline_s,
+                             stall=stall, group_ranks=groups)
+        chunk = tail_cross_reduce(chunk, cross, "bounded", present, ps,
+                                  wire=wire)[0]
+    else:
+        key = (ps.process_set_id, tuple(ps.ranks), op, str(flat.dtype),
+               total, None if wire is None else (wire.name,
+                                                 wire.block_size),
+               tuple(tail_names))
+        state = _TAIL_STATE.get(key)
+        if state is None:
+            state = (chunk.new_zeros((n_cross, chunk.numel())),
+                     torch.zeros((n_cross,), dtype=torch.int32))
+        present = tail_round(name, "stale", n_cross, deadline_s,
+                             max_staleness=max_stal,
+                             staleness=state[1].tolist(), stall=stall,
+                             group_ranks=groups)
+        chunk, prev, stal = tail_cross_reduce(
+            chunk, cross, "stale", present, ps, prev=state[0],
+            staleness=state[1], max_staleness=max_stal, wire=wire)
+        _TAIL_STATE[key] = (prev, stal)
+    red = all_gather_flat(chunk, local)[:total]
+    if op == ReduceOp.AVERAGE:
+        _average_(red, ps.size())
+    return red

@@ -41,6 +41,13 @@ global-group rounds with an empty request list and a joined flag;
 collectives ready on every *non-joined* rank dispatch, with joined ranks
 synthesizing zero contributions.  The round in which every rank has joined
 resolves ``join()`` everywhere, returning the last joiner.
+
+A round also carries the autotuner's parameters (``params``): the lowest
+active member's published point is the round's, on every member.  The
+stall inspector (``stall.py``) hears which ranks a round finds missing,
+and the rounds are counted in the JAX controller's metric families
+(``hvd_negotiation_rounds_total{kind}``, its duration histogram, and
+``hvd_kv_ops_total{op}`` for the store operations).
 """
 
 from __future__ import annotations
@@ -54,9 +61,22 @@ import time
 from collections import Counter, OrderedDict
 from typing import Dict, List, Optional, Tuple
 
+from .. import metrics as _metrics
 from ..exceptions import HorovodInternalError, StallError
 
 logger = logging.getLogger("horovod_tpu_torch")
+
+# -- metric families (the JAX controller's; sites guard on _metrics.ACTIVE)
+_m_neg_rounds = _metrics.counter(
+    "hvd_negotiation_rounds_total",
+    "Negotiation rounds by outcome (fast = hash-only steady state)",
+    labels=("kind",))
+_m_neg_dur = _metrics.histogram(
+    "hvd_negotiation_duration_seconds",
+    "Wall time of one negotiation round", labels=("kind",), lo=-17, hi=6)
+_m_kv_ops = _metrics.counter(
+    "hvd_kv_ops_total", "Negotiation-transport KV operations",
+    labels=("op",))
 
 
 @dataclasses.dataclass
@@ -72,6 +92,8 @@ class NegotiationResult:
     # per-rank payloads published with the round (allgather row counts):
     # {rank: {key: value}}
     aux: Dict[int, dict] = dataclasses.field(default_factory=dict)
+    # the tuned parameters the round agreed (the lowest active publisher's)
+    params: Optional[dict] = None
 
 
 def entry_token(entry) -> str:
@@ -122,8 +144,9 @@ class Controller:
     """
 
     def __init__(self, cfg=None, store=None, rank: int = 0, world: int = 1,
-                 deadline_s: float = 300.0):
+                 deadline_s: float = 300.0, stall=None):
         self.store = store
+        self.stall = stall
         self.rank = rank
         self.world = world
         self.deadline_s = float(deadline_s)
@@ -244,8 +267,8 @@ class Controller:
 
     # -- the round -----------------------------------------------------------
     def negotiate(self, tokens: List[str], procs: Tuple[int, ...],
-                  aux: Optional[dict] = None,
-                  stalled: bool = False) -> NegotiationResult:
+                  aux: Optional[dict] = None, stalled: bool = False,
+                  params: Optional[dict] = None) -> NegotiationResult:
         """Run one negotiation round over ``tokens`` with the member ranks
         ``procs`` (sorted).  Blocks until every member has published the
         same round (at most ``deadline_s``) and returns the deterministic
@@ -255,8 +278,25 @@ class Controller:
         ``NegotiationResult.aux`` (allgather row counts).  ``stalled`` says
         that some entry here has waited past the deadline for its peers:
         if the round still finds tensors missing, every member raises
-        :class:`DivergenceError` in this same round.
+        :class:`DivergenceError` in this same round.  ``params`` is this
+        rank's view of the tuned parameters; the round returns the lowest
+        active publisher's as ``NegotiationResult.params``.
         """
+        if not _metrics.ACTIVE:
+            return self._negotiate(tokens, procs, aux, stalled, params)
+        t0 = time.monotonic()
+        kind = "error"
+        try:
+            res = self._negotiate(tokens, procs, aux, stalled, params)
+            kind = ("joined" if res.all_joined
+                    else "fast" if res.fast else "full")
+            return res
+        finally:
+            _m_neg_rounds.inc(kind=kind)
+            _m_neg_dur.observe(time.monotonic() - t0, kind=kind)
+
+    def _negotiate(self, tokens, procs, aux, stalled, params
+                   ) -> NegotiationResult:
         me = self.rank
         if me not in procs:
             raise HorovodInternalError(
@@ -283,6 +323,8 @@ class Controller:
                 val["js"] = join_seq
             if aux:
                 val["x"] = aux
+            if params is not None:
+                val["p"] = params
             if stalled:
                 val["d"] = True
             if not cached or joined:
@@ -300,6 +342,8 @@ class Controller:
             joined_ps = sorted(q for q in vals if vals[q].get("j"))
             active = [q for q in procs if q not in joined_ps]
             aux_by_proc = {q: vals[q]["x"] for q in vals if "x" in vals[q]}
+            agreed = next((vals[q]["p"] for q in active if "p" in vals[q]),
+                          None)
             with self._lock:
                 self.rounds += 1
 
@@ -319,7 +363,7 @@ class Controller:
                     else:
                         self.full_rounds += 1
                 return NegotiationResult(counts=Counter(tokens), fast=fast,
-                                         aux=aux_by_proc)
+                                         aux=aux_by_proc, params=agreed)
 
             # mismatch (or join in progress): full request lists needed
             with self._lock:
@@ -341,6 +385,7 @@ class Controller:
 
             result = self._decide(gk, full, active, joined_ps, vals, me)
             result.aux = aux_by_proc
+            result.params = agreed
             return result
 
     # -- decision function (identical on every member) -----------------------
@@ -382,6 +427,9 @@ class Controller:
             full, active, counters, all_tokens)
         with self._lock:
             self.tokens_deferred += deferred
+        if self.stall is not None:
+            for name, lagging in missing.items():
+                self.stall.record_missing(name, lagging)
 
         stalled = sorted(q for q in active if vals.get(q, {}).get("d"))
         if missing and stalled:
@@ -428,12 +476,16 @@ class Controller:
         self.store.set(key, json.dumps(value, separators=(",", ":")))
         with self._lock:
             self.kv_sets += 1
+        if _metrics.ACTIVE:
+            _m_kv_ops.inc(op="set")
 
     def _check_left(self, seq: int, waiting_for: List[int]) -> None:
         """Raise if a rank we wait on has left: one counter read, and a
         marker check only when some rank has left."""
         with self._lock:
             self.kv_left_checks += 1
+        if _metrics.ACTIVE:
+            _m_kv_ops.inc(op="left_check")
         if self.store.add("left_n", 0) == 0:
             return
         for p in waiting_for:
@@ -476,10 +528,14 @@ class Controller:
         while True:
             with self._lock:
                 self.kv_checks += 1
+            if _metrics.ACTIVE:
+                _m_kv_ops.inc(op="check")
             if self.store.check(keys):
                 raw = self.store.multi_get(keys)
                 with self._lock:
                     self.kv_multi_gets += 1
+                if _metrics.ACTIVE:
+                    _m_kv_ops.inc(op="multi_get")
                 return {q: v.decode() for q, v in zip(need, raw)}
             if self._superseded_at is not None:
                 self._check_superseded(seq, [q for q, k in zip(need, keys)
@@ -496,13 +552,22 @@ class Controller:
                 warned = True
                 names = sorted({n for t in pending_tokens
                                 for n in token_names(t)})
+                # the ranks whose key is still missing, not every peer
+                late = [q for q, k in zip(need, keys)
+                        if not self.store.check([k])]
+                if self.stall is not None:
+                    for n in names:
+                        self.stall.record_missing(n, late)
                 logger.warning(
                     "Negotiation round %d has waited %.0fs for ranks %s to "
                     "announce their ready tensors. Pending here: %s.", seq,
-                    waited, need, names)
+                    waited, late, names)
             if waited > self.deadline_s:
                 names = sorted({n for t in pending_tokens
                                 for n in token_names(t)})
+                if _metrics.RECORDING:
+                    _metrics.event("stall.abort", where="negotiation",
+                                   seq=seq, waiting_for=need, tensors=names)
                 raise StallError(
                     f"negotiation round {seq} waited {waited:.0f}s for "
                     f"ranks {need} (> HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="
@@ -519,6 +584,8 @@ class Controller:
             self.store.delete_key(self._key(gk, f"{seq}/{phase}/{me}"))
             with self._lock:
                 self.kv_deletes += 1
+            if _metrics.ACTIVE:
+                _m_kv_ops.inc(op="delete")
 
     def cleanup_keys(self):
         """At shutdown, before the ranks meet: delete the round keys this

@@ -20,8 +20,28 @@ result on the host.  Inputs and outputs cross streams through
 ``record_stream``, so the caching allocator never hands their memory to
 another stream while the other one still uses it.
 
-Left out until ROADMAP.md A9: metrics, timeline, stall inspector and
-autotune hooks.
+The engine calls the timeline (``timeline.py``: a NEGOTIATE span from
+submission to the agreed dispatch set, then each bucket's activities),
+the stall inspector (``stall.py``: enqueue and completion of every entry,
+a check each cycle; its clock flags the negotiation rounds of overdue
+entries) and, under ``HOROVOD_AUTOTUNE``, the parameter manager
+(``autotune.py``: the fusion threshold, cycle time, response cache,
+hierarchical and quantized-wire switches read each cycle, scored by each
+cycle's bytes and seconds) at the JAX engine's hook points, and records
+the JAX engine's metric families under the same names and labels.  In a
+job of more than one rank the tuned parameters ride the global process
+set's negotiation rounds (keys ``t``, ``c``, ``ca``, ``hi``, ``cp``):
+every rank applies the point rank 0's tuner published, in the same cycle.
+
+A Sum or Average allreduce over a set with a hierarchy
+(``runtime.ProcessSet.hier_shape``) takes the hierarchical path under
+``HOROVOD_HIERARCHICAL_ALLREDUCE`` (or the tuned switch), with the
+quantized wire (``HOROVOD_COMPRESSION``) on its cross stage only unless
+``HOROVOD_COMPRESSION_DCN_ONLY=0``, and the straggler policy
+(``HOROVOD_TAIL_POLICY``) on that stage; an allgather of equal sizes takes
+the hierarchical path under ``HOROVOD_HIERARCHICAL_ALLGATHER``.
+
+Left out until ROADMAP.md A9's rest: tracing (the engine's spans).
 """
 
 from __future__ import annotations
@@ -37,6 +57,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from .. import metrics as _metrics
 from ..exceptions import HorovodInternalError, HorovodTpuError
 from ..runtime import ReduceOp
 from . import collectives
@@ -44,6 +65,38 @@ from .controller import NegotiationResult, entry_token, token_fields
 from .fusion import EntrySig, dtype_name, get_planner
 
 logger = logging.getLogger("horovod_tpu_torch")
+
+# -- metric families (the JAX engine's; sites guard on _metrics.ACTIVE) ------
+_m_cycles = _metrics.counter(
+    "hvd_engine_cycles_total", "Background cycles that drained entries")
+_m_cycle_dur = _metrics.histogram(
+    "hvd_cycle_duration_seconds",
+    "Wall time of one drain→negotiate→dispatch cycle", lo=-17, hi=6)
+_m_tensors = _metrics.counter(
+    "hvd_engine_tensors_total", "Tensor signatures processed")
+_m_bytes = _metrics.counter(
+    "hvd_engine_bytes_reduced_total", "Payload bytes through dispatches")
+_m_dispatch_tensors = _metrics.histogram(
+    "hvd_dispatch_tensors", "Tensors per fused dispatch",
+    labels=("op",), lo=0, hi=12)
+_m_dispatch_bytes = _metrics.histogram(
+    "hvd_dispatch_bytes", "Payload bytes per fused dispatch",
+    labels=("op",), lo=6, hi=31)
+_m_fusion_util = _metrics.histogram(
+    "hvd_fusion_utilization_ratio",
+    "Fused allreduce bucket bytes / fusion threshold", lo=-14, hi=1)
+_m_plan_cache = _metrics.counter(
+    "hvd_response_cache_total",
+    "Fusion-plan (response) cache lookups", labels=("result",))
+_m_wire_bytes = _metrics.counter(
+    "hvd_wire_bytes_total",
+    "Collective payload bytes at the wire format the fused dispatch "
+    "applied (quantized formats count 1-byte lanes + fp32 block scales)",
+    labels=("format",))
+_m_wire_ratio = _metrics.gauge(
+    "hvd_wire_compression_ratio",
+    "Raw payload bytes / wire bytes of the last quantized fused dispatch",
+    labels=("format",))
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,11 +117,12 @@ class TensorTableEntry:
     __slots__ = ("name", "op_type", "tensors", "process_set", "reduce_op",
                  "prescale", "postscale", "root_rank", "splits", "group_id",
                  "inplace", "handle", "enqueue_time", "ready", "peer_rows",
-                 "wire_format")
+                 "wire_format", "tail_policy")
 
     def __init__(self, name, op_type, tensors, process_set,
                  reduce_op=ReduceOp.AVERAGE, prescale=None, postscale=None,
-                 root_rank=0, splits=None, group_id=-1, inplace=False):
+                 root_rank=0, splits=None, group_id=-1, inplace=False,
+                 wire_format="none", tail_policy="strict"):
         self.name = name
         self.op_type = op_type
         self.tensors = list(tensors)
@@ -80,9 +134,13 @@ class TensorTableEntry:
         self.splits = splits
         self.group_id = group_id
         self.inplace = inplace
-        # the job's quantized wire format (HOROVOD_COMPRESSION), stamped at
-        # submission; it rides the signature, so buckets never mix formats
-        self.wire_format = "none"
+        # the job's requested quantized wire format (HOROVOD_COMPRESSION)
+        # and straggler policy (HOROVOD_TAIL_POLICY), stamped at
+        # submission; sigs() narrows them where they cannot apply.  They
+        # ride the signatures, so buckets never mix them and a rank that
+        # configured another value is a detected divergence
+        self.wire_format = wire_format
+        self.tail_policy = tail_policy
         self.handle: Optional[Handle] = None
         self.enqueue_time = 0.0
         self.ready = None             # CUDA event on the submitter's stream
@@ -90,9 +148,13 @@ class TensorTableEntry:
         # negotiation
         self.peer_rows: Optional[Dict[int, List[int]]] = None
 
-    # the JAX package's EntrySig fields that the port does not vary yet
-    # keep their defaults: stacked False, tail "strict", spec "replicated"
+    # the JAX package's EntrySig fields that the port does not vary keep
+    # their defaults: stacked False, spec "replicated"
     def sigs(self) -> List[EntrySig]:
+        from ..compression import quantizable
+        summable = (self.op_type == "allreduce"
+                    and self.reduce_op in (ReduceOp.SUM, ReduceOp.AVERAGE))
+        tail = self.tail_policy if summable else "strict"
         return [EntrySig(
             name=self.name if len(self.tensors) == 1 else f"{self.name}.{i}",
             op_type=self.op_type, reduce_op=self.reduce_op,
@@ -102,7 +164,9 @@ class TensorTableEntry:
             prescale=None if self.prescale is None else float(self.prescale),
             postscale=(None if self.postscale is None
                        else float(self.postscale)),
-            wire_format=self.wire_format)
+            wire_format=(self.wire_format if summable and quantizable(t.dtype)
+                         else "none"),
+            tail_policy=tail)
             for i, t in enumerate(self.tensors)]
 
 
@@ -156,12 +220,20 @@ class CollectiveEngine:
     """Background cycle loop draining the tensor queue into fused
     dispatches (reference: BackgroundThreadLoop + RunLoopOnce)."""
 
-    def __init__(self, cfg, device: torch.device, backend: str,
-                 controller=None):
+    def __init__(self, cfg, device: torch.device, backend: str, controller,
+                 timeline, stall_inspector, autotuner=None):
         self.cfg = cfg
         self.device = device
         self.backend = backend
         self._controller = controller
+        self.timeline = timeline
+        self.stall = stall_inspector
+        self.autotuner = autotuner
+        # the tuned parameters the last global round agreed (rank 0's
+        # tuner's point), applied by every rank; None before the first
+        self._negotiated_params: Optional[dict] = None
+        self._last_threshold = cfg.fusion_threshold_bytes
+        self._cycle_started: Optional[float] = None
         self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
                         else None)
         self._queue: List[TensorTableEntry] = []
@@ -194,6 +266,8 @@ class CollectiveEngine:
         self._thread.start()
 
     def stop(self):
+        if _metrics.RECORDING:
+            _metrics.event("engine.stop", cycles=self._cycle_count)
         if self._controller is not None:
             # tell peers mid-negotiation we are gone
             self._controller.leave()
@@ -255,7 +329,8 @@ class CollectiveEngine:
             # a grouped entry always resolves to a list, even of one
             e.handle = Handle(e.name, single=(len(e.tensors) == 1
                                               and e.group_id == -1))
-            e.wire_format = self._wire_format(e)
+            e.wire_format = self.cfg.compression
+            e.tail_policy = self.cfg.tail_policy
             e.enqueue_time, e.ready = now, ready
         handles = [e.handle for e in entries]
         if self._controller is not None and self._controller.joined:
@@ -264,6 +339,9 @@ class CollectiveEngine:
                     "collective submitted after join(); join() must be the "
                     "last collective of the epoch"))
             return handles[0] if single else handles
+        for e in entries:
+            self.timeline.negotiate_start(e.name, e.op_type)
+            self.stall.record_enqueue(e.name, e.enqueue_time)
         with self._cv:
             if self._stop:
                 for e in entries:
@@ -274,20 +352,86 @@ class CollectiveEngine:
                 self._cv.notify_all()
         return handles[0] if single else handles
 
-    def _wire_format(self, e: TensorTableEntry) -> str:
-        """The quantized wire format of an entry: HOROVOD_COMPRESSION for a
-        Sum or Average allreduce of float tensors when
-        HOROVOD_COMPRESSION_DCN_ONLY=0 (the JAX engine's rule on a flat
-        mesh, which has no cross-host stage to restrict it to), else
-        "none"."""
-        from ..compression import quantizable
-        fmt = getattr(self.cfg, "compression", "none")
-        if (fmt == "none" or getattr(self.cfg, "compression_dcn_only", True)
-                or e.op_type != "allreduce"
-                or e.reduce_op not in (ReduceOp.SUM, ReduceOp.AVERAGE)
-                or not all(quantizable(t.dtype) for t in e.tensors)):
+    # -- the tuned parameters -----------------------------------------------
+    def _negotiating(self) -> bool:
+        return self._controller is not None and self._controller.enabled
+
+    def _tuned(self, key: str, local, default):
+        """A tuned parameter: the round-agreed value in a job of more than
+        one rank (``default`` before the first round), the local tuner's
+        at one rank, ``default`` without a tuner."""
+        if self.autotuner is None:
+            return default
+        if self._negotiating():
+            if self._negotiated_params is not None:
+                return self._negotiated_params.get(key, default)
+            return default
+        return local()
+
+    def _cycle_time_s(self) -> float:
+        cfg_ms = max(self.cfg.cycle_time_ms, 0.0)
+        at = self.autotuner
+        return float(self._tuned(
+            "c", at and at.current_cycle_time_ms, cfg_ms)) / 1000.0
+
+    def _fusion_threshold(self) -> int:
+        at = self.autotuner
+        return int(self._tuned("t", at and at.current_fusion_threshold,
+                               self.cfg.fusion_threshold_bytes))
+
+    def _cache_enabled(self) -> bool:
+        at = self.autotuner
+        return bool(self._tuned("ca", at and at.current_cache_enabled,
+                                True))
+
+    def _hierarchical_enabled(self) -> bool:
+        at = self.autotuner
+        return bool(self._tuned("hi", at and at.current_hierarchical,
+                                self.cfg.hierarchical_allreduce))
+
+    def _compression_enabled(self) -> bool:
+        """Whether the tuned switch lets the configured quantized wire
+        format apply this cycle (the tuner may turn a lossy wire off, never
+        on)."""
+        if self.cfg.compression == "none":
+            return False
+        at = self.autotuner
+        return bool(self._tuned("cp", at and at.current_compression, True))
+
+    def _tuned_params(self) -> dict:
+        at = self.autotuner
+        return {"t": at.current_fusion_threshold(),
+                "c": at.current_cycle_time_ms(),
+                "ca": at.current_cache_enabled(),
+                "hi": at.current_hierarchical(),
+                "cp": at.current_compression()}
+
+    # -- the bucket's effective properties ------------------------------------
+    def _hier(self, ps) -> bool:
+        return ps.size() > 1 and self._hierarchical_enabled() \
+            and ps.hier_shape() is not None
+
+    def _bucket_wire_format(self, first: EntrySig, ps) -> str:
+        """The wire format one fused dispatch applies: the bucket's
+        negotiated format, gated by the tuned switch, by a set of one rank
+        (nothing sent) and, under HOROVOD_COMPRESSION_DCN_ONLY, by the
+        hierarchical path (a flat set has no cross stage to restrict it
+        to)."""
+        fmt = first.wire_format
+        if fmt == "none" or not self._compression_enabled() \
+                or ps.size() <= 1:
+            return "none"
+        if self.cfg.compression_dcn_only and not self._hier(ps):
             return "none"
         return fmt
+
+    def _bucket_tail_policy(self, first: EntrySig, ps) -> str:
+        """The straggler policy of one fused dispatch: the bucket's
+        negotiated policy on the hierarchical path, which has the cross
+        stage it applies to; strict elsewhere."""
+        if first.tail_policy == "strict" or not self._hier(ps):
+            return "strict"
+        return first.tail_policy
 
     # -- the loop -----------------------------------------------------------
     def _loop(self):
@@ -299,7 +443,10 @@ class CollectiveEngine:
                     self._cv.wait(timeout=0.1)
                 if self._stop:
                     return
-            cycle_s = max(self.cfg.cycle_time_ms, 0.0) / 1000.0
+            # the cycle clock starts before the batching window, so the
+            # tuner's score pays for the window it tunes
+            self._cycle_started = time.monotonic()
+            cycle_s = self._cycle_time_s()
             if cycle_s > 0:
                 time.sleep(cycle_s)   # let the cycle window fill
             try:
@@ -315,7 +462,10 @@ class CollectiveEngine:
             entries, self._queue = self._queue, []
             self._cycle_active = bool(entries)
         if not entries:
+            self.stall.check()
             return
+        t_cycle = (self._cycle_started if self._cycle_started is not None
+                   else time.monotonic())
         try:
             self._run_cycle(entries)
         except Exception as exc:  # noqa: BLE001
@@ -324,20 +474,30 @@ class CollectiveEngine:
                 queued = {id(q) for q in self._queue}
             for e in entries:
                 if id(e) not in queued and not e.handle._event.is_set():
+                    # a failed entry is no longer pending
+                    self.stall.record_complete(e.name)
                     e.handle._fail(exc)
+            if _metrics.RECORDING:
+                _metrics.event("engine.fatal", cycle=self._cycle_count,
+                               error=str(exc))
             raise
         finally:
+            if _metrics.ACTIVE:
+                _m_cycles.inc()
+                _m_cycle_dur.observe(time.monotonic() - t_cycle)
             with self._cv:
                 self._cycle_active = False
                 self._cv.notify_all()
 
     def _run_cycle(self, entries: List[TensorTableEntry]):
         self._cycle_count += 1
+        self.timeline.cycle_mark(self._cycle_count)
         if self._controller is not None and self._controller.enabled:
             with self._lock:
                 gen0 = self._submit_gen
             entries = self._negotiate(entries)
             if not entries:
+                self.stall.check()
                 # nothing common this round: pace the retry, but wake at
                 # once on a new submission
                 with self._cv:
@@ -364,6 +524,7 @@ class CollectiveEngine:
             else:
                 groups.setdefault(procs, []).append(e)
         now = time.monotonic()
+        world = tuple(range(ctl.world))
         for procs in sorted(groups):
             grp = groups[procs]
             tokens = [entry_token(e) for e in grp]
@@ -376,10 +537,20 @@ class CollectiveEngine:
                     k = occ[t] = occ.get(t, -1) + 1
                     for i, x in enumerate(e.tensors):
                         rows[_row_key(t, k, i)] = int(x.shape[0])
-            stalled = any(now - e.enqueue_time > ctl.deadline_s for e in grp)
+            # the stall inspector's clock decides which entries are overdue
+            stalled = any(self.stall.overdue(e.name, ctl.deadline_s, now)
+                          for e in grp)
+            # the tuned parameters ride the global group's round: only the
+            # leader (rank 0) publishes, every member applies the agreed
+            # point in this cycle
+            params = (self._tuned_params()
+                      if self.autotuner is not None and procs == world
+                      and ctl.rank == procs[0] else None)
             res = ctl.negotiate(tokens, procs,
                                 aux={"rw": rows} if rows else None,
-                                stalled=stalled)
+                                stalled=stalled, params=params)
+            if res.params is not None:
+                self._negotiated_params = res.params
             if rows:
                 self._agree_rows(grp, tokens, procs, res)
             counts = dict(res.counts)
@@ -445,10 +616,17 @@ class CollectiveEngine:
             op_type=op_type, tensors=tensors, process_set=ps,
             reduce_op=sigs[0][2], prescale=sigs[0][8], postscale=sigs[0][9],
             root_rank=fields["r"], splits=fields["sp"],
-            group_id=self.next_group_id() if len(sigs) > 1 else -1)
+            group_id=self.next_group_id() if len(sigs) > 1 else -1,
+            # the peers' negotiated wire format and tail policy (token
+            # fields 10 and 11)
+            wire_format=next((s[10] for s in sigs if s[10] != "none"),
+                             "none"),
+            tail_policy=next((s[11] for s in sigs if s[11] != "strict"),
+                             "strict"))
         entry.handle = Handle(entry.name, single=len(tensors) == 1
                               and entry.group_id == -1)
         entry.enqueue_time = time.monotonic()
+        self.timeline.negotiate_start(entry.name, op_type)
         return entry
 
     def join(self) -> int:
@@ -491,10 +669,27 @@ class CollectiveEngine:
             for s in e.sigs():
                 sigs.append(s)
                 owner.append(idx)
-        plan = self._cache.get(sigs)
+            # the negotiation span closes when the entry makes the cycle's
+            # agreed dispatch set
+            self.timeline.negotiate_end(e.name)
+        use_cache = self._cache_enabled()
+        threshold = self._fusion_threshold()
+        if threshold != self._last_threshold:
+            # cached plans were built at the previous threshold
+            self._cache.clear()
+            self._last_threshold = threshold
+        plan = self._cache.get(sigs) if use_cache else None
+        if _metrics.ACTIVE and use_cache:
+            _m_plan_cache.inc(result="hit" if plan is not None else "miss")
         if plan is None:
-            plan = self._plan_fn(sigs, self.cfg.fusion_threshold_bytes)
-            self._cache.put(sigs, plan)
+            plan = self._plan_fn(sigs, threshold)
+            if use_cache:
+                self._cache.put(sigs, plan)
+        # the tuner's clock: from the cycle's start, batching window
+        # included, when the background loop set it
+        t_tune, self._cycle_started = (
+            self._cycle_started if self._cycle_started is not None
+            else time.monotonic()), None
 
         results: dict = {}
         done = None
@@ -512,6 +707,7 @@ class CollectiveEngine:
         else:
             self._dispatch_all(entries, sigs, owner, base, plan, results)
 
+        failed = False
         for idx, e in enumerate(entries):
             outs, exc = [], None
             for si in range(base[idx], base[idx] + len(e.tensors)):
@@ -520,15 +716,30 @@ class CollectiveEngine:
                     exc = r
                 else:
                     outs.append(r)
+            self.stall.record_complete(e.name)
+            self.timeline.end(e.name)
             if exc is not None:
+                failed = True
                 e.handle._fail(exc)
             else:
                 e.handle._resolve(outs, done)
+        nbytes = sum(s.nbytes for s in sigs)
         with self._lock:
             self._tensors += len(sigs)
             self._buckets += len(plan)
-            self._bytes += sum(s.nbytes for s in sigs)
+            self._bytes += nbytes
             self._dispatch_s += time.perf_counter() - t0
+        if not failed:
+            if _metrics.ACTIVE:
+                _m_bytes.inc(nbytes)
+                _m_tensors.inc(len(sigs))
+            # in a job of more than one rank only the leader's tuner
+            # learns: the others run the agreed point, not their own
+            if self.autotuner is not None and (
+                    not self._negotiating() or self._controller.rank == 0):
+                self.autotuner.record_cycle(nbytes,
+                                            time.monotonic() - t_tune)
+        self.stall.check()
 
     def _dispatch_all(self, entries, sigs, owner, base, plan, results):
         for bucket in plan:
@@ -550,33 +761,89 @@ class CollectiveEngine:
             self._marks.append((phase, ev))
         return mark
 
+    def _account(self, first: EntrySig, bucket, sigs, ps, eff: str,
+                 hier: bool) -> None:
+        """The dispatch metric families of one bucket; wire bytes at the
+        format each stage applies (on the hierarchical path only the
+        cross stage's 1/local_size of the payload is quantized)."""
+        op_type = first.op_type
+        nbytes = sum(sigs[si].nbytes for si in bucket)
+        _m_dispatch_tensors.observe(len(bucket), op=op_type)
+        _m_dispatch_bytes.observe(nbytes, op=op_type)
+        if op_type == "allreduce" and self._last_threshold > 0:
+            _m_fusion_util.observe(nbytes / self._last_threshold)
+        if eff == "none":
+            _m_wire_bytes.inc(nbytes, format=first.dtype)
+            return
+        from ..compression import resolve_wire_format
+        wfmt = resolve_wire_format(eff, self.cfg.compression_block_size)
+        total = sum(sigs[si].numel for si in bucket)
+        q_numel = -(-total // ps.hier_shape()[1]) if hier else total
+        wire = wfmt.wire_nbytes(q_numel)
+        raw_q = (q_numel * nbytes) // max(total, 1)
+        _m_wire_bytes.inc(wire, format=eff)
+        if nbytes > raw_q:
+            _m_wire_bytes.inc(nbytes - raw_q, format=first.dtype)
+        _m_wire_ratio.set(raw_q / max(wire, 1), format=eff)
+
     def _dispatch_bucket(self, entries, sigs, owner, base, bucket, results):
         first = sigs[bucket[0]]
         op_type = first.op_type
         e0 = entries[owner[bucket[0]]]
         ps = e0.process_set
+        # the bucket's effective properties, resolved once for the
+        # dispatch, the metrics and the timeline
+        summable = op_type == "allreduce" and first.reduce_op in (
+            ReduceOp.SUM, ReduceOp.AVERAGE)
+        hier = summable and self._hier(ps)
+        eff = self._bucket_wire_format(first, ps) if summable else "none"
+        tail = self._bucket_tail_policy(first, ps) if summable else "strict"
+        if _metrics.ACTIVE:
+            self._account(first, bucket, sigs, ps, eff, hier)
+        names = [sigs[si].name for si in bucket]
+        self.timeline.activity_start(names, "MEMCPY_IN_FUSION_BUFFER")
+        self.timeline.activity_transition(
+            names, op_type.upper(), args={"wire_format": eff,
+                                          "tail_policy": tail,
+                                          "hierarchical": hier})
+        self._dispatch_inner(entries, sigs, owner, base, bucket, results,
+                             ps, e0, eff, hier, tail)
+        self.timeline.activity_end(names)
+
+    def _dispatch_inner(self, entries, sigs, owner, base, bucket, results,
+                        ps, e0, eff, hier, tail):
+        first = sigs[bucket[0]]
+        op_type = first.op_type
 
         def tensor(si):
             return entries[owner[si]].tensors[si - base[owner[si]]]
 
         if op_type == "allreduce":
             wire = None
-            if first.wire_format != "none" and ps.size() > 1:
+            if eff != "none":
                 from ..compression import resolve_wire_format
-                wire = resolve_wire_format(first.wire_format,
+                wire = resolve_wire_format(eff,
                                            self.cfg.compression_block_size)
             outs = collectives.allreduce_arrays(
                 [tensor(si) for si in bucket], ps, op=first.reduce_op,
                 prescale_factor=e0.prescale, postscale_factor=e0.postscale,
-                inplace=e0.inplace, mark=self._mark(op_type), wire=wire)
+                inplace=e0.inplace, mark=self._mark(op_type), wire=wire,
+                hierarchical=hier, tail_policy=tail,
+                tail_names=tuple(sigs[si].name for si in bucket))
             results.update(zip(bucket, outs))
             return
+        hier_ag = (op_type == "allgather" and ps.size() > 1
+                   and self.cfg.hierarchical_allgather
+                   and ps.hier_shape() is not None)
         for si in bucket:
             e = entries[owner[si]]
             x = tensor(si)
             if op_type == "allgather":
                 rows = (e.peer_rows or {}).get(si - base[owner[si]])
-                results[si] = collectives.allgather_array(x, ps, rows)
+                if hier_ag and (rows is None or len(set(rows)) == 1):
+                    results[si] = collectives.hierarchical_allgather(x, ps)
+                else:
+                    results[si] = collectives.allgather_array(x, ps, rows)
             elif op_type == "broadcast":
                 results[si] = collectives.broadcast_array(
                     x, e.root_rank, ps, inplace=e.inplace)
@@ -612,9 +879,25 @@ class CollectiveEngine:
             out = {"cycles": self._cycle_count, "tensors": self._tensors,
                    "buckets": self._buckets, "bytes": self._bytes,
                    "dispatch_ms": 1e3 * self._dispatch_s,
-                   "cache": self._cache.stats()}
+                   "cache": self._cache.stats(),
+                   "metrics": _metrics.snapshot()}
         if self._controller is not None:
             out["negotiation"] = self._controller.stats()
+        if not self.stall.disabled:
+            # which peer is chronically late, in seconds of arrival lag
+            out["stall"] = {
+                "straggler_scores": self.stall.straggler_scores(),
+                "warnings_issued": self.stall.warnings_issued}
+        if self.autotuner is not None:
+            out["autotune"] = {
+                "fusion_threshold_bytes": self._fusion_threshold(),
+                "cycle_time_ms": self._cycle_time_s() * 1000.0,
+                "cache_enabled": self._cache_enabled(),
+                "hierarchical": self._hierarchical_enabled(),
+                "compression": self._compression_enabled(),
+                "tuned": self.autotuner.tuned,
+                "retunes": self.autotuner.retunes,
+                "negotiated": self._negotiated_params is not None}
         # the serving summary, present only while a ServingPlane or
         # ServingWorker lives in this process (the serving package is
         # import-light: it loads its submodules lazily)

@@ -35,9 +35,17 @@ options:
 
 :func:`DistributedOptimizer` wraps a ``torch.optim`` optimizer the
 reference's way (per-parameter hooks, ``synchronize()``, ``step()``); its
-buckets come from the transform's plan.  Adasum, the tail policies and the
-hierarchical reduction are ROADMAP.md A5; ``param_specs`` A6; recovery A8;
-health taps A9.
+buckets come from the transform's plan.
+
+``op=Adasum`` combines the whole gradient vector at once, the leaves in
+``(dtype, index)`` order (JAX ``fused_reduce_tree``'s Adasum branch), not
+one bucket at a time: per-bucket Adasum is another function.  Under
+``HOROVOD_HIERARCHICAL_ALLREDUCE``, on a process set with a hierarchy,
+each full-width bucket of :func:`fused_reduce_tree` is reduced in three
+stages with ``HOROVOD_TAIL_POLICY`` on the cross stage and its own stale
+state (``ops/collectives.hierarchical_allreduce``; JAX
+``fused_tail_reduce_tree``).  ``param_specs`` is ROADMAP.md A6; recovery
+A8; health taps A9.
 """
 
 from __future__ import annotations
@@ -180,7 +188,62 @@ def _check_wire(fmt, compression, op):
     if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
         raise ValueError(
             f"wire_format quantization supports op=Average/Sum, got "
-            f"{op!r}: min/max are not a quantize-accumulate staging")
+            f"{op!r}: Adasum operates on exact local gradients and "
+            f"min/max are not expressible as a quantize-accumulate "
+            f"staging")
+
+
+def _check_adasum(fmt, compression):
+    """JAX ``fused_reduce_tree``'s refusals of Adasum's wire."""
+    if fmt is not None:
+        raise ValueError(
+            "wire_format quantization is not supported with "
+            "op=Adasum: the recursive pairwise dot products operate "
+            "on the exact local gradients and are not expressible as "
+            "a quantize-exchange-accumulate staging — use "
+            "op=Average/Sum with a wire format, or Adasum full-width")
+    if compression not in (None, Compression.none):
+        raise ValueError(
+            "compression is not supported with op=Adasum: the "
+            "recursive pairwise dot products operate on the exact "
+            "local gradients, and silently skipping the compressor "
+            "would diverge from the psum path's wire format — use "
+            "op=Average/Sum with compression, or Adasum uncompressed")
+
+
+@torch.no_grad()
+def _adasum_tree_(leaves, ps, prescale_factor, postscale_factor) -> None:
+    """In place: the Adasum of the whole gradient vector, the leaves in
+    ``(dtype, index)`` order, concatenated (promoted to a common dtype),
+    combined over ``ps`` and written back (JAX ``fused_reduce_tree``'s
+    Adasum branch)."""
+    from ..ops.adasum import adasum_flat
+    dorder = sorted(range(len(leaves)),
+                    key=lambda i: (dtype_name(leaves[i].dtype), i))
+    flat = torch.cat([leaves[i].reshape(-1) for i in dorder])
+    if prescale_factor != 1.0:
+        flat = flat * prescale_factor
+    red = adasum_flat(flat, ps)
+    if postscale_factor != 1.0:
+        red = red * postscale_factor
+    off = 0
+    for i in dorder:
+        sz = leaves[i].numel()
+        leaves[i].copy_(red[off:off + sz].view(leaves[i].shape))
+        off += sz
+
+
+def _hier_tail(ps, op, compression) -> Optional[str]:
+    """The tail policy of the hierarchical bucket reduce, or None for the
+    flat one: HOROVOD_HIERARCHICAL_ALLREDUCE on a set with a hierarchy,
+    for a Sum or Average without the cast compressor."""
+    cfg = _config()
+    if (cfg is None or not cfg.hierarchical_allreduce or ps.size() <= 1
+            or ps.hier_shape() is None
+            or op not in (ReduceOp.SUM, ReduceOp.AVERAGE)
+            or compression not in (None, Compression.none)):
+        return None
+    return cfg.tail_policy
 
 
 def _residual_leaves(residual, leaves):
@@ -216,15 +279,21 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
     ``residual`` is the grads-shaped fp32 tree of this rank's carried
     error (None = zeros) and the return becomes ``(grads,
     new_residual)``; buckets of other dtypes carry their residual
-    unchanged.
+    unchanged.  ``op=Adasum`` combines the whole vector, refusing a wire
+    format or a compressor; the full-width buckets of a Sum or Average
+    take the hierarchical path under HOROVOD_HIERARCHICAL_ALLREDUCE.
     """
     fmt = resolve_wire_format(wire_format)
     leaves, names, order = _tree_leaves_sorted(grads)
     if not leaves:
         return grads if fmt is None else (grads, residual)
-    api._resolve_op(None, op)          # Adasum raises, naming its item
-    _check_wire(fmt, compression, op)
     ps = api._ps(process_set)
+    if op == ReduceOp.ADASUM:
+        _check_adasum(fmt, compression)
+        _adasum_tree_(leaves, ps, prescale_factor, postscale_factor)
+        return grads
+    _check_wire(fmt, compression, op)
+    tail = _hier_tail(ps, op, compression)
     buckets, sigs = _plan_buckets(leaves, names, op, prescale_factor,
                                   postscale_factor,
                                   _resolve_threshold(threshold_bytes),
@@ -246,6 +315,16 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
             for i, piece in zip(bucket, nres.split(
                     [leaves[i].numel() for i in bucket])):
                 res[i] = piece.view(leaves[i].shape)
+        elif tail is not None:
+            buf = _bucket_flat(parts, numel)
+            if prescale_factor != 1.0:
+                collectives._scale_(buf, prescale_factor)
+            red = collectives.hierarchical_allreduce(
+                buf, ps, op, tail_policy=tail,
+                tail_names=tuple(names[i] for i in bucket))
+            if postscale_factor != 1.0:
+                collectives._scale_(red, postscale_factor)
+            _split_into(red, parts)
         else:
             buf = _bucket_flat(parts, numel)
             _allreduce_flat_(buf, ps, op, prescale_factor, postscale_factor,
@@ -314,7 +393,8 @@ def fused_reduce_scatter_tree(grads, process_set=None,
     if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
         raise ValueError(
             f"fused_reduce_scatter_tree supports op=Average/Sum, got "
-            f"{op!r}: Adasum and min/max are not a reduce-scatter of tiles")
+            f"{op!r}: Adasum and min/max reductions are not expressible "
+            f"as a reduce-scatter of bucket tiles")
     fmt = resolve_wire_format(wire_format)
     _check_wire(fmt, compression, op)
     ps = api._ps(process_set)
@@ -525,7 +605,6 @@ def DistributedGradientTransform(
         raise ValueError(
             "DistributedGradientTransform needs the inner optimizer's "
             "factory (called with the tensors it updates)")
-    api._resolve_op(None, op)          # Adasum raises, naming its item
     k = int(backward_passes_per_step)
     if k < 1:
         raise ValueError(f"backward_passes_per_step must be >= 1, got {k}")
@@ -546,8 +625,9 @@ def DistributedGradientTransform(
     if ov:
         if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
             raise ValueError(
-                f"overlap supports op=Average/Sum, got {op!r}: the "
-                f"reduction must split into per-layer buckets")
+                f"overlap supports op=Average/Sum, got {op!r}: Adasum's "
+                f"recursive pairwise reduction needs every gradient at "
+                f"once and cannot dispatch per-layer")
         if compression not in (None, Compression.none):
             raise ValueError(
                 "overlap does not support the cast compressor: use "
@@ -740,7 +820,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if gradient_predivide_factor != 1.0 and op != Average:
             raise ValueError(
                 "gradient_predivide_factor requires op == Average")
-        api._resolve_op(None, op)   # Adasum raises, naming its item
         self._bpps = int(backward_passes_per_step)
         self._should_synchronize = True
         named = list(named_parameters) if named_parameters is not None \

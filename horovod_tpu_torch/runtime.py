@@ -28,6 +28,16 @@ through gloo, which is how two ranks can share one card (NCCL refuses two
 ranks on one device).  Every collective of every set goes through the
 background engine (``ops/engine.py``), so the ranks issue them in one
 negotiated order.
+
+A process set whose ranks group by host (``HOROVOD_LOCAL_*`` and
+``HOROVOD_CROSS_*``: two or more hosts of equal size, ranks numbered host
+by host) has a hierarchy (:meth:`ProcessSet.hier_shape`): a group per
+host of its local ranks and a cross group per local rank, made at the
+set's registration, which the hierarchical allreduce and allgather run
+over (``ops/collectives.py``).  ``init`` also builds the timeline
+(``HOROVOD_TIMELINE``), the stall inspector and, under
+``HOROVOD_AUTOTUNE``, the parameter manager, and starts the metrics'
+exposition (``metrics.init_from_env``).
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ import logging
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -79,12 +89,31 @@ Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
 
 
+class SubGroup:
+    """One stage's group of a hierarchical collective: the ranks of one
+    host (local) or of one local rank on every host (cross).  It answers
+    what the collectives ask of a process set (``group``, ``ranks``,
+    ``size()``, ``rank()``)."""
+
+    def __init__(self, ranks: Sequence[int], group):
+        self.ranks = list(ranks)
+        self.group = group
+
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def rank(self) -> int:
+        return self.ranks.index(_state().rank)
+
+
 class ProcessSet:
     """A subset of ranks with its own process group.
 
     ``ranks`` are global ranks into ``hvd.size()``.  Every rank of the
     world registers every set (``torch.distributed.new_group`` is
-    collective over the world), in the same order.
+    collective over the world), in the same order.  ``_hier_shape``, when
+    a test sets it, forces the hierarchy's ``(cross, local)`` shape over
+    the set's ranks in order.
     """
 
     def __init__(self, ranks: Optional[Sequence[int]] = None):
@@ -92,6 +121,10 @@ class ProcessSet:
             sorted(int(r) for r in ranks) if ranks is not None else None)
         self.process_set_id: Optional[int] = None
         self.group = None   # the torch ProcessGroup (None if excluded)
+        self._hier_shape: Optional[Tuple[int, int]] = None
+        # shape -> (this rank's local SubGroup, its cross SubGroup)
+        self._hier_groups: Dict[Tuple[int, int], Tuple] = {}
+        self._hier_detected: Optional[Tuple[int, int]] = None
 
     def initialized(self) -> bool:
         return self.process_set_id is not None
@@ -110,12 +143,78 @@ class ProcessSet:
         me = _state().rank
         return self.ranks.index(me) if me in self.ranks else -1
 
+    def hier_shape(self) -> Optional[Tuple[int, int]]:
+        """``(cross_size, local_size)`` of the set's hierarchy, or None
+        (reference: ``ProcessSet.hier_shape``): None unless the set's
+        ranks fall on two or more hosts of equal size, numbered host by
+        host."""
+        if self._hier_shape is not None:
+            return self._hier_shape
+        self._check()
+        return self._hier_detected
+
+    def hier_groups(self):
+        """This rank's ``(local, cross)`` :class:`SubGroup` pair of the
+        hierarchy.  Groups of a shape the test hook forced are made at
+        first use, which every member reaches in the same negotiated
+        dispatch."""
+        shape = self.hier_shape()
+        if shape is None:
+            raise ValueError(f"{self} has no hierarchy")
+        if shape not in self._hier_groups:
+            self._hier_groups[shape] = _make_hier_groups(self.ranks, shape)
+        return self._hier_groups[shape]
+
     def _check(self):
         if not self.initialized():
             raise NotInitializedError("ProcessSet")
 
     def __repr__(self):
         return f"ProcessSet(id={self.process_set_id}, ranks={self.ranks})"
+
+
+def _detect_hier(ranks: Sequence[int], hosts: Optional[Sequence[int]]
+                 ) -> Optional[Tuple[int, int]]:
+    """``(n_hosts, per_host)`` when ``ranks`` (sorted) run host by host
+    through two or more hosts of equal size; ``hosts[r]`` is rank ``r``'s
+    host (its cross rank), None when the launcher gave no hierarchy."""
+    if hosts is None or not ranks:
+        return None
+    runs: List[int] = []
+    seen = set()
+    prev = None
+    for r in ranks:
+        h = hosts[r]
+        if h != prev:
+            if h in seen:
+                return None   # a host's ranks are not contiguous
+            seen.add(h)
+            runs.append(0)
+            prev = h
+        runs[-1] += 1
+    if len(runs) < 2 or len(set(runs)) != 1:
+        return None
+    return len(runs), runs[0]
+
+
+def _make_hier_groups(ranks: Sequence[int], shape: Tuple[int, int]):
+    """Every local and cross group of ``ranks`` under ``shape``, made by
+    every rank in the same order (``torch.distributed.new_group`` is
+    collective over the world); returns this rank's pair."""
+    n_cross, n_local = shape
+    me = _state().rank
+    local = cross = None
+    for g in range(n_cross):
+        members = list(ranks[g * n_local:(g + 1) * n_local])
+        group = dist.new_group(members)
+        if me in members:
+            local = SubGroup(members, group)
+    for i in range(n_local):
+        members = list(ranks[i::n_local])
+        group = dist.new_group(members)
+        if me in members:
+            cross = SubGroup(members, group)
+    return local, cross
 
 
 class ProcessSetTable:
@@ -143,11 +242,16 @@ class ProcessSetTable:
         # created by every rank of the world
         group = (dist.group.WORLD if ps.ranks is None
                  else dist.new_group(ranks))
+        hier = _detect_hier(ranks, _state().hosts)
         with self._lock:
             ps.ranks = ranks
             ps.process_set_id = set_id
             ps.group = group if _state().rank in ranks else None
+            ps._hier_detected = hier
+            ps._hier_groups = {}
             self._table[set_id] = ps
+        if hier is not None:
+            ps.hier_groups()
         return set_id
 
     def remove(self, set_id: int):
@@ -159,7 +263,12 @@ class ProcessSetTable:
             ps = self._table.pop(set_id)
         if ps.group is not None:
             dist.destroy_process_group(ps.group)
+        for pair in ps._hier_groups.values():
+            for sub in pair:
+                if sub is not None:
+                    dist.destroy_process_group(sub.group)
         ps.process_set_id, ps.group = None, None
+        ps._hier_groups = {}
 
     def get(self, set_id: int) -> ProcessSet:
         with self._lock:
@@ -173,6 +282,13 @@ class ProcessSetTable:
         with self._lock:
             for ps in self._table.values():
                 ps.process_set_id, ps.group = None, None
+                # a caller may still hold a SubGroup: none may keep a
+                # group, and with it rank 0's store, alive past shutdown
+                for pair in ps._hier_groups.values():
+                    for sub in pair:
+                        if sub is not None:
+                            sub.group = None
+                ps._hier_groups = {}
             self._table.clear()
             self._next_id = 0
 
@@ -194,9 +310,15 @@ class _RuntimeState:
         self.store = None
         self.namespace = ""
         self.epoch: Optional[int] = None   # the elastic driver's epoch
+        # each rank's host (cross rank), when the launcher's local and
+        # cross sizes factor the world; None without a hierarchy
+        self.hosts: Optional[List[int]] = None
         self.process_set_table = ProcessSetTable()
         self.global_process_set: Optional[ProcessSet] = None
         self.engine = None          # ops.engine.CollectiveEngine
+        self.timeline = None        # timeline.Timeline
+        self.stall_inspector = None  # stall.StallInspector
+        self.autotuner = None       # autotune.ParameterManager
         self._init_lock = threading.Lock()
 
 
@@ -312,20 +434,30 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
         # generations counted in lockstep
         st.namespace = (f"e{epoch}" if epoch is not None
                         else f"g{_INIT_GENERATION}")
+        st.hosts = _gather_hosts(st)
         st.process_set_table.clear()
         st.global_process_set = ProcessSet(None)
         st.process_set_table.register(st.global_process_set, size)
         for ps in process_sets or ():
             st.process_set_table.register(ps, size)
+        from .ops import collectives
+        collectives.reset_tail_state()
 
+        from . import metrics
+        metrics.init_from_env()
+        if metrics.RECORDING:
+            metrics.event("runtime.init", rank=rank, size=size)
+        _make_tools(st, cfg)
         from .ops.controller import Controller
         from .ops.engine import CollectiveEngine
         controller = Controller(
             cfg, dist.PrefixStore(f"hvdctl/{st.namespace}", store), rank,
-            size, deadline_s=timeout_s(cfg))
+            size, deadline_s=timeout_s(cfg), stall=st.stall_inspector)
         controller.superseded_grace_s = _env_seconds(
             "HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT", 10.0)
-        st.engine = CollectiveEngine(cfg, dev, backend, controller)
+        st.engine = CollectiveEngine(
+            cfg, dev, backend, controller, timeline=st.timeline,
+            stall_inspector=st.stall_inspector, autotuner=st.autotuner)
         st.engine.start()
         st.initialized = True
         if not _ATEXIT_REGISTERED:
@@ -339,6 +471,47 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
         logger.info("horovod_tpu_torch initialized: rank %d of %d on %s "
                     "over %s%s", rank, size, dev, backend,
                     "" if epoch is None else f", elastic epoch {epoch}")
+
+
+def _gather_hosts(st: _RuntimeState) -> Optional[List[int]]:
+    """Every rank's host (cross rank) when the launcher's local and cross
+    sizes factor the world into two or more hosts; else None.  The ranks
+    exchange their (local, cross) ranks once, so every rank sees the same
+    layout and makes the same groups."""
+    if not (st.size > 1 and st.cross_size >= 2
+            and st.local_size * st.cross_size == st.size):
+        return None
+    pairs: List = [None] * st.size
+    dist.all_gather_object(pairs, (st.local_rank, st.cross_rank))
+    return [int(c) for _, c in pairs]
+
+
+def _make_tools(st: _RuntimeState, cfg: Config) -> None:
+    """The timeline, the stall inspector (its straggler scores wired to
+    the elastic driver's blacklist) and, under HOROVOD_AUTOTUNE, the
+    parameter manager (reference: ``runtime.py``'s observability
+    subsystems)."""
+    from .stall import StallInspector
+    from .timeline import Timeline
+    st.timeline = Timeline(cfg.timeline_path,
+                           mark_cycles=cfg.timeline_mark_cycles)
+
+    def report_straggler(process, score):
+        # a no-op outside the elastic driver (no endpoint exported)
+        from .elastic import worker
+        worker.report_straggler(process, score)
+
+    st.stall_inspector = StallInspector(
+        check_time=cfg.stall_check_time, disabled=cfg.stall_check_disable,
+        blacklist_score=cfg.tail_blacklist_score,
+        on_straggler=report_straggler)
+    st.autotuner = None
+    if cfg.autotune:
+        from .autotune import ParameterManager
+        # without a hierarchy the tuner's hierarchical switch is inert
+        st.autotuner = ParameterManager(
+            cfg, hier_available=st.global_process_set.hier_shape()
+            is not None)
 
 
 def _topology(cfg: Config, device: DeviceLike):
@@ -465,8 +638,14 @@ def shutdown():
         client = (st.store if st.size > 1 and st.rank != 0 and not elastic
                   else None)
         try:
+            from . import metrics
+            if metrics.RECORDING:
+                metrics.event("runtime.shutdown")
+            metrics.stop_exposition()
             if st.engine is not None:
                 st.engine.stop()
+            if st.timeline is not None:
+                st.timeline.close()
             if elastic:
                 # the sets hold the groups: with them gone, destroying
                 # closes the sockets, and a peer blocked in a collective
@@ -487,6 +666,8 @@ def shutdown():
             st.engine = None
             st.store = None
             st.epoch = None
+            st.hosts = None
+            st.autotuner = None
             st.global_process_set = None
             st.process_set_table.clear()
             if client is not None:
@@ -527,6 +708,17 @@ def _await_server_close(client, limit_s: float) -> None:
 def is_initialized() -> bool:
     """Reference: hvd.is_initialized()."""
     return _STATE.initialized
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False):
+    """Write the timeline to ``file_path`` from now on (reference:
+    hvd.start_timeline); an open timeline closes first."""
+    _require_init().timeline.reopen(file_path, mark_cycles=mark_cycles)
+
+
+def stop_timeline():
+    """Close the timeline's file (reference: hvd.stop_timeline)."""
+    _require_init().timeline.close()
 
 
 # --- topology accessors (reference: horovod/common/basics.py) ---------------

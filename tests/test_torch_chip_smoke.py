@@ -327,6 +327,127 @@ def test_a5_dp2_gates_pass_and_fail():
         assert any(what in b for b in bad), (what, bad)
 
 
+# -- train_hier_dp4 and train_dp_tools --------------------------------------
+
+def _hier_step(name, step, **over):
+    late = name in chip_smoke.HIER_LATE and step == 1
+    hier = name != "flat"
+    rec = {"loss": 10.89 if step == 0 else 6.93, "ms": 1.0,
+           "launches": dict(chip_smoke.EXPECTED_DP2_LAUNCHES),
+           "buckets": 13, "tail_rounds_counted": 13 if hier else 0,
+           "rounds": [{"excluded": [1] if late else [], "wait_s": 0.05,
+                       "seconds": 0.06}] * (13 if hier else 0),
+           "identical": True, "update_norms": {"embed": (1.0, 1.0)},
+           "update_cos": {"embed": 0.999}}
+    if step == 0 and name in chip_smoke.HIER_LATE:
+        rec["equals_hier_step1"] = True
+    rec.update(over)
+    return rec
+
+
+def _hier_res(**over):
+    """A train_hier_dp4 result that passes; ``over`` maps a variant to
+    {step index: fields} (or "scores" to its straggler scores)."""
+    res = {"eager": {"checks": {"sum": True, "bounded": True}},
+           "dp1_losses": [10.89, 6.93]}
+    for name, _ in chip_smoke.HIER_VARIANTS:
+        steps = over.get(name, {})
+        res[name] = {"steps": [_hier_step(name, i, **steps.get(i, {}))
+                               for i in range(2)],
+                     "straggler_scores": steps.get(
+                         "scores", {"0": 0.0, "1": 0.0, "2": 0.05,
+                                    "3": 0.05})}
+    res["adasum"] = {"steps": [_hier_step(
+        "adasum", 0, **{"rel_err": 2e-6, **over.get("adasum", {}).get(0,
+                                                                    {})})]}
+    return res
+
+
+def test_hier_dp4_gates_pass_and_fail():
+    assert chip_smoke.hier_problems(_hier_res()) == []
+    # the quantized cross stage has the wire's wider gates; step 2 of the
+    # late variants is held to no parity
+    assert chip_smoke.hier_problems(_hier_res(
+        hier_int8={1: {"loss": 6.93 * 1.008,
+                       "update_cos": {"embed": 0.98}}},
+        bounded={1: {"loss": 9.0, "update_cos": {"embed": 0.5}}})) == []
+    cases = {
+        "eager: bounded": {"eager": None},
+        "weights differ": {"stale": {1: {"identical": False}}},
+        "launches": {"hier": {0: {"launches": {
+            **chip_smoke.EXPECTED_DP2_LAUNCHES, "fwd": 1}}}},
+        "loss": {"flat": {1: {"loss": 6.93 * 1.008}}},
+        "update norm": {"hier": {1: {"update_norms": {"embed": (1.05,
+                                                                1.0)}}}},
+        "update cos": {"hier_int8": {1: {"update_cos": {"embed": 0.96}}}},
+        "tail rounds": {"hier": {0: {"tail_rounds_counted": 12}}},
+        "bit for bit": {"bounded": {0: {"equals_hier_step1": False}}},
+        "not excluded": {"stale": {1: {"rounds": [
+            {"excluded": [1], "wait_s": 0.05, "seconds": 0.01}] * 13}}},
+        "step 2 loss": {"bounded": {1: {"loss": float("nan")}}},
+        "straggler scores": {"bounded": {"scores": {"0": 0.1, "1": 0.0,
+                                                    "2": 0.05,
+                                                    "3": 0.05}}},
+        "adasum: applied": {"adasum": {0: {"rel_err": 2e-4}}},
+    }
+    for what, over in cases.items():
+        if over.get("eager", 1) is None:
+            res = _hier_res()
+            res["eager"]["checks"]["bounded"] = False
+        else:
+            res = _hier_res(**over)
+        bad = chip_smoke.hier_problems(res)
+        assert any(what in b for b in bad), (what, bad)
+
+
+def test_plain_adasum_matches_the_port_tree():
+    from horovod_tpu_torch.ops import adasum
+    g = torch.Generator().manual_seed(0)
+    rows = [torch.randn(50, generator=g, dtype=torch.float64)
+            for _ in range(3)] + [torch.zeros(50, dtype=torch.float64)]
+    torch.testing.assert_close(chip_smoke.plain_adasum(rows),
+                               adasum.adasum_tree(rows), rtol=1e-12,
+                               atol=0)
+
+
+def _tools_row(**over):
+    tensors = ["grad.a", "grad.b", "loss"]
+    life = ["NEGOTIATE_ALLREDUCE", "QUEUED", "MEMCPY_IN_FUSION_BUFFER",
+            "ALLREDUCE", "DONE"]
+    row = {"steps": 2, "losses": list(_TRAIN["losses"][:2]),
+           "launches_per_step": [dict(_LAUNCHES)] * 2, "tensors": tensors,
+           "lanes": [{t: life * 2 for t in tensors},
+                     {t: list(life) for t in tensors}],
+           "cycle_marks": [2, 1],
+           "autotune_log": [chip_smoke.AUTOTUNE_HEADER, "1,2,1,1,0,0,5,warmup",
+                            "1,2,1,1,0,0,5,sample", "1,2,1,1,0,0,5,sample"]}
+    row.update(over)
+    return row
+
+
+def test_tools_gates_pass_and_fail():
+    assert chip_smoke.tools_problems(_tools_row(), _TRAIN, _LAUNCHES) == []
+    ok = _tools_row()
+    cases = {
+        "are not train's": {"losses": [10.9, 9.91]},
+        "launches": {"launches_per_step": [{**_LAUNCHES, "dq": 15}] * 2},
+        "grad.b has 1 ALLREDUCE": {"lanes": [
+            dict(ok["lanes"][0], **{"grad.b": [
+                x for x in ok["lanes"][0]["grad.b"] if x != "ALLREDUCE"]
+                + ["ALLREDUCE"]}), ok["lanes"][1]]},
+        "loss has 0 DONE": {"lanes": [ok["lanes"][0], dict(
+            ok["lanes"][1], loss=["NEGOTIATE_ALLREDUCE", "ALLREDUCE"])]},
+        "cycle marks": {"cycle_marks": [1, 1]},
+        "header": {"autotune_log": ["time,score"]
+                   + ok["autotune_log"][1:]},
+        "2 sample rows": {"autotune_log": ok["autotune_log"][:3]},
+    }
+    for what, over in cases.items():
+        bad = chip_smoke.tools_problems(_tools_row(**over), _TRAIN,
+                                        _LAUNCHES)
+        assert any(what in b for b in bad), (what, bad)
+
+
 # -- the serving phases' gates (decode, serve) --------------------------------
 
 def _logits(seed, shape=(4, 6, 32)):

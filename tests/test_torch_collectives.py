@@ -198,8 +198,8 @@ def test_api_surface_covers_the_jax_torch_adapter():
     from torch.nn.modules.batchnorm import _BatchNorm
     assert issubclass(hvd_torch.SyncBatchNorm, _BatchNorm)
     assert "SyncBatchNorm" in hvd_torch.__all__
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        hvd_torch.api._resolve_op(None, hvd_torch.Adasum)
+    assert hvd_torch.api._resolve_op(None, hvd_torch.Adasum) == \
+        hvd_torch.Adasum
 
 
 def test_distributed_optimizer_options_at_world_one():
@@ -232,9 +232,16 @@ def test_distributed_optimizer_options_at_world_one():
         ref_opt.step()
         for a, b in zip(model.parameters(), ref.parameters()):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-            hvd_torch.DistributedOptimizer(
-                torch.optim.SGD(ref.parameters(), lr=0.1),
-                op=hvd_torch.Adasum)
+        # Adasum at one rank is the identity: the step is plain SGD's
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            named_parameters=model.named_parameters(), op=hvd_torch.Adasum)
+        ref_opt = torch.optim.SGD(ref.parameters(), lr=0.1)
+        for m, o in ((model, opt), (ref, ref_opt)):
+            o.zero_grad()
+            m(X[0]).square().mean().backward()
+            o.step()
+        for a, b in zip(model.parameters(), ref.parameters()):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
     finally:
         hvd_torch.shutdown()

@@ -147,11 +147,17 @@ def test_transform_options_and_refusals():
         make = tr._fp32_adamw_lp(1e-2)
         for kw, item in (({"health": True}, "A9"),
                          ({"recovery": object()}, "A8"),
-                         ({"param_specs": {}}, "A6"),
-                         ({"op": hvd.Adasum}, "A5")):
+                         ({"param_specs": {}}, "A6")):
             with pytest.raises(NotImplementedError,
                                match=f"ROADMAP.md {item}"):
                 hvd.DistributedGradientTransform(make, **kw)
+        # Adasum at one rank reduces to the gradient itself
+        params = {k: tr._t(v) for k, v in tr.zparams().items()}
+        tx = hvd.DistributedGradientTransform(make, op=hvd.Adasum,
+                                              wire_format="none")
+        grads = {k: torch.full_like(v, 0.5) for k, v in params.items()}
+        assert all(torch.equal(a, b) for a, b in zip(
+            tx.reduce(grads, tx.init(params)), grads.values()))
         with pytest.raises(ValueError, match="factory"):
             hvd.DistributedGradientTransform(None)
         with pytest.raises(ValueError, match="two definitions"):

@@ -4,6 +4,7 @@ The import check runs in a subprocess because this test process has
 already imported jax (tests/conftest.py).
 """
 
+import json
 import pathlib
 import re
 import subprocess
@@ -52,6 +53,9 @@ def test_importing_every_module_loads_no_jax():
               "runner.spawn", "runner.hosts", "runner.network",
               "runner.__main__", "checkpoint", "data", "data.data_loader"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # the rest of the distributed optimizer and the engine's tools
+    for m in ("ops.adasum", "timeline", "stall", "autotune"):
+        assert f"horovod_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -82,6 +86,41 @@ def test_elastic_surface_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+#: top-level names of the JAX package the port leaves out by design
+#: (ROADMAP.md §C, "The world model": no stacked mode, no mesh) or has no
+#: torch counterpart for (``compat``: jax version shims; ``version``: the
+#: port keeps ``__version__`` in its ``__init__``)
+DELIBERATE = {"mesh", "worker_axis", "process_count", "process_index",
+              "stack_on_workers", "worker_values", "compat", "version"}
+#: top-level names not ported yet, by ROADMAP.md item
+STILL_MISSING = {"allreduce_p": "A6", "allgather_p": "A6",
+                 "broadcast_p": "A6", "alltoall_p": "A6",
+                 "reducescatter_p": "A6", "start_profiler": "A9",
+                 "stop_profiler": "A9", "health": "A9", "tracing": "A9"}
+
+
+def test_top_level_names_resolve_as_in_jax():
+    """Every public name of ``import horovod_tpu`` resolves on ``import
+    horovod_tpu_torch``, but for the deliberate differences and the
+    names still to port, which this test names."""
+    code = (
+        "import json\n"
+        "import horovod_tpu as j, horovod_tpu_torch as t\n"
+        "names = [n for n in vars(j) if not n.startswith('_')]\n"
+        "print(json.dumps(sorted(n for n in names if not hasattr(t, n))))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    missing = set(json.loads(res.stdout.strip().splitlines()[-1]))
+    assert missing - DELIBERATE == set(STILL_MISSING)
+    import horovod_tpu_torch as hvd
+    for name in ("NotInitializedError", "get_process_set_ids_and_ranks",
+                 "start_timeline", "stop_timeline"):
+        assert name in hvd.__all__ and hasattr(hvd, name), name
+    with pytest.raises(hvd.NotInitializedError):
+        hvd.get_process_set_ids_and_ranks()
 
 
 def test_sources_import_neither_jax_nor_horovod_tpu():

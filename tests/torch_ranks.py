@@ -75,6 +75,16 @@ class Worlds(dict):
         return self[world]
 
 
+def _host_env(env, rank):
+    """A host layout's per-rank variables: with ``HOROVOD_LOCAL_SIZE`` in
+    ``env``, rank ``r`` is local rank ``r % L`` of host ``r // L``."""
+    if not env or "HOROVOD_LOCAL_SIZE" not in env:
+        return {}
+    n_local = int(env["HOROVOD_LOCAL_SIZE"])
+    return {"HOROVOD_LOCAL_RANK": str(rank % n_local),
+            "HOROVOD_CROSS_RANK": str(rank // n_local)}
+
+
 def _launch_once(world, cases, tmp_path, port, env, timeout):
     out = tmp_path / f"ranks{world}-{port}"
     out.mkdir()
@@ -86,7 +96,7 @@ def _launch_once(world, cases, tmp_path, port, env, timeout):
                  HOROVOD_CYCLE_TIME="0.1",
                  HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="120",
                  PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
-                 **(env or {}))
+                 **(env or {}), **_host_env(env, r))
         procs.append(subprocess.Popen(
             [sys.executable, __file__, str(out), *cases], env=e,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -928,6 +938,273 @@ def case_sharded_loader(hvd, rank, world):
 def loader_data():
     return (np.arange(64, dtype=np.float32).reshape(32, 2),
             np.arange(32, dtype=np.int32))
+
+
+# -- the hierarchy, the tail policies, Adasum and the engine's tools ---------
+
+#: a world of 4 as two hosts of two, both hierarchical paths on, and the
+#: wire's 16-element scale block (test_torch_wire.py's bounds)
+HIER_ENV = {"HOROVOD_LOCAL_SIZE": "2", "HOROVOD_CROSS_SIZE": "2",
+            "HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+            "HOROVOD_HIERARCHICAL_ALLGATHER": "1",
+            "HOROVOD_COMPRESSION_BLOCK_SIZE": str(ZBLOCK)}
+#: the tail cases' deadline and straggler delay (s)
+TAIL_DEADLINE_MS = 50
+TAIL_DELAY_S = 0.2
+#: the tail arithmetic's chunk length
+TAIL_CHUNK = 8
+
+
+def hier_input(rank, n=37, seed=11):
+    """Rank ``rank``'s seeded fp32 vector (37: not a multiple of the host
+    size, so the hierarchical path pads)."""
+    return np.random.RandomState(seed + 100 * rank).randn(n).astype(
+        np.float32)
+
+
+def quarter_input(rank, n=12):
+    """Multiples of 1/4: exact in every sum and n/k correction here."""
+    return base("float32", rank, (n,), seed=5)
+
+
+def adasum_input(rank, n=11):
+    """Rank ``rank``'s Adasum contribution: seeded, with rank 1 a zero
+    vector and rank 3 parallel to rank 0 (the tree's guarded cases)."""
+    if rank == 1:
+        return np.zeros(n, np.float32)
+    if rank == 3:
+        return 2.5 * adasum_input(0, n)
+    return np.random.RandomState(23 + 100 * rank).randn(n).astype(np.float32)
+
+
+def adasum_params():
+    return {"a": np.linspace(-1.0, 1.0, 35).reshape(7, 5).astype(np.float32),
+            "b": np.arange(3, dtype=np.float32),
+            "c": np.linspace(0.5, 2.0, 4).astype(np.float32)}
+
+
+def adasum_grads(rank):
+    """Rank ``rank``'s gradients of :func:`adasum_params`; ``c`` is bf16
+    on the port's side, so the whole vector mixes dtypes."""
+    rng = np.random.RandomState(31 + 100 * rank)
+    return {k: rng.randn(*v.shape).astype(np.float32)
+            for k, v in adasum_params().items()}
+
+
+def _reinit(hvd, **env):
+    """shutdown, then ``env`` set (None unsets), then init on the CPU."""
+    hvd.shutdown()
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    hvd.init(device="cpu")
+
+
+def _counter(name, **labels):
+    from horovod_tpu_torch import metrics
+    fam = metrics.snapshot().get("families", {}).get(name, {})
+    return sum(s["value"] for s in fam.get("series", ())
+               if all(s["labels"].get(k) == v for k, v in labels.items()))
+
+
+def _tensors_to_np(d):
+    import torch
+    return {k: (_np(v) if torch.is_tensor(v) else v) for k, v in d.items()}
+
+
+def case_hier(hvd, rank, world):
+    """The hierarchical allreduce (Sum, Average, scaled, the pad path, a
+    fused bucket) and allgather through the engine at (2, 2), then the
+    int8 cross stage under HOROVOD_COMPRESSION=int8."""
+    from horovod_tpu_torch.ops import collectives
+    ps = hvd.runtime._get_global_process_set()
+    local, cross = ps.hier_groups()
+    x = _t(hier_input(rank))
+    before = _counter("hvd_tail_rounds_total", policy="strict")
+    out = {"shape": ps.hier_shape(), "local": local.ranks,
+           "cross": cross.ranks,
+           "sum": hvd.allreduce(x, op=hvd.Sum, name="h.sum"),
+           "avg": hvd.allreduce(x, name="h.avg"),
+           "scaled": hvd.allreduce(x, op=hvd.Average, prescale_factor=0.5,
+                                   postscale_factor=4.0, name="h.scaled")}
+    out["grp0"], out["grp1"] = hvd.grouped_allreduce(
+        [x[:12].reshape(3, 4), x[12:]], op=hvd.Sum, name="h.grp")
+    out["ag"] = hvd.allgather(_t(hier_input(rank, 6)).reshape(3, 2),
+                              name="h.ag")
+    out["agv"] = hvd.allgather(
+        _t(hier_input(rank, 2 * (rank + 1))).reshape(rank + 1, 2),
+        name="h.agv")
+    out["strict_rounds"] = (_counter("hvd_tail_rounds_total",
+                                     policy="strict") - before)
+    # the test hook: a forced (4, 1) layout, its groups made at first use
+    ps._hier_shape = (4, 1)
+    out["forced"] = hvd.allreduce(_t(quarter_input(rank)), op=hvd.Sum,
+                                  name="h.forced")
+    out["forced_cross"] = ps.hier_groups()[1].ranks
+    ps._hier_shape = None
+    wire0 = _counter("hvd_wire_bytes_total", format="int8")
+    _reinit(hvd, HOROVOD_COMPRESSION="int8")
+    out["int8"] = hvd.allreduce(_t(hier_input(rank, 64)), op=hvd.Sum,
+                                name="h.int8")
+    out["int8_wire_bytes"] = (_counter("hvd_wire_bytes_total",
+                                       format="int8") - wire0)
+    _reinit(hvd, HOROVOD_COMPRESSION=None)
+    return _tensors_to_np(out)
+
+
+def case_tail(hvd, rank, world):
+    """The cross stage's policies on known chunks at (2, 2) (bounded under
+    each mask, a mask two ranks drew differently, three stale rounds up
+    to the cap), then the engine under HOROVOD_TAIL_POLICY=bounded and
+    stale with host 1 delayed past the deadline."""
+    import time
+    from horovod_tpu_torch import chaos
+    from horovod_tpu_torch.ops import collectives as C
+    ps = hvd.runtime._get_global_process_set()
+    _, cross = ps.hier_groups()
+    chunk = _t(hier_input(rank, TAIL_CHUNK, seed=41))
+    out = {"strict": C.tail_cross_reduce(chunk, cross, "strict")[0]}
+    for mask in ((1, 1), (1, 0), (0, 1)):
+        out[f"bounded{mask}"] = C.tail_cross_reduce(
+            chunk, cross, "bounded", list(mask), ps)[0]
+    # rank 3 alone saw host 0 late: the agreement excludes it everywhere
+    out["agreed"] = C.tail_cross_reduce(
+        chunk, cross, "bounded", [0, 1] if rank == 3 else [1, 1], ps)[0]
+    prev = chunk.new_zeros((2, TAIL_CHUNK))
+    stal = [0, 0]
+    for i, (add, mask) in enumerate(((0.0, (1, 1)), (100.0, (1, 0)),
+                                     (1000.0, (1, 0)))):
+        red, prev, stal = C.tail_cross_reduce(
+            chunk + add, cross, "stale", list(mask), ps, prev=prev,
+            staleness=stal, max_staleness=1)
+        out[f"stale{i}"], out[f"staleness{i}"] = red, stal.tolist()
+    late = chaos.FaultSchedule.parse(
+        f"collective.dcn group=1 action=delay:{TAIL_DELAY_S}")
+    x = _t(quarter_input(rank))
+    for policy in ("bounded", "stale"):
+        _reinit(hvd, HOROVOD_TAIL_POLICY=policy,
+                HOROVOD_TAIL_DEADLINE_MS=str(TAIL_DEADLINE_MS),
+                HOROVOD_TAIL_MAX_STALENESS="1")
+        n0 = _counter("hvd_tail_rounds_total", policy=policy)
+        res = [hvd.allreduce(x, op=hvd.Sum, name=f"t.{policy}")]
+        chaos.install(late)
+        try:
+            t0 = time.monotonic()
+            for k in (2, 3):
+                res.append(hvd.allreduce(x * k, op=hvd.Sum,
+                                         name=f"t.{policy}"))
+            seconds = time.monotonic() - t0
+        finally:
+            chaos.uninstall()
+        out[policy] = {
+            "results": [_np(r) for r in res], "seconds": seconds,
+            "rounds": [dict(r) for r in C.TAIL_ROUNDS],
+            "counted": _counter("hvd_tail_rounds_total",
+                                policy=policy) - n0,
+            "scores": hvd.runtime._state().stall_inspector
+            .straggler_scores()}
+    _reinit(hvd, HOROVOD_TAIL_POLICY=None, HOROVOD_TAIL_DEADLINE_MS=None,
+            HOROVOD_TAIL_MAX_STALENESS=None)
+    return _tensors_to_np(out)
+
+
+def case_adasum(hvd, rank, world):
+    """Eager Adasum (one tensor, scaled, a fused group) and one SGD step
+    of DistributedOptimizer(op=Adasum), with the refusals."""
+    import torch
+    x = _t(adasum_input(rank))
+    out = {"eager": hvd.allreduce(x, op=hvd.Adasum, name="ad"),
+           "scaled": hvd.allreduce(x, op=hvd.Adasum, prescale_factor=0.5,
+                                   postscale_factor=3.0, name="ad.scaled")}
+    out["grp0"], out["grp1"] = hvd.grouped_allreduce(
+        [x[:4], x[4:]], op=hvd.Adasum, name="ad.grp")
+    params = {k: torch.nn.Parameter(_t(v).to(
+        torch.bfloat16 if k == "c" else torch.float32))
+        for k, v in adasum_params().items()}
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(params.values(), lr=ZLR),
+                                   named_parameters=params.items(),
+                                   op=hvd.Adasum)
+    for k, g in adasum_grads(rank).items():
+        params[k].grad = _t(g).to(params[k].dtype)
+    opt.synchronize()
+    out["reduced"] = {k: _np(p.grad) for k, p in params.items()}
+    with opt.skip_synchronize():
+        opt.step()
+    out["params"] = {k: _np(p) for k, p in params.items()}
+    refusals = {}
+    for what, make in (
+            ("wire", lambda: hvd.DistributedGradientTransform(
+                lambda ls: torch.optim.SGD(ls, lr=0.1), op=hvd.Adasum,
+                wire_format="int8")),
+            ("sharded", lambda: hvd.DistributedGradientTransform(
+                lambda ls: torch.optim.SGD(ls, lr=0.1), op=hvd.Adasum,
+                sharded_update=True)),
+            ("overlap", lambda: hvd.DistributedGradientTransform(
+                lambda ls: torch.optim.SGD(ls, lr=0.1), op=hvd.Adasum,
+                overlap=True)),
+            ("tree_wire", lambda: hvd.optim.distributed.fused_reduce_tree(
+                {"a": x.clone()}, op=hvd.Adasum, wire_format="int8")),
+            ("tree_compression",
+             lambda: hvd.optim.distributed.fused_reduce_tree(
+                 {"a": x.clone()}, op=hvd.Adasum,
+                 compression=hvd.Compression.fp16)),
+            ("scatter", lambda: hvd.fused_reduce_scatter_tree(
+                {"a": x.clone()}, op=hvd.Adasum))):
+        try:
+            make()
+            refusals[what] = None
+        except ValueError as e:
+            refusals[what] = str(e)
+    out["refusals"] = refusals
+    return _tensors_to_np(out)
+
+
+def case_tools(hvd, rank, world):
+    """The engine's tools across ranks: autotuned parameters agreed in
+    every round (HOROVOD_AUTOTUNE, one cycle a sample), a timeline per
+    rank, and a stall: rank 1 submits one tensor 1.5 s late under
+    HOROVOD_STALL_CHECK_TIME_SECONDS=0.5, which rank 0's log names."""
+    import json
+    import logging
+    import tempfile
+    import time
+    import torch
+    path = os.path.join(tempfile.mkdtemp(), f"timeline{rank}.json")
+    _reinit(hvd, HOROVOD_AUTOTUNE="1", HOROVOD_AUTOTUNE_WARMUP_SAMPLES="1",
+            HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE="1",
+            HOROVOD_AUTOTUNE_MAX_SAMPLES="5", HOROVOD_TIMELINE=path,
+            HOROVOD_TIMELINE_MARK_CYCLES="1",
+            HOROVOD_STALL_CHECK_TIME_SECONDS="0.5")
+    eng = hvd.runtime._state().engine
+    applied = []
+    for i in range(10):
+        hvd.allreduce(torch.full((4,), float(rank + i)), name=f"tune{i % 2}")
+        applied.append(dict(eng._negotiated_params or {}))
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    logging.getLogger("horovod_tpu_torch").addHandler(Keep())
+    if rank == 1:
+        time.sleep(1.5)
+    late = _np(hvd.allreduce(torch.ones(2), op=hvd.Sum, name="late"))
+    stats = eng.stats()
+    hvd.stop_timeline()
+    events = json.loads(open(path).read())
+    out = {"applied": applied, "autotune": stats["autotune"],
+           "stall": stats["stall"], "late": late, "log": records,
+           "events": events}
+    _reinit(hvd, HOROVOD_AUTOTUNE=None,
+            HOROVOD_AUTOTUNE_WARMUP_SAMPLES=None,
+            HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE=None,
+            HOROVOD_AUTOTUNE_MAX_SAMPLES=None, HOROVOD_TIMELINE=None,
+            HOROVOD_TIMELINE_MARK_CYCLES=None,
+            HOROVOD_STALL_CHECK_TIME_SECONDS=None)
+    return out
 
 
 def main(out_dir, cases):
