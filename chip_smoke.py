@@ -160,6 +160,30 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            deterministic), the sampler's indices each taken once; recover_s,
            reform_s, sync_ms, step ms at sizes 1 and 2, peak memory, gloo
            bytes a step
+  recover_resnet   checkpointless recovery: elastic_resnet's model,
+           batch and SGD stepped by hand (forward, loss, backward,
+           tx.update) through DistributedGradientTransform(sharded_update,
+           recovery=RecoveryAgent(mode="neighbor", every=1)), workers (this
+           script with --recover-worker) under the ElasticDriver over gloo
+           on the card, a TensorState committed every step.  Steps 1-3 at
+           size 2; rank 1 SIGKILLed in the backward pass of step 4 after
+           its step-3 frame reached rank 0; the job re-forms at size 2, the
+           replacement rebuilds its ZeRO tile from the survivor
+           (RecoveryAgent.rebuild, restore_dist_state), the weights and
+           statistics sync from the survivor, steps 4-6.  Against an
+           uninterrupted 2-rank run under the static launcher: the rebuilt
+           frame is (epoch 0, step 3) and the commit the survivor
+           restored, the tile the reference rank 1's bit for bit and not
+           zero, steps 4-6 (losses, weights, statistics) bit for bit, GET
+           recovery/stats lists the rebuild, the replacement's
+           hvd_recovery_time_seconds counted it; the rebuild's ms, the
+           frame's bytes against the priced tile and elastic_resnet's full
+           sync, push ms a step, recover_s, step ms, peak memory
+  hvd_run  hvd.run of a probe (an allreduce of a CUDA tensor of the rank)
+           at np 2 over gloo on the card and at np 1 over NCCL, results in
+           rank order; a failing function raises RuntimeError;
+           TpuExecutor(np=2): a module-level counter across two run calls
+           and run_remote/fetch
   mnist    5 classifier steps of the MNIST convnet at batch 128 of seeded
            28 x 28 images (losses falling); then serving/models.py's
            classifier_forward on a bucket of MNIST rows and one of BERT
@@ -181,6 +205,7 @@ The script imports no jax and nothing of horovod_tpu.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -369,6 +394,19 @@ ELASTIC_DIGEST_STEPS = (3, 6)
 # the epoch_formed sizes of the four transitions, in order
 ELASTIC_FORMED_SIZES = [2, 2, 1, 2]
 ELASTIC_TIMEOUT_S = 180
+# recover_resnet: elastic_resnet's model, batch and SGD as a ZeRO step
+# (DistributedGradientTransform, sharded_update) with checkpointless
+# recovery in neighbor mode at every boundary; steps 1-3 at size 2, rank
+# 1 SIGKILLed in the backward pass of step 4, a replacement at size 2
+# rebuilds its tile from the survivor, steps 4-6; against the static
+# launcher's uninterrupted 2-rank run of steps 1-6.  Each rank's batch of
+# a step is seeded by (step, rank).  Tile and weight digests are taken
+# from step RECOVER_KILL_STEP - 1 on
+RECOVER_STEPS = 6
+RECOVER_KILL_STEP = 4
+RECOVER_BATCH = 32
+RECOVER_FORMED_SIZES = [2, 2]
+RECOVER_TIMEOUT_S = 180
 # mnist: batch 128 of seeded 28 x 28 images, 5 steps; classifier_forward
 # buckets of 8 rows
 MNIST_BATCH, MNIST_STEPS = 128, 5
@@ -3204,6 +3242,484 @@ def elastic_resnet_phase(worker_script=None):
     if row["seconds"] > ELASTIC_TIMEOUT_S:
         bad.append(f"the phase took {row['seconds']:.1f} s")
     require(not bad, f"elastic_resnet: {bad}")
+    return row
+
+
+def tile_digest(dist_state):
+    """``[sha256, nonzero]`` of the inner optimizer's state in a
+    ``DistributedGradientTransform`` state (this rank's ZeRO tiles'),
+    names in sorted order: equal digests mean equal bytes."""
+    import hashlib
+
+    from horovod_tpu_torch.optim import recovery_payload
+    payload = recovery_payload(dist_state)
+    h = hashlib.sha256()
+    nonzero = False
+    for name in sorted(n for n in payload if n.startswith("inner/")):
+        raw = np.ascontiguousarray(payload[name]).tobytes()
+        h.update(name.encode() + raw)
+        nonzero = nonzero or any(raw)
+    return [h.hexdigest(), nonzero]
+
+
+def recover_child(dev: torch.device, out: str) -> int:
+    """One worker of ``recover_resnet`` (``--recover-worker OUT``), under
+    the elastic driver or, for the reference run, the static launcher:
+    ResNet-50 stepped by hand (forward, loss, backward, then
+    ``tx.update``) with a ZeRO ``DistributedGradientTransform`` of SGD
+    whose recovery agent (neighbor mode, every boundary; elastic runs
+    only) pushes this rank's tile after each update; a TensorState of the
+    weights, batch-norm statistics, the transform's state and the step,
+    committed every step.  A replacement (epoch > 0) first rebuilds its
+    tile from the fleet and installs it (``restore_dist_state``).
+    Appends JSON records to ``OUT/worker-<id>.jsonl``: each step's start
+    and end (loss, ms, the pushes' ms and bytes, digests of the weights,
+    statistics and tile from step RECOVER_KILL_STEP - 1 on, peak memory),
+    the restore's step, and the rebuild (version, ms, frame bytes, the
+    priced tile bytes, the tile's digest, the worker's own
+    hvd_recovery_time_seconds count).  Worker 1 stops in the backward
+    pass of step RECOVER_KILL_STEP, writes ``kill.marker`` and waits to be
+    killed."""
+    import pathlib
+
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.elastic import TensorState, worker
+    from horovod_tpu_torch.elastic.recovery import (RecoveryAgent,
+                                                    priced_tile_bytes)
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.optim import restore_dist_state
+    from horovod_tpu_torch.tree import tree_leaves, tree_map
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = pathlib.Path(out)
+    elastic = worker.worker_id() is not None
+    wid = worker.worker_id() if elastic else int(os.environ["HOROVOD_RANK"])
+    log = out / f"worker-{wid}.jsonl"
+
+    def record(kind, **rec):
+        with open(log, "a") as f:
+            f.write(json.dumps({"kind": kind, "wid": wid, "t": time.time(),
+                                "epoch": worker._last_epoch,
+                                "rank": hvd.rank(), "size": hvd.size(),
+                                **rec}) + "\n")
+
+    pushes = []
+
+    class TimedAgent(RecoveryAgent):
+        def _push_one(self, version, frame):
+            t0 = time.perf_counter()
+            try:
+                return super()._push_one(version, frame)
+            finally:
+                pushes.append({"step": version[1], "bytes": len(frame),
+                               "ms": 1e3 * (time.perf_counter() - t0)})
+
+    hvd.init(device=dev)
+    cfg = resnet.ResNetConfig(variant=50)
+    params, bn = resnet.init(cfg, 0, device=dev)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    agent = (TimedAgent(rank=hvd.rank(), size=hvd.size(),
+                        epoch=worker._last_epoch, mode="neighbor", every=1,
+                        driver=worker._driver_endpoint(), worker_id=wid)
+             if elastic else None)
+    tx = hvd.DistributedGradientTransform(
+        functools.partial(torch.optim.SGD, lr=0.01, momentum=0.9),
+        sharded_update=True, recovery=agent)
+    dist_state = tx.init(params)
+    if elastic and worker._last_epoch > 0:
+        # a replacement: this rank's tile comes back from the fleet
+        t0 = time.perf_counter()
+        payload = agent.rebuild(min_epoch=0)
+        restore_dist_state(dist_state, payload)
+        torch.cuda.synchronize()
+        fams = metrics.registry().to_dict()
+        record("rebuilt", version=agent.last_rebuild["version"],
+               rebuild_ms=1e3 * agent.last_rebuild["seconds"],
+               restore_ms=1e3 * (time.perf_counter() - t0),
+               frame_bytes=len(agent.store.get_own()[1]),
+               priced_bytes=priced_tile_bytes(dist_state.layout),
+               tile=tile_digest(dist_state),
+               time_count=sum(s["count"] for s in fams.get(
+                   "hvd_recovery_time_seconds", {}).get("series", [])))
+
+    class Recorded(TensorState):
+        def restore(self):
+            super().restore()
+            record("restore", step=self.step)
+
+    state = Recorded(params=params, bn=bn, dist=dist_state, step=0)
+    if agent is not None:
+        # a re-form moves peers: ask the driver for the new plan
+        state.register_reset_callbacks([agent._fetch_plan])
+
+    def stop_in_backward(grad):
+        (out / "kill.marker").write_text(json.dumps(
+            {"wid": wid, "t": time.time()}))
+        time.sleep(RECOVER_TIMEOUT_S)
+        raise RuntimeError("worker 1 was not killed in its backward pass")
+
+    @hvd.elastic.run
+    def train(state):
+        while state.step < RECOVER_STEPS:
+            step = state.step + 1
+            hook = None
+            if elastic and wid == 1 and step == RECOVER_KILL_STEP:
+                hook = state.params["fc"]["w"].register_hook(
+                    stop_in_backward)
+            record("begin", step=step)
+            images, labels = resnet_batch(RECOVER_BATCH, RESNET_IMG, dev,
+                                          seed=1000 * step + hvd.rank())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state.bn = resnet.forward(
+                state.params, state.bn, images, cfg, train=True,
+                process_set=hvd.global_process_set)
+            loss = F.cross_entropy(logits, labels.long())
+            loss.backward()
+            if hook is not None:
+                hook.remove()
+            n = len(pushes)
+            tx.update(tree_map(lambda p: p.grad, state.params), state.dist,
+                      state.params)
+            for p in tree_leaves(state.params):
+                p.grad = None
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            state.step = step
+            rec = dict(step=step, loss=loss.item(), ms=ms,
+                       pushes=pushes[n:],
+                       peak=torch.cuda.max_memory_allocated())
+            if step >= RECOVER_KILL_STEP - 1:
+                rec.update(weights=tree_digest(state.params),
+                           bn=tree_digest(state.bn),
+                           tile=tile_digest(state.dist))
+            record("step", **rec)
+            state.commit()
+        return state.step
+
+    train(state)
+    hvd.shutdown()
+    return 0
+
+
+def recover_problems(recs, ref_recs, stats):
+    """The gates of ``recover_resnet`` on the elastic run's records, the
+    reference's and the driver's ``recovery/stats``: the rebuild's frame
+    is rank 1's of (epoch 0, step RECOVER_KILL_STEP - 1), the commit the
+    survivor restored; the installed tile is the reference rank 1's
+    after that step bit for bit and not all zeros; steps
+    RECOVER_KILL_STEP..RECOVER_STEPS (losses, weights and statistics of
+    every rank) bit for bit the reference's; the driver lists rank 1's
+    rebuild; the replacement observed its rebuild time."""
+    bad = []
+    last = RECOVER_KILL_STEP - 1
+    rebuilt = [r for r in recs if r["kind"] == "rebuilt"]
+    restores = [r for r in recs if r["kind"] == "restore"]
+    if len(rebuilt) != 1:
+        return [f"{len(rebuilt)} rebuilds recorded"]
+    rb = rebuilt[0]
+    if rb["rank"] != 1 or rb["version"] != [0, last]:
+        bad.append(f"rank {rb['rank']} rebuilt version {rb['version']}, "
+                   f"expected rank 1's [0, {last}]")
+    if [r["step"] for r in restores] != [last]:
+        bad.append(f"the survivor restored steps "
+                   f"{[r['step'] for r in restores]}, not the rebuilt "
+                   f"frame's step {last}")
+    ref = {(r["rank"], r["step"]): r for r in ref_recs
+           if r["kind"] == "step"}
+    ref_tile = ref.get((1, last), {}).get("tile")
+    if ref_tile is None or rb["tile"] != ref_tile:
+        bad.append(f"the rebuilt tile {rb['tile']} is not the reference "
+                   f"rank 1's after step {last}: {ref_tile}")
+    if not rb["tile"][1]:
+        bad.append("the rebuilt tile is all zeros")
+    got = {(r["rank"], r["step"]): r for r in recs if r["kind"] == "step"
+           and r["step"] >= RECOVER_KILL_STEP}
+    for rank in (0, 1):
+        for step in range(RECOVER_KILL_STEP, RECOVER_STEPS + 1):
+            a, b = got.get((rank, step)), ref.get((rank, step))
+            if a is None or b is None:
+                bad.append(f"rank {rank} step {step} missing "
+                           f"(elastic {a is not None}, reference "
+                           f"{b is not None})")
+                continue
+            for key in ("loss", "weights", "bn"):
+                if a[key] != b[key]:
+                    bad.append(f"rank {rank} step {step}: {key} "
+                               f"{a[key]} vs the reference's {b[key]}")
+    if not any(r.get("src_rank") == 1 for r in stats.get("rebuilds", [])):
+        bad.append(f"recovery/stats lists no rebuild of rank 1: {stats}")
+    if rb["time_count"] < 1:
+        bad.append(f"hvd_recovery_time_seconds count {rb['time_count']}")
+    return bad
+
+
+def recover_resnet_phase(worker_script=None, full_sync=None):
+    """``recover_resnet``: the reference run (2 ranks, steps 1-6, through
+    ``python -m horovod_tpu_torch.runner``), then the elastic job through
+    the port's ElasticDriver in this process over a hostfile of 2 slots;
+    the kill in rank 1's backward pass of step RECOVER_KILL_STEP, the
+    re-form at size 2 and the replacement's rebuild; the gates of
+    :func:`recover_problems` and the numbers (the rebuild's ms, the
+    frame's bytes against the priced tile and against ``full_sync``,
+    elastic_resnet's sync of this run as ``{"bytes", "ms"}``; push ms a
+    step, recover_s, step ms, peak memory).  The workers run
+    ``worker_script --recover-worker OUT`` (default: this script)."""
+    import pathlib
+    import shutil
+    import signal
+    import socket
+    import threading
+
+    from horovod_tpu_torch.elastic import discovery
+    from horovod_tpu_torch.elastic.driver import ElasticDriver
+    from horovod_tpu_torch.metrics import aggregate
+    t_phase = time.monotonic()
+    deadline = t_phase + RECOVER_TIMEOUT_S
+    root = pathlib.Path(__file__).resolve().parent
+    work = root / "build" / "recover_resnet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = {"HOROVOD_CONTROLLER": "gloo", "PYTHONPATH": str(root),
+           "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "120"}
+    worker_cmd = [sys.executable, str(worker_script or root / "chip_smoke.py"),
+                  "--recover-worker"]
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    try:
+        ref = work / "reference"
+        ref.mkdir()
+        t0 = time.monotonic()
+        launch = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
+             "-p", str(free_port()), "--network-interface", "lo",
+             *worker_cmd, str(ref)], cwd=root, env={**os.environ, **env},
+            capture_output=True, text=True,
+            timeout=max(deadline - time.monotonic(), 1))
+        require(launch.returncode == 0, "recover_resnet reference run "
+                f"exited {launch.returncode}:\n{launch.stdout[-4000:]}")
+        reference_s = time.monotonic() - t0
+        ref_recs = elastic_records(ref)
+
+        run = work / "elastic"
+        run.mkdir()
+        hostfile = run / "hosts.txt"
+        hostfile.write_text("localhost:2\n")
+        events = []
+
+        class Driver(ElasticDriver):
+            def _emit(self, event, **info):
+                info["t"] = time.monotonic()
+                events.append((event, dict(info)))
+                super()._emit(event, **info)
+
+        driver = Driver(
+            discovery.HostDiscoveryScript(f"cat {hostfile}"),
+            worker_cmd + [str(run)], min_np=1, port=free_port(),
+            discovery_interval=0.3, start_timeout=60.0,
+            blacklist_threshold=5, env=env, network_interface="lo")
+        result = {}
+        thread = threading.Thread(
+            target=lambda: result.update(rc=driver.run()), daemon=True)
+        t0 = time.monotonic()
+        thread.start()
+
+        def wait_for(pred, what):
+            while True:
+                recs = elastic_records(run)
+                if pred(recs):
+                    return recs
+                require(time.monotonic() < deadline and thread.is_alive(),
+                        f"recover_resnet: {what} (driver "
+                        f"{'alive' if thread.is_alive() else result})")
+                time.sleep(0.05)
+
+        try:
+            marker = run / "kill.marker"
+            wait_for(lambda _: marker.exists(), "worker 1 never reached "
+                     f"the backward pass of step {RECOVER_KILL_STEP}")
+            with driver._lock:
+                victim = driver._workers[json.loads(marker.read_text())[
+                    "wid"]]
+            t_kill = time.time()
+            os.kill(victim.proc.popen.pid, signal.SIGKILL)
+            wait_for(lambda recs: any(r["kind"] == "rebuilt"
+                                      for r in recs), "no rebuild")
+            stats = json.loads(aggregate.scrape(
+                "127.0.0.1", driver.port, route="recovery/stats"))
+            thread.join(max(deadline - time.monotonic(), 0.1))
+            require(not thread.is_alive(), "recover_resnet: the driver "
+                    "did not finish")
+        finally:
+            driver._terminate_all()
+            driver._server.close()
+        elastic_s = time.monotonic() - t0
+        recs = elastic_records(run)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    bad, _ = transition_problems(events, RECOVER_FORMED_SIZES)
+    if result.get("rc") != 0:
+        bad.append(f"the driver exited {result.get('rc')}")
+    bad += recover_problems(recs, ref_recs, stats)
+    steps = [r for r in recs if r["kind"] == "step"]
+    bad += [f"step {r['step']} rank {r['rank']}: loss {r['loss']}"
+            for r in steps + ref_recs if r["kind"] == "step"
+            and not math.isfinite(r["loss"])]
+    rb = next((r for r in recs if r["kind"] == "rebuilt"), {})
+    pushes = [p for r in steps for p in r["pushes"]]
+    first_after = min((r["t"] for r in steps
+                       if r["step"] == RECOVER_KILL_STEP), default=None)
+    row = dict(
+        model="resnet50", image=RESNET_IMG, batch_per_rank=RECOVER_BATCH,
+        backend="gloo", mode="neighbor", every=1,
+        formed=[[info["epoch"], info["size"]] for name, info in events
+                if name == "epoch_formed"],
+        rebuilt_version=rb.get("version"),
+        rebuild_ms=rb.get("rebuild_ms"), restore_ms=rb.get("restore_ms"),
+        frame_bytes=rb.get("frame_bytes"),
+        priced_tile_bytes=rb.get("priced_bytes"),
+        full_sync=full_sync,
+        push_ms=[[p["step"], p["ms"]] for p in pushes],
+        push_bytes=sorted({p["bytes"] for p in pushes}),
+        recover_s=(None if first_after is None else first_after - t_kill),
+        step_ms={f"{r['rank']}:{r['step']}:{r['epoch']}": r["ms"]
+                 for r in steps},
+        reference_step_ms={f"{r['rank']}:{r['step']}": r["ms"]
+                           for r in ref_recs if r["kind"] == "step"},
+        peak_bytes={wid: max(r["peak"] for r in steps if r["wid"] == wid)
+                    for wid in sorted({r["wid"] for r in steps})},
+        losses={r["step"]: r["loss"] for r in steps if r["rank"] == 0},
+        rebuilds_on_stats=stats.get("rebuilds"),
+        exits=[info for name, info in events if name == "worker_exit"],
+        reference_s=reference_s, elastic_s=elastic_s,
+        seconds=time.monotonic() - t_phase)
+    emit("recover_resnet", **row)
+    if row["seconds"] > RECOVER_TIMEOUT_S:
+        bad.append(f"the phase took {row['seconds']:.1f} s")
+    require(not bad, f"recover_resnet: {bad}")
+    return row
+
+
+def hvd_run_probe():
+    """``hvd_run``'s function: this rank's allreduced CUDA tensor of its
+    rank, as ``(rank, size, value, device name)``."""
+    import horovod_tpu_torch as hvd
+    dev = hvd.runtime._state().device
+    t = torch.full((4,), float(hvd.rank()), device=dev)
+    value = hvd.allreduce(t, op=hvd.Sum, name="hvd_run.probe")
+    return (hvd.rank(), hvd.size(), value.tolist(),
+            torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else str(dev))
+
+
+def hvd_run_count():
+    """A module-level counter that outlives a task in the executor's
+    worker: 1, 2, ... on each call in one process."""
+    global _HVD_RUN_CALLS
+    _HVD_RUN_CALLS = globals().get("_HVD_RUN_CALLS", 0) + 1
+    return _HVD_RUN_CALLS
+
+
+def hvd_run_fail():
+    raise ValueError("hvd_run: a deliberate failure")
+
+
+def hvd_run_problems(res):
+    """``hvd_run``'s gates on ``{"run2", "run1", "counts", "remote",
+    "failure"}``: the probes' results in rank order with the sums of the
+    ranks, the counter 1 then 2 on both workers, the failing function
+    raised."""
+    bad = []
+
+    def probes(got, n, what):
+        want_sum = float(sum(range(n)))
+        ranks = [r[0] for r in got]
+        if ranks != list(range(n)):
+            bad.append(f"{what}: results in rank order {ranks}")
+        for r in got:
+            if r[1] != n or r[2] != [want_sum] * 4:
+                bad.append(f"{what}: rank {r[0]} got size {r[1]}, value "
+                           f"{r[2]}, expected {n}, {want_sum}")
+
+    probes(res["run2"], 2, "run(np=2)")
+    probes(res["run1"], 1, "run(np=1)")
+    probes(res["remote"], 2, "run_remote/fetch")
+    if res["counts"] != [[1, 1], [2, 2]]:
+        bad.append(f"the executor's counter read {res['counts']}")
+    if not res["failure"]:
+        bad.append("a failing function did not raise RuntimeError")
+    return bad
+
+
+def hvd_run_phase(device="cuda:0"):
+    """``hvd_run``: ``hvd.run`` of :func:`hvd_run_probe` at np 2 over gloo
+    (two ranks sharing ``device``) and at np 1 over NCCL, a failing
+    function, and ``TpuExecutor(np=2)`` over gloo: the counter across two
+    ``run`` calls and ``run_remote``/``fetch`` of the probe; the four
+    launches run at once, each timed from its start.  The
+    functions are this module's as imported by name (``import
+    chip_smoke``), so plain ``pickle`` finds them in the workers too."""
+    import pathlib
+    import socket
+
+    import chip_smoke as mod
+    from horovod_tpu_torch import runner
+    t_phase = time.monotonic()
+    root = pathlib.Path(__file__).resolve().parent
+    env = {"PYTHONPATH": str(root)}
+    gloo = {**env, "HOROVOD_CONTROLLER": "gloo"}
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def timed_call(key, fn):
+        t0 = time.perf_counter()
+        try:
+            return key, fn(), 1e3 * (time.perf_counter() - t0)
+        except RuntimeError:
+            return key, None, 1e3 * (time.perf_counter() - t0)
+
+    def executor():
+        with runner.TpuExecutor(np=2, env=gloo, port=free_port(),
+                                device=device) as ex:
+            counts = [ex.run(mod.hvd_run_count) for _ in range(2)]
+            return counts, ex.fetch(ex.run_remote(mod.hvd_run_probe))
+
+    # the four launches at once: each is mostly its workers' start
+    calls = {
+        "run2": lambda: runner.run(mod.hvd_run_probe, np=2, env=gloo,
+                                   port=free_port(), device=device),
+        "run1": lambda: runner.run(mod.hvd_run_probe, np=1, env=env,
+                                   port=free_port(), device=device),
+        "failure": lambda: runner.run(mod.hvd_run_fail, np=2, env=gloo,
+                                      port=free_port(), device=device,
+                                      prefix_output=False),
+        "executor": executor}
+    with concurrent.futures.ThreadPoolExecutor(len(calls)) as pool:
+        done = list(pool.map(lambda kv: timed_call(*kv), calls.items()))
+    res = {key: out for key, out, _ in done}
+    ms = {key: t for key, _, t in done}
+    require(res["run2"] is not None and res["run1"] is not None
+            and res["executor"] is not None,
+            f"hvd_run: a launch failed: {res}")
+    # the failing function's launch must have raised RuntimeError
+    res["failure"] = res["failure"] is None
+    res["counts"], res["remote"] = res.pop("executor")
+    emit("hvd_run", **res, ms=ms, seconds=time.monotonic() - t_phase)
+    bad = hvd_run_problems(res)
+    require(not bad, f"hvd_run: {bad}")
+    return res
 
 
 def mnist_phase(fa, fx, dev):
@@ -3430,6 +3946,9 @@ def main() -> int:
     if "--elastic-worker" in sys.argv:
         return elastic_child(
             dev, sys.argv[sys.argv.index("--elastic-worker") + 1])
+    if "--recover-worker" in sys.argv:
+        return recover_child(
+            dev, sys.argv[sys.argv.index("--recover-worker") + 1])
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import convert, training
     from horovod_tpu_torch.models import generate as gen
@@ -3572,7 +4091,11 @@ def main() -> int:
     finally:
         hvd.shutdown()
     timed("train_resnet_dp2", train_resnet_dp2_phase)
-    timed("elastic_resnet", elastic_resnet_phase)
+    elastic = timed("elastic_resnet", elastic_resnet_phase)
+    timed("recover_resnet", recover_resnet_phase,
+          full_sync={"bytes": sorted(set(elastic["sync_bytes"])),
+                     "ms": elastic["sync_ms"]})
+    timed("hvd_run", hvd_run_phase)
     timed("mnist", mnist_phase, fa, fx, dev)
     timed("parity_bert", parity_bert_phase, convert, dev)
     timed("parity_resnet", parity_resnet_phase, convert, dev)

@@ -16,7 +16,9 @@ engine (the eager wire format); the ``HOROVOD_SERVE_*`` knobs likewise,
 read by ``serving/plane.py``; ``HOROVOD_ELASTIC`` by ``runtime.init``
 (the elastic driver's epoch assignment); ``HOROVOD_HIERARCHICAL_*`` and
 ``HOROVOD_TAIL_*`` by the engine and the transform; ``HOROVOD_TIMELINE*``,
-``HOROVOD_STALL_*`` and ``HOROVOD_AUTOTUNE*`` by ``runtime.init``.
+``HOROVOD_STALL_*`` and ``HOROVOD_AUTOTUNE*`` by ``runtime.init``;
+``HOROVOD_RECOVERY*`` by ``elastic/recovery.RecoveryAgent`` (its
+defaults).
 """
 
 from __future__ import annotations
@@ -31,14 +33,10 @@ WIRE_FORMATS = ("fp8_e4m3", "fp8_e5m2", "int8")
 #: HOROVOD_TAIL_POLICY's values (the JAX package's
 #: ``ops.collectives.TAIL_POLICIES``)
 TAIL_POLICIES = ("strict", "bounded", "stale")
-#: HOROVOD_RECOVERY's values (the JAX package's
-#: ``elastic.recovery.RECOVERY_MODES``)
-RECOVERY_MODES = ("off", "neighbor", "parity")
 
 #: (environment variable, Config field, ROADMAP.md item) of every knob
 #: whose feature is not ported yet
 UNPORTED = (
-    ("HOROVOD_RECOVERY", "recovery", "A8"),
     ("HOROVOD_SLO", "slo", "A9"),
 )
 
@@ -497,6 +495,7 @@ class Config:
         parse_mp_axes(c.serve_mp_axes)   # validate at config time
         c.recovery = ((_env_str("HOROVOD_RECOVERY", c.recovery)
                        or "off").strip().lower())
+        from .elastic.recovery import RECOVERY_MODES
         if c.recovery not in RECOVERY_MODES:
             raise ValueError(
                 f"HOROVOD_RECOVERY must be one of "

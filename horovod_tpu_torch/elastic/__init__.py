@@ -9,8 +9,12 @@ for a module and its optimizer, :class:`ObjectState` for picklable
 attributes); on a collective failure (a peer died) restore the last
 commit and re-initialize; on a membership change (``HostsUpdatedInterrupt``
 from the discovery driver, ``driver.py``) re-sync state from the new rank
-0 and continue.  Checkpointless recovery (``HOROVOD_RECOVERY``) is not
-ported yet (ROADMAP.md A8).
+0 and continue.  Checkpointless recovery (``HOROVOD_RECOVERY``,
+``recovery.py``): a ``RecoveryAgent`` pushes each rank's ZeRO tiles to a
+peer at the transform's boundaries (``DistributedGradientTransform(...,
+recovery=agent)``), and a replacement rebuilds its own from the fleet
+(``agent.rebuild()``, ``optim.restore_dist_state``); the driver holds the
+``RecoveryDirectory``.
 """
 
 from .discovery import (  # noqa: F401

@@ -18,8 +18,16 @@ epoch assignment via ``fetch_assignment``).  The driver only has to hand
 out consistent assignments and bump the epoch.  A store per epoch needs
 no driver-hosted KV store and no sweep of dead epochs' keys (the JAX
 package's ``runner/kv.py`` and ``_prune_dead_epoch_keys``).  Not ported
-yet (ROADMAP.md): the job scraper (``metrics/jobscrape.py``, A9) and the
-checkpointless-recovery directory and its RPCs (A8).
+yet: the job scraper (``metrics/jobscrape.py``, ROADMAP.md A9).
+
+Checkpointless recovery (``elastic/recovery.py``): the driver serves the
+``recovery_plan`` RPC (each rank's notification endpoint, where its
+agent takes pushes and pulls) and ``recovery_note`` (a delivered push or
+a finished rebuild, the latter emitted as ``worker_rebuilt``), holds the
+:class:`~horovod_tpu_torch.elastic.recovery.RecoveryDirectory` they feed,
+prunes it on a worker's death and at every re-form, and serves it at GET
+``recovery/stats`` (the JAX driver serves that view through its job
+scraper).
 
 Two additions beyond the reference (the JAX package's, kept):
 
@@ -30,7 +38,8 @@ Two additions beyond the reference (the JAX package's, kept):
   longer expire while newcomers are importing.
 * **Lifecycle events** — ``epoch_applied`` / ``epoch_released`` /
   ``worker_running`` / ``epoch_formed`` / ``worker_exit`` / ``job_done`` /
-  ``below_min`` are observable via :meth:`ElasticDriver.add_listener` and
+  ``below_min`` / ``worker_rebuilt`` are observable via
+  :meth:`ElasticDriver.add_listener` and
   :meth:`ElasticDriver.wait_event`, so tests and tooling synchronize on
   the exact transition they need instead of wall-clock windows.
 
@@ -160,6 +169,11 @@ class ElasticDriver:
         # requeue its in-flight leases so mid-traffic churn loses zero
         # requests (docs/serving.md)
         self._serving = None
+        # checkpointless-recovery directory: who holds redundancy for
+        # whom, fed by workers' recovery_note RPCs and pruned on
+        # worker_gone / re-form like the serving rotation state
+        from .recovery import RecoveryDirectory
+        self._recovery = RecoveryDirectory()
         # ranks of the epoch just replaced whose processes had died: the
         # hosts_updated push names them, so survivors stop waiting on them
         self._lost_ranks: List[int] = []
@@ -215,7 +229,10 @@ class ElasticDriver:
             "register_notification": self._handle_register_notification,
             "request_reform": self._handle_request_reform,
             "straggler": self._handle_straggler,
+            "recovery_plan": self._handle_recovery_plan,
+            "recovery_note": self._handle_recovery_note,
         }, port=self.port)
+        self._server.add_get_routes({"recovery/stats": self._recovery_stats})
 
     # --- serving plane -----------------------------------------------------
 
@@ -236,6 +253,10 @@ class ElasticDriver:
     def _serve_stats(self):
         return (200, "application/json",
                 json.dumps(self._serving.stats(), separators=(",", ":")))
+
+    def _recovery_stats(self):
+        return (200, "application/json",
+                json.dumps(self._recovery.stats(), separators=(",", ":")))
 
     # --- lifecycle events --------------------------------------------------
 
@@ -513,6 +534,41 @@ class ElasticDriver:
                 payload["addr"], int(payload["port"]))
         return {"ok": True}
 
+    def _handle_recovery_plan(self, payload):
+        """Current peer map for the checkpointless-recovery plane: a
+        worker asks where its ring neighbor / parity peers listen
+        (their notification servers double as the tile push/pull
+        endpoints).  Peers missing from the map simply have not
+        registered yet — the agent re-polls under its pull deadline."""
+        with self._lock:
+            peers = {}
+            wids = {}
+            for wid, asg in self._assignment.items():
+                ep = self._notif.get(wid)
+                if ep is None:
+                    continue
+                peers[str(asg["rank"])] = [ep[0], int(ep[1])]
+                wids[str(asg["rank"])] = int(wid)
+            return {"ok": True, "epoch": self._epoch,
+                    "size": len(self._assignment),
+                    "peers": peers, "wids": wids}
+
+    def _handle_recovery_note(self, payload):
+        """A worker reports a delivered redundancy push (or a completed
+        rebuild): the directory is what lets a driver log say how a
+        worker was rebuilt, and what gets pruned on churn."""
+        res = self._recovery.note(payload)
+        if payload.get("kind") == "rebuilt":
+            self._emit("worker_rebuilt",
+                       worker_id=int(payload.get("src_worker", -1)),
+                       rank=int(payload.get("src_rank", -1)),
+                       epoch=int(payload.get("epoch", -1)),
+                       step=int(payload.get("step", -1)),
+                       source=payload.get("source", ""),
+                       seconds=round(float(payload.get("seconds", 0.0)),
+                                     6))
+        return res
+
     # --- assignment / spawn ------------------------------------------------
 
     def _discover(self) -> Dict[str, int]:
@@ -655,6 +711,10 @@ class ElasticDriver:
             # keep theirs (their processes keep serving through the
             # re-form)
             self._serving.retain_workers(assigned_wids)
+        # recovery directory: drop tile entries whose source OR holder
+        # left the epoch — a departed worker's ghost versions must not
+        # shadow a live peer's fresher push after the re-form
+        self._recovery.retain_workers(assigned_wids)
         if self.verbose:
             print(f"elastic: epoch {epoch} — {np_} slots on "
                   f"{list(hosts)}", file=sys.stderr)
@@ -861,6 +921,10 @@ class ElasticDriver:
                 # the worker's in-flight serving leases back into the
                 # admission queue — zero lost requests under churn
                 self._serving.worker_gone(w.worker_id)
+            # prune the dead worker's recovery-directory entries (as
+            # source and as holder): the replacement's rebuild must see
+            # only redundancy that actually survives on live peers
+            self._recovery.worker_gone(w.worker_id)
             if w.expected_exit:
                 self._emit("worker_exit", worker_id=w.worker_id, rc=rc,
                            kind="expected")

@@ -22,6 +22,17 @@ nothing to do.
 fresh (:meth:`State.sync_root`), where the JAX package always takes rank
 0: a worker the driver spawns into a running job holds only its initial
 state, and when rank 0 dies its replacement takes rank 0.
+
+A ``DistributedGradientTransform`` state (``_DistState``) held by a
+:class:`TensorState` is per-rank: under ``sharded_update`` its inner
+optimizer's state lives on this rank's own ZeRO tiles, which are other
+rows on every rank.  ``commit``/``restore`` snapshot and put back its
+inner optimizer's state, error-feedback residual, accumulator and count
+in place, and ``sync`` leaves it out: the root's tile would be the wrong
+rows for every other rank.  A replacement gets its tile back from the
+fleet (``elastic.recovery.RecoveryAgent.rebuild`` and
+``optim.restore_dist_state``).  The JAX package's ``ArrayState`` treats
+the state as any pytree and broadcasts it from rank 0.
 """
 
 from __future__ import annotations
@@ -185,6 +196,11 @@ def _is_tree(x) -> bool:
                 and any(torch.is_tensor(t) for t in tree_leaves(x))))
 
 
+def _is_dist_state(x) -> bool:
+    from ..optim.distributed import _DistState
+    return isinstance(x, _DistState)
+
+
 def _snapshot(tree):
     if torch.is_tensor(tree):
         return tree.detach().clone()
@@ -230,56 +246,63 @@ class TensorState(State):
     sampler): the counterpart of the JAX package's ``ArrayState``.
 
     Keyword arguments that are tensors or dicts/lists holding tensors are
-    trees; the rest are scalars.  Both read and write as attributes
-    (``state.params``, ``state.step``).  ``commit`` clones every leaf on
-    its device, ``restore`` copies the commit back into the live tensors
-    in place and drops their gradients, and ``sync`` broadcasts every
-    leaf from :meth:`sync_root` in place (``broadcast_parameters``) and the
-    scalars by pickle (``broadcast_object``).
+    trees; a ``DistributedGradientTransform`` state is per-rank (see the
+    module docstring); the rest are scalars.  All read and write as
+    attributes (``state.params``, ``state.step``).  ``commit`` clones
+    every leaf on its device, ``restore`` copies the commit back into the
+    live tensors in place and drops their gradients, and ``sync``
+    broadcasts every leaf from :meth:`sync_root` in place
+    (``broadcast_parameters``) and the scalars by pickle
+    (``broadcast_object``).
     """
 
     def __init__(self, **trees):
         self._trees: Dict[str, Any] = {}
+        self._ranked: Dict[str, Any] = {}
         self._saved: Dict[str, Any] = {}
         self._scalar_state: Dict[str, Any] = {}
         super().__init__()
         for name, tree in trees.items():
             if _is_tree(tree):
                 self._trees[name] = tree
+            elif _is_dist_state(tree):
+                self._ranked[name] = tree
             else:
                 self._scalar_state[name] = tree
         self.save()
 
     def __getattr__(self, name):
-        trees = object.__getattribute__(self, "_trees")
-        if name in trees:
-            return trees[name]
-        scalars = object.__getattribute__(self, "_scalar_state")
-        if name in scalars:
-            return scalars[name]
+        for attr in ("_trees", "_ranked", "_scalar_state"):
+            held = object.__getattribute__(self, attr)
+            if name in held:
+                return held[name]
         raise AttributeError(name)
 
     def __setattr__(self, name, value):
         if name.startswith("_"):
             object.__setattr__(self, name, value)
             return
-        if "_trees" in self.__dict__ and name in self._trees:
-            self._trees[name] = value
-        elif "_scalar_state" in self.__dict__ and \
-                name in self._scalar_state:
-            self._scalar_state[name] = value
-        else:
-            object.__setattr__(self, name, value)
+        for attr in ("_trees", "_ranked", "_scalar_state"):
+            if name in self.__dict__.get(attr, ()):
+                self.__dict__[attr][name] = value
+                return
+        object.__setattr__(self, name, value)
 
     def save(self):
+        from ..optim.distributed import _snapshot_dist
         self._saved = {
             "trees": {k: _snapshot(v) for k, v in self._trees.items()},
+            "ranked": {k: _snapshot_dist(v)
+                       for k, v in self._ranked.items()},
             "scalars": copy.deepcopy(self._scalar_state),
         }
 
     def restore(self):
+        from ..optim.distributed import _restore_dist
         for k, v in self._saved.get("trees", {}).items():
             self._trees[k] = _restore_into(v, self._trees.get(k))
+        for k, v in self._saved.get("ranked", {}).items():
+            _restore_dist(self._ranked[k], v)
         self._scalar_state = copy.deepcopy(self._saved.get("scalars", {}))
 
     def sync(self):

@@ -18,6 +18,10 @@ it), and tells the runtime which peers are gone, so a negotiation round
 waiting on a SIGKILLed peer fails at once instead of at its deadline
 (``runtime.note_superseded``).  The JAX package gets that bound from the
 coordination service's heartbeat.
+
+The listener's server also serves ``recovery_push``/``recovery_pull`` for
+the process's installed ``RecoveryAgent`` (``elastic/recovery.py``), as
+the JAX worker's does.
 """
 
 from __future__ import annotations
@@ -209,8 +213,15 @@ class WorkerNotificationManager:
     """In-worker listener the driver pushes host updates to."""
 
     def __init__(self):
+        from . import recovery as _recovery
         self._listeners = []
-        self._server = JsonRpcServer({"hosts_updated": self._on_update})
+        # recovery_push / recovery_pull: the checkpointless-recovery plane
+        # — peers land redundancy frames here and a rejoining worker
+        # pulls its lost tiles back (elastic/recovery.py)
+        self._server = JsonRpcServer(
+            {"hosts_updated": self._on_update,
+             "recovery_push": _recovery.push_handler,
+             "recovery_pull": _recovery.pull_handler})
         self._registered = False
 
     def init(self):

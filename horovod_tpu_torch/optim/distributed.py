@@ -44,17 +44,29 @@ one bucket at a time: per-bucket Adasum is another function.  Under
 each full-width bucket of :func:`fused_reduce_tree` is reduced in three
 stages with ``HOROVOD_TAIL_POLICY`` on the cross stage and its own stale
 state (``ops/collectives.hierarchical_allreduce``; JAX
-``fused_tail_reduce_tree``).  ``param_specs`` is ROADMAP.md A6; recovery
-A8; health taps A9.
+``fused_tail_reduce_tree``).
+
+``recovery`` (checkpointless recovery, ``elastic/recovery.py``): after
+the update of every ``recovery.every``-th accumulation boundary the
+transform hands the boundary ordinal, this rank and
+:func:`recovery_payload` of its state (the inner optimizer's state, the
+error-feedback residual and ``count``) to
+``elastic.recovery.deliver_boundary`` (JAX: an in-jit tap through
+``jax.debug.callback``); off-cadence boundaries copy nothing to the host.
+A replacement worker installs the pulled frame into a fresh ``init``
+with :func:`restore_dist_state`.  ``param_specs`` is ROADMAP.md A6;
+health taps A9.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 from contextlib import contextmanager
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -542,6 +554,179 @@ class _DistState:
     params: Any = None
 
 
+# ---------------------------------------------------------------------------
+# checkpointless recovery: the boundary snapshot and its restore
+# ---------------------------------------------------------------------------
+
+def _inner_state(opt) -> dict:
+    """The inner optimizer's state as ``{"inner/<index>/<key>": value}``,
+    in the order every rank agrees on: parameter index (over the parameter
+    groups, in order), then sorted state key.  Values are tensors or
+    Python scalars (e.g. ``AdamWLP``'s step count)."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    return {f"inner/{i}/{key}": st[key]
+            for i, st in enumerate(opt.state.get(p, {}) for p in params)
+            for key in sorted(st) if st[key] is not None}
+
+
+def _state_values(state: _DistState) -> dict:
+    """``{name: value}`` of what the recovery frame protects: ``count``,
+    the inner optimizer's state (this rank's ZeRO tiles' under
+    ``sharded_update``) and the error-feedback residual.  The accumulator
+    is left out: it is zero at every boundary."""
+    out = {"count": state.count, **_inner_state(state.inner)}
+    if state.residual is not None:
+        out.update({f"residual/{i}": leaf for i, leaf in
+                    enumerate(tree_leaves(state.residual))})
+    return out
+
+
+def _numpy_dtype(t: torch.Tensor):
+    """numpy's dtype for ``t``'s, or raw bytes of its item size (``V2``
+    for bfloat16) where numpy has none: the frame stays bit-exact."""
+    try:
+        return torch.empty((), dtype=t.dtype).numpy().dtype
+    except TypeError:
+        return np.dtype(f"V{t.element_size()}")
+
+
+def _to_numpy(v) -> np.ndarray:
+    if not torch.is_tensor(v):
+        return np.asarray(v)
+    t = v.detach().cpu().contiguous()
+    dt = _numpy_dtype(t)
+    if dt.kind == "V":
+        return t.reshape(-1).view(torch.uint8).numpy().view(dt).reshape(
+            t.shape)
+    return t.numpy().copy()
+
+
+def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``arr``'s bytes as a tensor of ``like``'s dtype, shape and device."""
+    raw = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1).view(
+        np.uint8).copy())
+    return raw.view(like.dtype).reshape(like.shape).to(like.device)
+
+
+def recovery_payload(state: _DistState) -> dict:
+    """The ``{name: numpy array}`` snapshot the recovery tap hands to
+    ``elastic.recovery.deliver_boundary`` for ``state``: ``count``, the
+    inner optimizer's state (``inner/<param index>/<key>``; this rank's
+    ZeRO tiles' under ``sharded_update``) and the error-feedback residual
+    (``residual/<leaf>``).  bfloat16 tensors travel as their raw bytes."""
+    return {n: _to_numpy(v) for n, v in _state_values(state).items()}
+
+
+def _expected_values(state: _DistState) -> dict:
+    """What a payload must hold for ``state``: its own values, with the
+    inner optimizer's lazily made state materialized on a copy of it (one
+    step on zero gradients), as a fresh ``init`` holds none yet."""
+    opt = state.inner
+    params = [p for g in opt.param_groups for p in g["params"]]
+    if any(p not in opt.state for p in params):
+        opt = copy.deepcopy(opt)
+        with torch.no_grad():
+            for g in opt.param_groups:
+                for p in g["params"]:
+                    p.grad = torch.zeros_like(p)
+        opt.step()
+    return _state_values(dataclasses.replace(state, inner=opt))
+
+
+def restore_dist_state(state: _DistState, payload) -> _DistState:
+    """Install a recovered snapshot into ``state``, a fresh ``init`` of
+    the SAME transform on the SAME parameters, and return it.
+
+    The restore is bit-exact: every name the state needs must be in the
+    payload with its shape and dtype (a re-form that resized the fleet
+    changes the tile layout), else ``ValueError``.  The accumulator is
+    zeroed, as at every boundary."""
+    if "count" not in payload:
+        raise ValueError("recovered payload is missing the step counter")
+    want = _expected_values(state)
+    got = {}
+    for name, like in want.items():
+        if name == "count":
+            continue
+        if name not in payload:
+            raise ValueError(
+                f"recovered payload is missing {name} — snapshot taken by "
+                f"a different transform configuration?")
+        arr = np.asarray(payload[name])
+        if torch.is_tensor(like):
+            dtype, shape = _numpy_dtype(like), tuple(like.shape)
+        else:
+            dtype, shape = np.asarray(like).dtype, ()
+        if arr.shape != shape or arr.dtype != dtype:
+            raise ValueError(
+                f"recovered {name} is {arr.dtype}{arr.shape}, expected "
+                f"{dtype}{shape} — the tile layout changed (e.g. the fleet "
+                f"was resized); checkpointless recovery covers "
+                f"replacement-at-same-size re-forms only")
+        got[name] = (_from_numpy(arr, like) if torch.is_tensor(like)
+                     else type(like)(arr.item()))
+    got["count"] = int(np.asarray(payload["count"]))
+    _install(state, got)
+    for a in (tree_leaves(state.acc) if state.acc is not None else []):
+        a.zero_()
+    return state
+
+
+@torch.no_grad()
+def _install(state: _DistState, values: dict, exact: bool = False) -> None:
+    """Set ``values`` (named as :func:`_state_values` names them) into
+    ``state`` in place: into the live tensors where they exist, else as
+    copies.  ``exact`` also drops the inner optimizer's state that
+    ``values`` does not name (a commit taken before it existed)."""
+    opt = state.inner
+    params = [p for g in opt.param_groups for p in g["params"]]
+    if exact:
+        for i, p in enumerate(params):
+            st = opt.state.get(p)
+            for key in [k for k in (st or ()) if f"inner/{i}/{k}" not in
+                        values]:
+                del st[key]
+            if p in opt.state and not opt.state[p]:
+                del opt.state[p]
+    leaves = (tree_leaves(state.residual) if state.residual is not None
+              else [])
+    for name, value in values.items():
+        if name == "count":
+            state.count = int(value)
+            continue
+        kind, idx = name.split("/")[:2]
+        if kind == "residual":
+            leaves[int(idx)].copy_(value)
+            continue
+        key = name.split("/", 2)[2]
+        st = opt.state[params[int(idx)]]
+        if torch.is_tensor(value) and torch.is_tensor(st.get(key)):
+            st[key].copy_(value)
+        else:
+            st[key] = value.clone() if torch.is_tensor(value) else value
+
+
+def _snapshot_dist(state: _DistState) -> dict:
+    """A copy of ``state``'s per-rank values on their devices (an elastic
+    commit): what :func:`_state_values` names, and the accumulator."""
+    snap = {n: (v.detach().clone() if torch.is_tensor(v)
+                else copy.deepcopy(v))
+            for n, v in _state_values(state).items()}
+    snap["acc"] = (None if state.acc is None else
+                   tree_map(lambda a: a.detach().clone(), state.acc))
+    return snap
+
+
+@torch.no_grad()
+def _restore_dist(state: _DistState, snap: dict) -> None:
+    """Put a :func:`_snapshot_dist` copy back into ``state`` in place."""
+    _install(state, {n: v for n, v in snap.items() if n != "acc"},
+             exact=True)
+    for a, b in zip(tree_leaves(state.acc), tree_leaves(snap["acc"])):
+        if a is not None:
+            a.copy_(b)
+
+
 class GradientTransformation(NamedTuple):
     """``init(params) -> state``; ``update(grads, state, params=None) ->
     state``, the parameters updated in place.  ``update`` is ``reduce``
@@ -584,6 +769,8 @@ def DistributedGradientTransform(
     the updated tiles back into the parameters.  See the module docstring
     for the options; their defaults come from ``HOROVOD_SHARDED_UPDATE``,
     ``HOROVOD_COMPRESSION`` (+ ``_BLOCK_SIZE``) and ``HOROVOD_OVERLAP``.
+    ``recovery`` (a ``RecoveryAgent``, whose ``every`` sets the cadence)
+    arms the boundary snapshot; it refuses ``overlap``.
     Under ``overlap`` a wire format quantizes without error feedback and
     the residual stays None, as in the JAX package.
     """
@@ -591,8 +778,6 @@ def DistributedGradientTransform(
             ("health", bool(health), "the in-step health taps", "A9"),
             ("health_check_every", health_check_every is not None,
              "the divergence sentinel", "A9"),
-            ("recovery", recovery is not None, "checkpointless recovery",
-             "A8"),
             ("param_specs", param_specs is not None, "spec-aware reduction",
              "A6"),
             ("model_axes", model_axes is not None, "spec-aware reduction",
@@ -638,9 +823,27 @@ def DistributedGradientTransform(
             process_set=None, op=op, threshold_bytes=threshold_bytes,
             prescale=prescale_factor, postscale=postscale_factor,
             sharded=sharded, fmt=fmt, k=k, layers_key=overlap_layers)
+    if recovery is not None and ov_plan is not None:
+        raise ValueError(
+            "recovery is not supported with overlap=True: overlapped "
+            "steps dispatch buckets inside the backward scan and never "
+            "materialize the boundary state in one place to snapshot — "
+            "disable one of the two")
+    rc_every = (max(int(getattr(recovery, "every", 1)), 1)
+                if recovery is not None else 1)
     kw = dict(op=op, threshold_bytes=threshold_bytes,
               prescale_factor=prescale_factor,
               postscale_factor=postscale_factor)
+
+    def _emit_recovery(boundary_ord: int, state: _DistState) -> None:
+        """The cadence-gated boundary snapshot: the host copy happens only
+        on the cadence."""
+        if boundary_ord % rc_every:
+            return
+        from ..elastic import recovery as _recovery
+        _recovery.deliver_boundary(boundary_ord,
+                                   api._ps(process_set).rank(),
+                                   recovery_payload(state))
 
     def init_fn(params) -> _DistState:
         ps = api._ps(process_set)
@@ -745,6 +948,11 @@ def DistributedGradientTransform(
                              "init()")
         if k == 1:
             apply_fn(reduce_fn(grads, state), state)
+            if recovery is not None:
+                # the recovery cadence needs a step counter: with the tap
+                # armed, count advances every update
+                state.count += 1
+                _emit_recovery(state.count, state)
             return state
         state.count += 1
         boundary = state.count % k == 0
@@ -772,6 +980,10 @@ def DistributedGradientTransform(
             apply_fn(_reduce(state.acc, state), state)
             for a in tree_leaves(state.acc):
                 a.zero_()
+            if recovery is not None:
+                # the cadence divides the BOUNDARY ordinal, not the
+                # micro-step counter
+                _emit_recovery(state.count // k, state)
         return state
 
     if ov_plan is not None:

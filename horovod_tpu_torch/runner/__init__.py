@@ -7,10 +7,13 @@ exports the reference's §3.4 environment contract
 (HOROVOD_RANK/SIZE/LOCAL_RANK/..., and the rendezvous address and port of
 rank 0's ``TCPStore``), and streams rank-prefixed output;
 ``--host-discovery-script`` starts the elastic driver instead
-(``elastic/driver.py``).  ``rpc.py`` and ``secret.py`` are the
-HMAC-signed JSON RPC the elastic driver and the serving plane speak.
-``runner/api.py``'s ``hvd.run`` and ``runner/executor.py`` are not ported
-yet (ROADMAP.md A8).
+(``elastic/driver.py``).  :func:`run` (``hvd.run``) launches a pickled
+function on ``np`` workers and returns their results by rank;
+:class:`TpuExecutor` keeps a pool of initialized workers for repeated
+calls.  ``rpc.py`` and ``secret.py`` are the HMAC-signed JSON RPC the
+elastic driver, the serving plane and the recovery plane speak.
 """
 
+from .api import run  # noqa: F401
+from .executor import TpuExecutor  # noqa: F401
 from .launch import main, parse_args  # noqa: F401

@@ -806,3 +806,110 @@ def test_chip_smoke_elastic_phase_on_the_cpu(tmp_path, capsys):
     assert [size for _, size in row["formed"]] == [2, 2, 1, 2]
     assert row["steps_reexecuted"] == 1 and row["recover_s"] > 0
     assert len(row["step_ms_size1"]) == 2
+
+
+# --- recover_resnet's and hvd_run's gates -----------------------------------
+
+def _recover_records(**edit):
+    """Canned records of a recover_resnet run that passes its gates: rank
+    1 rebuilt (epoch 0, step 3), rank 0 restored its commit of step 3,
+    steps 4-6 of both ranks equal the reference's.  ``edit`` replaces the
+    rebuilt record's fields (``tile``, ``version``, ``time_count``) or
+    one step's (``weights_5``: rank 0's weight digest of step 5)."""
+    w = {"x": torch.linspace(-1, 1, 8)}
+    ref = [{"kind": "step", "rank": r, "step": s, "loss": 1.0 + s / 8,
+            "weights": chip_smoke.tree_digest(w), "bn": [1.0, "b"],
+            "tile": [f"t{r}{s}", True]}
+           for r in (0, 1) for s in range(3, 7)]
+    recs = [dict(r) for r in ref if r["step"] >= 4]
+    recs.append({"kind": "restore", "rank": 0, "step": 3})
+    rebuilt = {"kind": "rebuilt", "rank": 1, "version": [0, 3],
+               "tile": ["t13", True], "time_count": 1}
+    rebuilt.update({k: v for k, v in edit.items()
+                    if k in ("tile", "version", "time_count")})
+    recs.append(rebuilt)
+    if "weights_5" in edit:
+        next(r for r in recs if r["kind"] == "step" and r["rank"] == 0
+             and r["step"] == 5)["weights"] = edit["weights_5"]
+    return recs, ref
+
+
+def test_recover_problems_pass_on_a_good_run():
+    recs, ref = _recover_records()
+    stats = {"rebuilds": [{"src_rank": 1, "step": 3}]}
+    assert chip_smoke.recover_problems(recs, ref, stats) == []
+
+
+def test_recover_problems_fail_canned_bad_records():
+    stats = {"rebuilds": [{"src_rank": 1}]}
+    bad = chip_smoke.recover_problems(*_recover_records(version=[0, 2]),
+                                      stats)
+    assert any("rebuilt version [0, 2]" in b for b in bad)
+    bad = chip_smoke.recover_problems(*_recover_records(
+        tile=["t13", False]), stats)
+    assert "the rebuilt tile is all zeros" in bad
+    bad = chip_smoke.recover_problems(*_recover_records(
+        tile=["t03", True]), stats)
+    assert len(bad) == 1 and "not the reference rank 1's" in bad[0]
+    flipped = {"x": torch.linspace(-1, 1, 8)}
+    flipped["x"].view(torch.int32)[3] ^= 1    # one bit of the weights
+    bad = chip_smoke.recover_problems(*_recover_records(
+        weights_5=chip_smoke.tree_digest(flipped)), stats)
+    assert len(bad) == 1 and bad[0].startswith("rank 0 step 5: weights")
+    bad = chip_smoke.recover_problems(*_recover_records(), {"rebuilds": []})
+    assert bad == ["recovery/stats lists no rebuild of rank 1: "
+                   "{'rebuilds': []}"]
+    bad = chip_smoke.recover_problems(*_recover_records(time_count=0),
+                                      stats)
+    assert bad == ["hvd_recovery_time_seconds count 0"]
+    recs, ref = _recover_records()
+    assert chip_smoke.recover_problems(
+        [r for r in recs if r["kind"] != "rebuilt"], ref, stats) == \
+        ["0 rebuilds recorded"]
+
+
+def _hvd_run_res(**over):
+    name = "NVIDIA H100 80GB HBM3"
+    res = {"run2": [(0, 2, [1.0] * 4, name), (1, 2, [1.0] * 4, name)],
+           "run1": [(0, 1, [0.0] * 4, name)],
+           "remote": [(0, 2, [1.0] * 4, name), (1, 2, [1.0] * 4, name)],
+           "counts": [[1, 1], [2, 2]], "failure": True}
+    res.update(over)
+    return res
+
+
+def test_hvd_run_problems_pass_and_fail():
+    assert chip_smoke.hvd_run_problems(_hvd_run_res()) == []
+    res = _hvd_run_res()
+    bad = chip_smoke.hvd_run_problems(_hvd_run_res(
+        run2=res["run2"][::-1]))
+    assert bad == ["run(np=2): results in rank order [1, 0]"]
+    bad = chip_smoke.hvd_run_problems(_hvd_run_res(
+        run1=[(0, 1, [1.0] * 4, "x")]))
+    assert len(bad) == 1 and "run(np=1): rank 0 got size 1" in bad[0]
+    assert chip_smoke.hvd_run_problems(_hvd_run_res(
+        counts=[[1, 1], [1, 1]])) == [
+        "the executor's counter read [[1, 1], [1, 1]]"]
+    assert chip_smoke.hvd_run_problems(_hvd_run_res(failure=False)) == [
+        "a failing function did not raise RuntimeError"]
+
+
+_RECOVER_REHEARSAL = _REHEARSAL.replace(
+    "chip_smoke.elastic_child(", "chip_smoke.recover_child(")
+
+
+def test_chip_smoke_recover_phase_on_the_cpu(tmp_path, capsys):
+    """chip_smoke.py's recover_resnet, whole, with workers that run a
+    tiny fp32 ResNet-18 on the CPU: the reference run, the kill in rank
+    1's backward pass of step 4, the re-form, the replacement's rebuild
+    from the survivor, and every gate of the phase."""
+    wrapper = tmp_path / "worker.py"
+    wrapper.write_text(_RECOVER_REHEARSAL.format(
+        root=str(pathlib.Path(__file__).resolve().parents[1])))
+    row = chip_smoke.recover_resnet_phase(worker_script=wrapper)
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "phase"] == "recover_resnet"
+    assert row["rebuilt_version"] == [0, 3]
+    assert [size for _, size in row["formed"]] == [2, 2]
+    assert 0 < row["priced_tile_bytes"] < row["frame_bytes"]
+    assert row["recover_s"] > 0 and row["push_ms"]

@@ -231,7 +231,8 @@ def test_unported_knobs_raise_naming_their_item(monkeypatch, env, field,
 
 def test_elastic_knob_parses_and_elastic_is_ported(monkeypatch):
     """HOROVOD_ELASTIC=1 validates (its field as the JAX package parses
-    it) and no longer names A8; HOROVOD_RECOVERY still does."""
+    it) and no longer names A8; nor does HOROVOD_RECOVERY, ported since
+    (``tests/test_torch_recovery.py``)."""
     import os
     from horovod_tpu import config as jconfig
     for k in [k for k in os.environ if k.startswith("HOROVOD_")]:
@@ -243,7 +244,8 @@ def test_elastic_knob_parses_and_elastic_is_ported(monkeypatch):
         jconfig.Config.from_env())
     unported = {u[0]: u[2] for u in tconfig.UNPORTED}
     assert "HOROVOD_ELASTIC" not in unported
-    assert unported["HOROVOD_RECOVERY"] == "A8"
+    assert "HOROVOD_RECOVERY" not in unported
+    assert "A8" not in unported.values()
 
 
 def test_config_copies_the_knob_table(monkeypatch):

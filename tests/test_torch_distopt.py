@@ -146,11 +146,16 @@ def test_transform_options_and_refusals():
     try:
         make = tr._fp32_adamw_lp(1e-2)
         for kw, item in (({"health": True}, "A9"),
-                         ({"recovery": object()}, "A8"),
                          ({"param_specs": {}}, "A6")):
             with pytest.raises(NotImplementedError,
                                match=f"ROADMAP.md {item}"):
                 hvd.DistributedGradientTransform(make, **kw)
+        # recovery is ported (tests/test_torch_recovery.py): any object
+        # with an ``every`` arms the tap, and overlap refuses it as in JAX
+        hvd.DistributedGradientTransform(make, recovery=object())
+        with pytest.raises(ValueError, match="overlap=True"):
+            hvd.DistributedGradientTransform(make, recovery=object(),
+                                             overlap=True)
         # Adasum at one rank reduces to the gradient itself
         params = {k: tr._t(v) for k, v in tr.zparams().items()}
         tx = hvd.DistributedGradientTransform(make, op=hvd.Adasum,

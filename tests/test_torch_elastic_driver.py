@@ -6,6 +6,7 @@ to both drivers with the same assignments, spawns, notifications and
 events.  No worker processes (``tests/test_torch_elastic_integration.py``
 runs real ones)."""
 
+import json
 import threading
 import time
 
@@ -330,13 +331,27 @@ def test_hosts_updated_push_names_the_epoch_and_the_dead_ranks():
 
 
 def test_driver_exposes_no_recovery_or_kv_plane(nospawn):
-    """A store per epoch: no driver-hosted KV store, no dead-epoch sweep,
-    and the checkpointless-recovery RPCs wait for their ROADMAP item."""
+    """A store per epoch: no driver-hosted KV store and no dead-epoch
+    sweep.  The checkpointless-recovery RPCs are ported since: the plan
+    answers with the epoch's peers, a note lands in the directory, a
+    rebuild note emits ``worker_rebuilt`` and GET ``recovery/stats``
+    serves the directory (the JAX driver serves it through its job
+    scraper, A9)."""
+    from horovod_tpu_torch.metrics import aggregate
     assert not hasattr(nospawn, "_kv_server")
     assert not hasattr(nospawn, "_prune_dead_epoch_keys")
-    with pytest.raises(Exception):
-        json_request("localhost", nospawn.port, "recovery_plan", {},
-                     retries=0)
+    plan = json_request("localhost", nospawn.port, "recovery_plan", {},
+                        retries=0)
+    assert plan["ok"] and plan["peers"] == {} and "epoch" in plan
+    note = {"kind": "rebuilt", "src_worker": 5, "src_rank": 1, "epoch": 0,
+            "step": 3, "bytes": 64, "source": "neighbor", "seconds": 0.5}
+    assert json_request("localhost", nospawn.port, "recovery_note", note,
+                        retries=0)["ok"]
+    _, ev = nospawn.wait_event("worker_rebuilt", timeout=10)
+    assert (ev["worker_id"], ev["rank"], ev["step"]) == (5, 1, 3)
+    stats = json.loads(aggregate.scrape("127.0.0.1", nospawn.port,
+                                        route="recovery/stats"))
+    assert stats["rebuilds"][-1]["src_worker"] == 5
 
 
 # --- one discovery sequence, both drivers ------------------------------------

@@ -461,3 +461,40 @@ def test_notification_listener_drops_an_absorbed_epoch(monkeypatch):
         mgr.remove_listener(state)
     finally:
         mgr.close()
+
+
+@pytest.mark.parametrize("first_commit", ["before_step", "after_step"])
+def test_tensor_state_commits_and_restores_a_transform_state(port,
+                                                            first_commit):
+    """A ``DistributedGradientTransform`` state in a TensorState is
+    per-rank: commit snapshots its optimizer state, count and
+    accumulator; restore puts them back in place (the optimizer keeps its
+    tensors), and drops state the commit did not hold."""
+    import functools
+
+    from horovod_tpu_torch.optim import recovery_payload
+    params = {"w": torch.linspace(-1, 1, 12)}
+    tx = tp.DistributedGradientTransform(
+        functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9),
+        sharded_update=True, backward_passes_per_step=2,
+        wire_format="none")
+    st = tx.init(params)
+    if first_commit == "after_step":
+        for _ in range(2):
+            tx.update({"w": torch.ones(12)}, st, params)
+    state = TensorState(params=params, dist=st, step=0)
+    assert state.dist is st
+    saved = recovery_payload(st)
+    bufs = [v for s in st.inner.state.values() for v in s.values()]
+    tx.update({"w": torch.full((12,), 3.0)}, st, params)
+    tx.update({"w": torch.full((12,), 5.0)}, st, params)
+    tx.update({"w": torch.full((12,), 7.0)}, st, params)   # acc holds 7s
+    state.restore()
+    got = recovery_payload(st)
+    assert sorted(got) == sorted(saved)
+    assert all(got[n].tobytes() == saved[n].tobytes() for n in got)
+    assert st.count == int(saved["count"])
+    assert all(torch.equal(a, torch.zeros_like(a)) for a in st.acc.values())
+    assert bufs == [v for s in st.inner.state.values() for v in s.values()]
+    if first_commit == "before_step":
+        assert not st.inner.state

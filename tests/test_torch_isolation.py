@@ -56,6 +56,11 @@ def test_importing_every_module_loads_no_jax():
     # the rest of the distributed optimizer and the engine's tools
     for m in ("ops.adasum", "timeline", "stall", "autotune"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # checkpointless recovery, hvd.run and the executor, the parquet reader
+    for m in ("elastic.recovery", "runner.api", "runner.run_task",
+              "runner.executor", "runner.executor_task", "data.parquet",
+              "optim"):
+        assert f"horovod_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -121,6 +126,48 @@ def test_top_level_names_resolve_as_in_jax():
         assert name in hvd.__all__ and hasattr(hvd, name), name
     with pytest.raises(hvd.NotInitializedError):
         hvd.get_process_set_ids_and_ranks()
+
+
+@pytest.mark.parametrize("sub", ["runner", "data", "elastic", "optim"])
+def test_subpackage_names_resolve_as_in_jax(sub):
+    """Every public name of ``horovod_tpu.<sub>`` that is not a module
+    resolves on ``horovod_tpu_torch.<sub>`` (``hvd.runner.run``,
+    ``hvd.runner.TpuExecutor``, ``hvd.data.ParquetDataset``, ...), but
+    for the names still to port or left out by design, which this test
+    names."""
+    code = (
+        "import importlib, json, types\n"
+        f"j = importlib.import_module('horovod_tpu.{sub}')\n"
+        f"t = importlib.import_module('horovod_tpu_torch.{sub}')\n"
+        "names = [n for n, v in vars(j).items() if not n.startswith('_')\n"
+        "         and not isinstance(v, types.ModuleType)]\n"
+        "print(json.dumps(sorted(n for n in names if not hasattr(t, n))))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    missing = set(json.loads(res.stdout.strip().splitlines()[-1]))
+    assert missing == SUB_MISSING[sub]
+    if sub == "runner":
+        from horovod_tpu_torch.runner import TpuExecutor, run
+        assert callable(run) and TpuExecutor.__name__ == "TpuExecutor"
+    if sub == "data":
+        from horovod_tpu_torch.data import ParquetDataset, ParquetLoader
+        assert ParquetLoader.__mro__[1].__name__ == "BaseDataLoader"
+        assert ParquetDataset.__name__ == "ParquetDataset"
+
+
+#: public names of the JAX subpackages the port's lack: by design
+#: (``ArrayState``/``TpuState``: the port's ``TensorState``;
+#: ``fused_tail_reduce_tree``: the port's ``fused_reduce_tree`` takes the
+#: hierarchical path itself; ``scale_by_adam_lp``: an optax
+#: transformation, where the port has the optimizer ``AdamWLP``) or by
+#: ROADMAP.md item (``state_partition_specs``: A6)
+SUB_MISSING = {
+    "runner": set(), "data": set(),
+    "elastic": {"ArrayState", "TpuState"},
+    "optim": {"fused_tail_reduce_tree", "state_partition_specs",
+              "scale_by_adam_lp"},
+}
 
 
 def test_sources_import_neither_jax_nor_horovod_tpu():

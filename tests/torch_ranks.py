@@ -1207,6 +1207,119 @@ def case_tools(hvd, rank, world):
     return out
 
 
+def case_recovery(hvd, rank, world):
+    """Checkpointless recovery at world 2: each rank's ZeRO transform
+    pushes its tile to its ring neighbor at every boundary; a fresh agent
+    of the same rank pulls it back, a fresh ``init`` plus
+    ``restore_dist_state`` installs it, and one more boundary runs on the
+    restored transform and on the uninterrupted one.  Variants: SGD with
+    momentum; ``adamw_lp`` (bfloat16 moments) over the int8 wire (error
+    feedback residuals) with 2 micro-steps a boundary."""
+    import functools
+
+    import torch
+    from horovod_tpu_torch.elastic import recovery as R
+    from horovod_tpu_torch.optim import recovery_payload, restore_dist_state
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    from horovod_tpu_torch.runner.rpc import JsonRpcServer
+    variants = {
+        "sgd": (functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9),
+                dict(wire_format="none"), 3),
+        "adamw_lp_int8_k2": (adamw_lp(1e-2),
+                             dict(wire_format="int8", wire_block_size=8,
+                                  backward_passes_per_step=2), 4),
+    }
+    shapes = {"a": (37,), "b": (4, 6), "c": (64,)}
+    rng = np.random.RandomState(11)
+    init = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+
+    def grads(step):
+        g = np.random.RandomState(1000 * step + rank)
+        return {k: torch.from_numpy(g.randn(*s).astype(np.float32))
+                for k, s in shapes.items()}
+
+    def same(a, b):
+        # ``count``: at k = 1 only a transform with the tap armed counts
+        a, b = ({n: v for n, v in x.items() if n != "count"} for x in (a, b))
+        return sorted(a) == sorted(b) and all(
+            a[n].dtype == b[n].dtype and a[n].tobytes() == b[n].tobytes()
+            for n in a)
+
+    out = {}
+    for name, (inner, kw, micro) in variants.items():
+        k = kw.get("backward_passes_per_step", 1)
+        agent = R.RecoveryAgent(rank=rank, size=world, mode="neighbor",
+                                every=1, pull_deadline_s=30.0,
+                                register=False)
+        srv = JsonRpcServer(agent.worker_handlers(), secret=None)
+        ports = hvd.allgather_object(srv.port, name=f"rec.{name}.ports")
+        peers = {r: ("127.0.0.1", p) for r, p in enumerate(ports)}
+        agent.update_plan(0, peers)
+        R.install(agent)
+        params = {n: torch.from_numpy(v.copy()) for n, v in init.items()}
+        twin = {n: t.clone() for n, t in params.items()}
+        tx = hvd.DistributedGradientTransform(inner, sharded_update=True,
+                                              recovery=agent, **kw)
+        st = tx.init(params)
+        ref_tx = hvd.DistributedGradientTransform(inner, sharded_update=True,
+                                                  **kw)
+        ref_st = ref_tx.init(twin)
+        for step in range(micro):
+            g = grads(step)
+            tx.update({n: t.clone() for n, t in g.items()}, st, params)
+            ref_tx.update(g, ref_st, twin)
+        # the loss: a fresh process of this rank pulls its frame back
+        fresh = R.RecoveryAgent(rank=rank, size=world, mode="neighbor",
+                                every=1, pull_deadline_s=30.0,
+                                register=False)
+        fresh.update_plan(0, peers)
+        payload = fresh.rebuild(min_epoch=0)
+        hvd.barrier()
+        R.uninstall(agent)
+        srv.close()
+        new = {n: t.clone() for n, t in twin.items()}
+        new_tx = hvd.DistributedGradientTransform(inner,
+                                                  sharded_update=True, **kw)
+        new_st = restore_dist_state(new_tx.init(new), payload)
+        restored = same(recovery_payload(new_st), recovery_payload(ref_st))
+        for step in range(micro, micro + k):
+            g = grads(step)
+            new_tx.update({n: t.clone() for n, t in g.items()}, new_st, new)
+            ref_tx.update(g, ref_st, twin)
+        want = recovery_payload(ref_st)
+        out[name] = {
+            "version": fresh.last_rebuild["version"],
+            "count": [int(payload["count"]), new_st.count],
+            "boundaries": micro // k,
+            "names": sorted(payload),
+            "restored_equal": restored,
+            "next_params_equal": all(torch.equal(new[n], twin[n])
+                                     for n in new),
+            "next_state_equal": same(recovery_payload(new_st), want),
+            "nonzero": any(any(want[n].tobytes()) for n in want
+                           if n.startswith("inner/")),
+            "tile": sorted((n, want[n].tobytes().hex()) for n in want
+                           if n.startswith("inner/")),
+        }
+    # a TensorState keeps the transform's per-rank state out of sync():
+    # rank 1's weights become rank 0's, its tile stays its own
+    from horovod_tpu_torch.elastic import TensorState
+    params = {n: torch.from_numpy(v.copy()) * (rank + 1)
+              for n, v in init.items()}
+    tx = hvd.DistributedGradientTransform(
+        variants["sgd"][0], sharded_update=True, wire_format="none")
+    st = tx.init(params)
+    tx.update(grads(0), st, params)
+    before = recovery_payload(st)
+    state = TensorState(params=params, dist=st, step=rank)
+    state.sync()
+    out["sync"] = {
+        "params": _np(params["a"]).tolist(),
+        "tile_kept": same(recovery_payload(state.dist), before),
+        "dist_is_live": state.dist is st, "step": state.step}
+    return out
+
+
 def main(out_dir, cases):
     import horovod_tpu_torch as hvd
     hvd.init(device="cpu")
