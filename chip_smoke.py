@@ -16,8 +16,10 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            once, which must be at least one
   kernels  each flash-attention kernel at the training shapes (plus a
            non-causal case, an H == Hkv case, a ragged T = 960, a
-           multiple of 64 but not of 128, and BERT-base's fine-tune shape,
-           B 512, T 128, 12 heads of 64, non-causal) against its plain
+           multiple of 64 but not of 128, BERT-base's fine-tune shape,
+           B 512, T 128, 12 heads of 64, non-causal, train_tp2_sp2's ring
+           tile through flash_attention_lse with a cotangent on lse, causal
+           and not, its Ulysses shape and train_moe_ep2's) against its plain
            PyTorch version on the same inputs, with its time, the plain
            version's,
            the least time the card could take, one
@@ -45,6 +47,18 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            it with the kernels on the card against the plain versions on
            the CPU, from the same weights
   parity_fused   the same with fused_xent=True
+  train_moe, parity_moe   the train step with 8 experts (top-2, capacity
+           factor 1.25) at 4 layers; parity at 2 MoE layers with top-8
+           routing, where both sides route every token alike
+  parity_moe_route   top-2 routing card against CPU at step 0: each MoE
+           layer's picks in the full model, where a differing pick is
+           printed with its logit gap; then layer 0 on one input, where
+           every differing pick must be a near-tie of the bf16 logits and
+           the agreeing tokens' outputs and gradients meet parity's gates
+  train_tp2_sp2  four gloo ranks on the card as MeshConfig(sp=2, tp=2)
+           with vocab_parallel, the ring then Ulysses, against one process
+  train_moe_ep2  two gloo ranks with the experts over dp, against one
+           process, at capacity factors 1.25 and 8
   collectives    hvd.init() at world 1 over NCCL: every op of the API on
            fp32, bf16 and int64 CUDA tensors against its plain expectation,
            and 64 small tensors submitted in one call, which the engine
@@ -234,7 +248,20 @@ KERNEL_CASES = [
     # BERT-base's fine-tune attention (bench.py:98-101): head_dim 64, two
     # 64-row key tiles a sequence, non-causal
     ("bert", (512, 128, 12, 12, 64, False)),
+    # a ring tile of train_tp2_sp2 (batch 2, 1024 / sp 2 tokens, 16 / tp 2
+    # heads, 8 / 2 kv heads) through flash_attention_lse with a cotangent
+    # on lse: the diagonal tile causal, a past one in full
+    ("lse", (2, 512, 8, 4, 128, True)),
+    ("lse_noncausal", (2, 512, 8, 4, 128, False)),
+    # train_tp2_sp2's Ulysses attention (the whole 1024 tokens, 16 heads
+    # / tp 2 / sp 2, 8 kv heads likewise) and train_moe_ep2's (2
+    # sequences a rank at full width), both causal
+    ("ulysses", (2, 1024, 4, 2, 128, True)),
+    ("ep", (2, 1024, 16, 8, 128, True)),
 ]
+# the model-parallel paths' cases, carried into each flash row of the
+# summary
+MP_CASES = ("lse", "lse_noncausal", "ulysses", "ep")
 # out is bf16 (|out| <= ~2 with N(0,1) inputs): a few bf16 steps; lse is
 # fp32 from the kernels' fast exp/log and another summation order; the
 # gradients are bf16 sums over T = 1024 products in which the kernels round
@@ -299,6 +326,66 @@ EXPECTED_A5_LAUNCHES = {
 }
 # the three variants and the dp-1 run of both processes, build included
 A5_TIMEOUT_S = 480
+
+# train_moe: bench.py's 1B widths with examples/llama_benchmark.py --moe 8
+# (Mixtral-style top-2, capacity factor 1.25), depth cut to 4 layers
+# (16 hold 6.71 B parameters, ~80.5 GB of fp32 weights, fp32 gradients
+# and bf16 moments; 4 hold 1.728 B, ~20.7 GB); the last 2 layers are not
+# rematerialized, so the forward runs 4 + 2 times a step
+MOE_OVER = {"n_experts": 8, "expert_top_k": 2, "capacity_factor": 1.25}
+MOE_LAYERS = 4
+EXPECTED_MOE_LAUNCHES = {"fwd": 6, "dq": 4, "dkv": 4}
+# parity_moe: parity's batch and widths at 2 MoE layers, card against CPU
+# under parity's gates, with every token routed to all 8 experts (top-8,
+# capacity factor 1: each expert has a slot for each token).  Top-2
+# routing is not continuous in the router's bf16 logits: where the two
+# sides round them otherwise, a token whose contested logits nearly tie
+# goes to another expert.  The card runs at top-2 read, card/CPU: losses
+# 10.9096/10.8960 then 6.580/6.492 (capacity factor 1.25), 10.9026/
+# 10.8903 then 6.174/6.056 (factor 8), gradient cosines down to 0.76 and
+# 0.94.  Top-8 runs the same router, dispatch, experts, combine and aux
+# loss with a selection both sides agree on; parity_moe_route holds the
+# top-2 selection itself
+PARITY_MOE_OVER = {**MOE_OVER, "expert_top_k": 8, "capacity_factor": 1.0}
+# parity_moe_route: parity_moe's weights and batch at top-2 (MOE_OVER),
+# card against CPU at step 0.  On one input, each side's router logit is
+# the bf16 rounding of an fp32 sum of the same bf16 products in another
+# order, so the two sides' logits lie within a bf16 step of each other,
+# and a pick can change only where its two contested logits lie within
+# ROUTE_TIE_STEPS bf16 steps (a step each way)
+ROUTE_TIE_STEPS = 2
+# train_tp2_sp2: four processes (--mp-rank) share the card over gloo as
+# MeshConfig(sp=2, tp=2) with vocab_parallel, 2 layers at full width,
+# global batch 2 x 1024, 3 steps with attn="ring", then 3 with "ulysses",
+# against one process on the whole batch from the same weights: the first
+# loss within MP_FIRST_REL, the later ones within MP_LATER_REL (the tp
+# partial sums are rounded to bf16 before their all-reduce, once a row-
+# parallel product, where one process rounds the whole sum once).  The
+# first card run (H100, 700 W) read gaps of 1.2e-5 then up to 1.0e-3 as
+# the loss fell from 10.9 to 1.36, ring and Ulysses alike: the gates sit
+# 8x and 5x above them
+MP_MESH = {"sp": 2, "tp": 2}
+MP_BATCH = 2
+MP_STEPS = 3
+MP_FIRST_REL = 1e-4
+MP_LATER_REL = 5e-3
+MP_TIMEOUT_S = 420
+# train_moe_ep2: two processes (--ep-rank), MeshConfig(dp=2) with the 8
+# experts aliased onto dp (4 a rank), 2 layers, batch 2 a rank, 3 steps,
+# against one process on the batch of 4, at two capacity factors.  At
+# 1.25 each rank's capacity (640 slots an expert for 2048 tokens) drops
+# other and more picks than one process's (1280 for 4096): the first card
+# run kept 0.85/0.92 of the picks against 0.95/0.98 at the first step and
+# 0.63-0.80 against 0.68-0.87 once AdamW had sharpened the router, and
+# the losses parted by 0.002, 0.16, 0.57.  So only the first loss (the
+# same weights) is held there; at 8, where every pick has a slot on both
+# sides, every loss is held, to tests/test_llama.py:88's 5e-2 (the first
+# card run read gaps of 0.0005, 0.006, 0.011)
+EP_BATCH = 2
+EP_STEPS = 3
+EP_LOSS_ATOL = 5e-2
+EP_VARIANTS = (("cf1.25", {}), ("cf8", {"capacity_factor": 8.0}))
+EP_TIMEOUT_S = 420
 
 # train_hier_dp4: four processes (--hier-rank) share the card over gloo,
 # laid out as two hosts of two (HOROVOD_LOCAL_SIZE=2, HOROVOD_CROSS_SIZE=2,
@@ -692,12 +779,22 @@ def kernels_phase(fa, dev):
         ref_out, ref_lse = fa._fwd_reference(q, k, v, causal, scale)
         torch.cuda.synchronize()
         delta = (do.float() * ref_out.float()).sum(-1)
+        dlse = None
+        if case.startswith("lse"):
+            # a cotangent on lse, folded into delta as _flash_bwd_bhtd does
+            dlse = randn(B, H, T, dtype=torch.float32)
+            delta = delta - dlse
         args = (q, k, v, do, ref_lse, delta, causal, scale)
         dq = fa._dq(*args)
         dk, dv = fa._dkv(*args)
         ref_dq = fa._dq_reference(*args)
         ref_dk, ref_dv = fa._dkv_reference(*args)
         torch.cuda.synchronize()
+        lse_path = {}
+        if dlse is not None:
+            lse_path = lse_autograd_errors(fa, q, k, v, do, dlse, causal,
+                                           scale, ref_out, ref_lse,
+                                           (ref_dq, ref_dk, ref_dv))
         checks = {
             "fwd": (max(err(out, ref_out), err(lse, ref_lse)),
                     err(out, ref_out) <= OUT_ATOL
@@ -753,13 +850,47 @@ def kernels_phase(fa, dev):
         clocks = {"before": clocks_before, "after": clock_sample()}
         for kernel, (_, ok, detail) in checks.items():
             row = {**rows[kernel], "clocks": clocks}
+            if lse_path:
+                row["autograd"] = lse_path
             emit("kernels", **row)
             require(ok, f"{kernel} kernel disagrees with its plain version "
                         f"on {case}: {detail}")
             results[(case, kernel)] = row
+        if lse_path:
+            bad = lse_path_problems(lse_path)
+            require(not bad, f"flash_attention_lse on {case}: {bad}")
         del q, k, v, do, ref_out, ref_lse, delta, args, runs
         torch.cuda.empty_cache()
     return results
+
+
+def lse_autograd_errors(fa, q, k, v, do, dlse, causal, scale, ref_out,
+                        ref_lse, ref_grads):
+    """flash_attention_lse on the ``[B, T, H, D]`` views of q, k, v and its
+    autograd with cotangents on both outputs (dO and dlse), against the
+    plain results of the same inputs, delta folded: out and lse as
+    absolute errors, dq, dk and dv relative to the largest plain entry."""
+    t = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    out, lse = fa.flash_attention_lse(*t, causal=causal, sm_scale=scale)
+    torch.autograd.backward([out, lse], [do.transpose(1, 2), dlse])
+    torch.cuda.synchronize()
+    got = [x.grad.transpose(1, 2) for x in t]
+    return {"out_err": err(out.transpose(1, 2), ref_out),
+            "lse_err": err(lse, ref_lse),
+            **{f"{n}_rel": rel(g, r)
+               for n, g, r in zip(("dq", "dk", "dv"), got, ref_grads)}}
+
+
+def lse_path_problems(errors):
+    """The flash gates on :func:`lse_autograd_errors`."""
+    bad = []
+    if errors["out_err"] > OUT_ATOL:
+        bad.append(f"out off by {errors['out_err']}")
+    if errors["lse_err"] > LSE_ATOL:
+        bad.append(f"lse off by {errors['lse_err']}")
+    bad += [f"{n} off by {errors[n]} of its largest entry"
+            for n in ("dq_rel", "dk_rel", "dv_rel") if errors[n] > GRAD_REL]
+    return bad
 
 
 def xent_bound(kernel: str, N: int, V: int, D: int):
@@ -939,16 +1070,18 @@ def bench_config(llama, **over):
 
 
 def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool,
-                engine=None):
+                engine=None, name=None, over=None, expected=None):
     """The 1B step (``train``), or with ``fused_xent=True``
     (``train_fused``), or under the runtime whose ``engine`` reduces the
-    gradients (``train_dp``); returns the kernel launches of its timed
-    steps and the line it emitted, with its profiled step's."""
-    phase = "train_dp" if engine is not None else (
-        "train_fused" if fused else "train")
-    cfg = bench_config(llama, fused_xent=fused)
+    gradients (``train_dp``), or as phase ``name`` with the config's
+    fields ``over`` and its ``expected`` launches a step (``train_moe``);
+    returns the kernel launches of its timed steps and the line it
+    emitted, with its profiled step's."""
+    phase = name or ("train_dp" if engine is not None else (
+        "train_fused" if fused else "train"))
+    cfg = bench_config(llama, fused_xent=fused, **(over or {}))
     batch, seq, steps = 8, 1024, 3
-    expected = {**EXPECTED_LAUNCHES,
+    expected = {**(expected or EXPECTED_LAUNCHES),
                 **{n: c if fused else 0
                    for n, c in EXPECTED_XENT_LAUNCHES.items()}}
 
@@ -1014,6 +1147,9 @@ def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool,
     row["profile"] = profile_step(
         lambda: ts.step_fn(params, opt_state, toks, tgts))
     emit(phase.replace("train", "profile"), **row["profile"])
+    if cfg.n_experts:
+        row["moe_layer"] = moe_layer_ms(llama, cfg, params, toks, dev)
+        emit(phase + "_layer", **row["moe_layer"])
     require(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     # random tied embeddings give logits of unit variance: ln V + 1/2
     require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
@@ -1130,6 +1266,50 @@ def wire_problems(row, train_row, expected):
     bad += [f"launches per step {st}, expected {expected}"
             for st in row["launches_per_step"] if st != expected]
     return bad
+
+
+def moe_layer_ms(llama, cfg, params, toks, dev):
+    """Where one MoE layer's forward time goes at the step's N = batch x
+    seq tokens: the router and top-k dispatch, the dispatch einsum, the
+    experts' SwiGLU and the combine einsum, each in ms on the card
+    (time_ms), with the einsums' and the experts' operations."""
+    from horovod_tpu_torch.models import moe
+    lp = {n: w.to(cfg.dtype) for n, w in params["layers"][0].items()}
+    x = llama._embed_lookup(params["embed"], toks, cfg).detach()
+    B, T, D = x.shape
+    N, E, k = B * T, cfg.n_experts, cfg.expert_top_k
+    C = int(math.ceil(k * N / E * cfg.capacity_factor))
+    tokens = x.reshape(N, D)
+    F = torch.nn.functional
+
+    def route():
+        gates = torch.softmax((tokens @ lp["router"]).float(), dim=-1)
+        return moe._top_k_dispatch(gates, k, C)
+
+    with torch.no_grad():
+        dispatch, combine, _ = route()
+        dispatch, combine = dispatch.to(x.dtype), combine.to(x.dtype)
+        slots = torch.einsum("nec,nd->ecd", dispatch, tokens)
+
+        def experts():
+            gate = F.silu(torch.einsum("ecd,edf->ecf", slots,
+                                       lp["we_gate"]))
+            up = torch.einsum("ecd,edf->ecf", slots, lp["we_up"])
+            return torch.einsum("ecf,efd->ecd", gate * up, lp["we_down"])
+
+        out = experts()
+        row = {"tokens": N, "capacity": C,
+               "route_ms": time_ms(route, iters=5),
+               "dispatch_ms": time_ms(lambda: torch.einsum(
+                   "nec,nd->ecd", dispatch, tokens), iters=5),
+               "experts_ms": time_ms(experts, iters=5),
+               "combine_ms": time_ms(lambda: torch.einsum(
+                   "ecd,nec->nd", out, combine), iters=5),
+               "einsum_flops": 2 * N * E * C * D,
+               "experts_flops": 3 * 2 * E * C * D * cfg.d_ff}
+    del dispatch, combine, slots, out
+    torch.cuda.empty_cache()
+    return row
 
 
 def profile_step(step, top: int = 12, cpu: bool = True):
@@ -1470,11 +1650,11 @@ def a5_problems(res):
 
 
 def _run_pair(flag: str, timeout_s: float, world: int = 2,
-              local_size: int = 0):
-    """This script with ``flag R`` in ``world`` processes (two by default)
-    sharing the card over gloo, as hosts of ``local_size`` ranks each
-    (default: one host), numbered host by host; returns rank 0's last line
-    as JSON and the seconds taken."""
+              local_size: int = 0, script=None):
+    """This script (or ``script``) with ``flag R`` in ``world`` processes
+    (two by default) sharing the card over gloo, as hosts of
+    ``local_size`` ranks each (default: one host), numbered host by host;
+    returns rank 0's last line as JSON and the seconds taken."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -1494,7 +1674,8 @@ def _run_pair(flag: str, timeout_s: float, world: int = 2,
                    HOROVOD_CONTROLLER="gloo",
                    HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="300")
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, flag, str(rank)], env=env,
+            [sys.executable, str(script or __file__), flag, str(rank)],
+            env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             start_new_session=True))
     deadline = time.monotonic() + timeout_s
@@ -2062,6 +2243,304 @@ def tools_problems(row, train_row, expected):
     return bad
 
 
+def ring_launches(sp_index: int, sp: int, layers: int, causal=True):
+    """Flash launches a step of one rank of the ring with no layer
+    rematerialized: one tile a layer for each k/v block it attends to
+    (its own, causal, and the i earlier ones in full; every block when
+    not causal), each a forward and a dq and a dkv."""
+    tiles = (sp_index + 1 if causal else sp) * layers
+    return {"fwd": tiles, "dq": tiles, "dkv": tiles}
+
+
+def ulysses_launches(layers: int):
+    """Ulysses: one full-sequence causal flash call a layer on each rank's
+    heads."""
+    return {"fwd": layers, "dq": layers, "dkv": layers}
+
+
+def loss_gaps(losses, ref):
+    """Each step's |loss - ref| / |ref|."""
+    return [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+
+
+def mp_problems(res):
+    """train_tp2_sp2's gates, for ring and Ulysses: every rank's losses
+    the same bits, the first within MP_FIRST_REL and the later within
+    MP_LATER_REL of one process on the whole batch, the flash launches of
+    each rank's schedule at every step, and ring tiles that folded an lse
+    cotangent."""
+    bad = []
+    ref = res["losses_world1"]
+    for attn in ("ring", "ulysses"):
+        run = res[attn]
+        per_rank = run["losses_by_rank"]
+        if any(x != per_rank[0] for x in per_rank):
+            bad.append(f"{attn}: ranks' losses differ: {per_rank}")
+        if not all(math.isfinite(x) for x in per_rank[0]):
+            bad.append(f"{attn}: non-finite loss {per_rank[0]}")
+        gaps = loss_gaps(per_rank[0], ref)
+        if gaps[0] > MP_FIRST_REL or any(g > MP_LATER_REL for g in gaps[1:]):
+            bad.append(f"{attn}: losses {per_rank[0]} against one "
+                       f"process's {ref} (gaps {gaps})")
+        for rank, (coords, steps) in enumerate(zip(
+                run["coords"], run["launches_per_step_by_rank"])):
+            want = (ring_launches(coords["sp"], MP_MESH["sp"], 2)
+                    if attn == "ring" else ulysses_launches(2))
+            bad += [f"{attn} rank {rank}: launches {st}, expected {want}"
+                    for st in steps if st != want]
+        if attn == "ring" and not any(run["dlse_folds_by_rank"]):
+            bad.append("ring: no tile folded an lse cotangent")
+    return bad
+
+
+def mp_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``train_tp2_sp2`` (``--mp-rank``): MeshConfig(sp=2,
+    tp=2) with vocab_parallel over gloo on ``cuda:0``, 2 layers at full
+    width, this rank's cut of a global batch of 2 x 1024, 3 steps with
+    ring attention and 3 with Ulysses; then rank 0, without the runtime,
+    runs the same steps from the same weights on the whole batch in one
+    process and prints every rank's numbers as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    cfg = bench_config(llama, n_layers=2, vocab_parallel=True)
+    rng = np.random.RandomState(3)
+    toks, tgts = (torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (MP_BATCH, cfg.max_seq_len)),
+        dtype=torch.long, device=dev) for _ in range(2))
+
+    def steps(ts, tk, tg):
+        params, opt_state = ts.init_fn(3)
+        state = [params, opt_state]
+
+        def step():
+            state[0], state[1], loss = ts.step_fn(state[0], state[1], tk, tg)
+            return loss
+
+        out = run_steps(step, MP_STEPS, lambda: dict(fa.LAUNCHES))
+        del state
+        return out
+
+    hvd.init(device=dev)
+    pmesh = ParallelMesh(MeshConfig(**MP_MESH))
+    res = {}
+    for attn in ("ring", "ulysses"):
+        ts = training.make_llama_train_step(cfg, pmesh,
+                                            optimizer=adamw_lp(3e-4),
+                                            attn=attn, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        ax.reset_bytes()
+        step_ms, losses, per_step = steps(ts, ts.shard_batch(toks),
+                                          ts.shard_batch(tgts))
+        row = {"coords": pmesh.coords, "losses": losses, "step_ms": step_ms,
+               "launches_per_step": per_step,
+               "dlse_folds": fa.DLSE_FOLDS[0],
+               "bytes_per_step": {k: v // MP_STEPS
+                                  for k, v in sorted(ax.BYTES.items())},
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "local_batch": list(ts.shard_batch(toks).shape)}
+        rows = hvd.allgather_object(row)
+        res[attn] = {
+            "coords": [r["coords"] for r in rows],
+            "losses_by_rank": [r["losses"] for r in rows],
+            "step_ms_by_rank": [r["step_ms"] for r in rows],
+            "launches_per_step_by_rank": [r["launches_per_step"]
+                                          for r in rows],
+            "launches_by_rank": [{k: sum(st[k] for st in r[
+                "launches_per_step"]) for k in ("fwd", "dq", "dkv")}
+                for r in rows],
+            "dlse_folds_by_rank": [r["dlse_folds"] for r in rows],
+            "host_bytes_per_step_by_rank": [r["bytes_per_step"]
+                                            for r in rows],
+            "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                             for r in rows],
+            "local_batch": rows[0]["local_batch"]}
+        del ts
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    if rank:
+        return 0
+    ts = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
+                                        device=dev)
+    _, res["losses_world1"], _ = steps(ts, toks, tgts)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def train_tp2_sp2_phase(script=None):
+    """Four ranks of :func:`mp_child` on the card over gloo (``script``:
+    another program that runs them); the gates."""
+    res, seconds = _run_pair("--mp-rank", MP_TIMEOUT_S, world=4,
+                             script=script)
+    gaps = {attn: loss_gaps(res[attn]["losses_by_rank"][0],
+                            res["losses_world1"])
+            for attn in ("ring", "ulysses")}
+    emit("train_tp2_sp2", mesh=MP_MESH, layers=2, batch=[MP_BATCH, 1024],
+         vocab_parallel=True, backend="gloo", seconds=seconds,
+         loss_gaps=gaps, **res)
+    bad = mp_problems(res)
+    require(not bad, f"train_tp2_sp2: {bad}")
+    return res
+
+
+def ep_problems(res):
+    """train_moe_ep2's gates, for each variant: both ranks' losses the same
+    bits and finite, within EP_LOSS_ATOL of one process on the whole batch
+    (every step where every pick kept its slot on both sides, the first
+    step else), and 2/2/2 flash launches a step on each rank."""
+    bad = []
+    for name, run in res["variants"].items():
+        per_rank = run["losses_by_rank"]
+        if any(x != per_rank[0] for x in per_rank):
+            bad.append(f"{name}: ranks' losses differ: {per_rank}")
+        if not all(math.isfinite(x) for x in per_rank[0]):
+            bad.append(f"{name}: non-finite loss {per_rank[0]}")
+        gaps = [abs(a - b) for a, b in zip(per_rank[0], run["losses_world1"])]
+        dropless = min(run["kept_by_rank"][0] + run["kept_world1"]) == 1.0
+        held = gaps if dropless else gaps[:1]
+        if any(g > EP_LOSS_ATOL for g in held):
+            bad.append(f"{name}: losses {per_rank[0]} against one "
+                       f"process's {run['losses_world1']} (gaps {gaps})")
+        want = ulysses_launches(2)
+        for rank, steps in enumerate(run["launches_per_step_by_rank"]):
+            bad += [f"{name} rank {rank}: launches {st}, expected {want}"
+                    for st in steps if st != want]
+    if not any(min(run["kept_by_rank"][0] + run["kept_world1"]) == 1.0
+               for run in res["variants"].values()):
+        bad.append("no variant kept every pick: no step-by-step gate ran")
+    return bad
+
+
+def ep_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``train_moe_ep2`` (``--ep-rank``): MeshConfig(dp=2) with
+    the 8 experts aliased onto dp (4 a rank) over gloo on ``cuda:0``, 2
+    MoE layers at full width, 2 sequences a rank, 3 steps at each of
+    EP_VARIANTS' capacity factors; then rank 0, without the runtime, runs
+    the same steps from the same weights on the 4 sequences in one
+    process and prints both as JSON, with the share of the k·N expert
+    picks each MoE layer kept (a dropped pick has no slot)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama, moe
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    kept = []
+    dispatch = moe._top_k_dispatch
+
+    def counted(gates, k, capacity):
+        # kept on the card and read after the steps: no sync in a step
+        out = dispatch(gates, k, capacity)
+        kept.append(out[0].sum() / (k * gates.shape[0]))
+        return out
+
+    moe._top_k_dispatch = counted
+
+    def config(over):
+        return bench_config(llama, n_layers=2, **{**MOE_OVER, **over})
+
+    cfg = config({})
+    rng = np.random.RandomState(4)
+    toks, tgts = (torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (2 * EP_BATCH, cfg.max_seq_len)),
+        dtype=torch.long, device=dev) for _ in range(2))
+
+    def steps(ts, tk, tg):
+        kept.clear()
+        state = list(ts.init_fn(4))
+
+        def step():
+            state[0], state[1], loss = ts.step_fn(state[0], state[1], tk, tg)
+            return loss
+
+        return run_steps(step, EP_STEPS, lambda: dict(fa.LAUNCHES)) + (
+            [share.item() for share in kept],)
+
+    hvd.init(device=dev)
+    pmesh = ParallelMesh(MeshConfig(dp=2))
+    res = {"variants": {}}
+    for name, over in EP_VARIANTS:
+        cfg = config(over)
+        ts = training.make_llama_train_step(cfg, pmesh,
+                                            optimizer=adamw_lp(3e-4),
+                                            device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        ax.reset_bytes()
+        step_ms, losses, per_step, kept_shares = steps(
+            ts, ts.shard_batch(toks), ts.shard_batch(tgts))
+        row = {"losses": losses, "step_ms": step_ms,
+               "launches_per_step": per_step, "kept": kept_shares,
+               "bytes_per_step": {k: v // EP_STEPS
+                                  for k, v in sorted(ax.BYTES.items())},
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        rows = hvd.allgather_object(row)
+        n_tokens = EP_BATCH * cfg.max_seq_len
+        capacity = int(math.ceil(cfg.expert_top_k * n_tokens
+                                 / cfg.n_experts * cfg.capacity_factor))
+        # 2 all-to-alls forward and 2 backward a layer, each [E, C, D] bf16
+        a2a = rows[0]["bytes_per_step"].get("dp.all_to_all", 0)
+        res["variants"][name] = {
+            "capacity_factor": cfg.capacity_factor,
+            "losses_by_rank": [r["losses"] for r in rows],
+            "step_ms_by_rank": [r["step_ms"] for r in rows],
+            "launches_per_step_by_rank": [r["launches_per_step"]
+                                          for r in rows],
+            "launches_by_rank": [{k: sum(st[k] for st in r[
+                "launches_per_step"]) for k in ("fwd", "dq", "dkv")}
+                for r in rows],
+            "kept_by_rank": [r["kept"] for r in rows],
+            "host_bytes_per_step_by_rank": [r["bytes_per_step"]
+                                            for r in rows],
+            "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                             for r in rows],
+            "local_tokens": n_tokens, "capacity": capacity,
+            "all_to_all_bytes_per_layer_each_way": a2a // (2 * 2 * 2),
+            "slots_bytes": cfg.n_experts * capacity * cfg.d_model * 2}
+        del ts
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    if rank:
+        return 0
+    for name, over in EP_VARIANTS:
+        ts = training.make_llama_train_step(config(over),
+                                            optimizer=adamw_lp(3e-4),
+                                            device=dev)
+        run = res["variants"][name]
+        _, run["losses_world1"], _, run["kept_world1"] = steps(ts, toks,
+                                                               tgts)
+        del ts
+        torch.cuda.empty_cache()
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def train_moe_ep2_phase(script=None):
+    """Two ranks of :func:`ep_child` on the card over gloo (``script``:
+    another program that runs them); the gates."""
+    res, seconds = _run_pair("--ep-rank", EP_TIMEOUT_S, script=script)
+    gaps = {name: [a - b for a, b in zip(run["losses_by_rank"][0],
+                                         run["losses_world1"])]
+            for name, run in res["variants"].items()}
+    emit("train_moe_ep2", layers=2, batch=[EP_BATCH, EP_BATCH], seq=1024,
+         backend="gloo", seconds=seconds, loss_gaps=gaps, **res)
+    for name, run in res["variants"].items():
+        require(run["all_to_all_bytes_per_layer_each_way"]
+                == run["slots_bytes"],
+                f"train_moe_ep2 {name}: all-to-all bytes a layer "
+                f"{run['all_to_all_bytes_per_layer_each_way']}, expected the "
+                f"[E, C, D] slots' {run['slots_bytes']}")
+    bad = ep_problems(res)
+    require(not bad, f"train_moe_ep2: {bad}")
+    return res
+
+
 def cosine(a, b) -> float:
     """Cosine of two gradients in fp64: over the 16.8M entries of a 1B
     weight an fp32 sum errs by ~1e-3, above 1 for equal vectors."""
@@ -2069,9 +2548,14 @@ def cosine(a, b) -> float:
         a.double().flatten(), b.double().flatten(), dim=0).item()
 
 
-def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool):
-    """``parity``, or ``parity_fused`` with ``fused_xent=True``."""
-    cfg = bench_config(llama, n_layers=2, fused_xent=fused)
+def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool,
+                 name=None, over=None):
+    """``parity``, or ``parity_fused`` with ``fused_xent=True``, or phase
+    ``name`` with the config's fields ``over`` (``parity_moe``)."""
+    cfg = bench_config(llama, n_layers=2, fused_xent=fused, **(over or {}))
+    # the dense MLP's w_down of layer 1, or the experts' and the router
+    mlp = ({"we_down1": (1, "we_down"), "router0": (0, "router")}
+           if cfg.n_experts else {"w_down1": (1, "w_down")})
     batch, seq = 2, 256
     cpu = torch.device("cpu")
     np_params = convert.llama_params_to_numpy(
@@ -2094,7 +2578,8 @@ def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool):
                   "wq0": grads["layers"][0]["wq"],
                   "wk0": grads["layers"][0]["wk"],
                   "wo1": grads["layers"][1]["wo"],
-                  "w_down1": grads["layers"][1]["w_down"],
+                  **{n: grads["layers"][i][leaf]
+                     for n, (i, leaf) in mlp.items()},
                   "final_norm": grads["final_norm"]}
         out.append((loss0.item(), loss1.item(),
                     {n: g.float().cpu() for n, g in picked.items()},
@@ -2104,7 +2589,8 @@ def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool):
     norms = {n: (gg[n].double().norm().item(), cg[n].double().norm().item())
              for n in gg}
     cos = {n: cosine(gg[n], cg[n]) for n in gg}
-    emit("parity_fused" if fused else "parity", layers=cfg.n_layers,
+    emit(name or ("parity_fused" if fused else "parity"),
+         layers=cfg.n_layers, n_experts=cfg.n_experts,
          batch=batch, seq=seq,
          loss_step=[g0, c0], loss_after=[g1, c1], grad_norms=norms,
          grad_cos=cos, seconds={"cuda": gs, "cpu": cs})
@@ -2115,6 +2601,151 @@ def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool):
         require(abs(a - b) <= PARITY_NORM_REL * b,
                 f"parity grad norm {n}: {a} (card) vs {b} (cpu)")
         require(cos[n] > PARITY_COS, f"parity grad cos {n}: {cos[n]}")
+
+
+def bf16_step(x):
+    """The spacing of bf16 values at ``|x|`` (fp32, elementwise)."""
+    _, e = torch.frexp(x.float().abs().clamp(min=2.0 ** -126))
+    return torch.ldexp(torch.ones(x.shape), e - 8)
+
+
+def top_k_picks(logits, k: int):
+    """The experts ``[N, k]`` of ``moe._top_k_dispatch``'s k sequential
+    top-1 picks from the gates of router ``logits [N, E]``."""
+    remaining = torch.softmax(logits.float(), dim=-1)
+    picks = []
+    for _ in range(k):
+        idx = remaining.argmax(-1)
+        picks.append(idx)
+        remaining = remaining * (1.0 - torch.nn.functional.one_hot(
+            idx, logits.shape[-1]))
+    return torch.stack(picks, dim=-1)
+
+
+def route_compare(logits_a, logits_b, k: int):
+    """Two sides' top-k picks from their router logits ``[N, E]`` (bf16
+    values), token by token: ``(differ [N] bool, stats)``.  For each token
+    whose ordered picks differ, the gap between the two experts of its
+    first differing pick, on side b, in bf16 steps of the larger; and the
+    largest difference of any logit between the sides, in bf16 steps."""
+    a, b = logits_a.float().cpu(), logits_b.float().cpu()
+    pa, pb = top_k_picks(a, k), top_k_picks(b, k)
+    ne = pa != pb
+    differ = ne.any(-1)
+    rows = differ.nonzero()[:, 0]
+    first = ne[rows].int().argmax(-1)
+    la, lb = b[rows, pa[rows, first]], b[rows, pb[rows, first]]
+    gaps = ((la - lb).abs() / bf16_step(torch.maximum(la.abs(), lb.abs())))
+    steps = (a - b).abs() / bf16_step(torch.maximum(a.abs(), b.abs()))
+    gaps = sorted(gaps.tolist())
+    return differ, {
+        "tokens": len(a), "differing": len(gaps),
+        "differing_share": len(gaps) / len(a),
+        "near_ties": sum(g <= ROUTE_TIE_STEPS for g in gaps),
+        "gap_steps": gaps[:32], "max_gap_steps": max(gaps, default=None),
+        "logits_differing_share": (steps > 0).float().mean().item(),
+        "max_logit_diff_steps": steps.max().item()}
+
+
+def route_problems(stats):
+    """The tie rule on one input (:func:`route_compare`'s stats): every
+    pick the sides disagree on is a near-tie."""
+    bad = []
+    if stats["near_ties"] != stats["differing"]:
+        bad.append(f"{stats['differing'] - stats['near_ties']} of "
+                   f"{stats['differing']} differing picks are no near-tie "
+                   f"(gaps {stats['gap_steps']} bf16 steps, rule "
+                   f"{ROUTE_TIE_STEPS})")
+    return bad
+
+
+def parity_moe_route_phase(llama, convert, dev):
+    """parity_moe's weights and batch at top-2 routing, step 0, card
+    against CPU.  Each MoE layer's input is captured in the full forward
+    on both sides and its picks compared (printed: the inputs differ by
+    the attention upstream).  Then layer 0's moe_layer runs on both sides
+    on the CPU's input: every differing pick must be a near-tie, and on
+    the tokens whose picks and kept slots agree the output rows and the
+    gradients of a cotangent on those rows only meet parity's gates."""
+    from horovod_tpu_torch.models import moe
+    cfg = bench_config(llama, n_layers=2, **MOE_OVER)
+    k = cfg.expert_top_k
+    batch, seq = 2, 256
+    N, D = batch * seq, cfg.d_model
+    C = int(math.ceil(k * N / cfg.n_experts * cfg.capacity_factor))
+    cpu = torch.device("cpu")
+    np_params = convert.llama_params_to_numpy(
+        llama.init_params(cfg, seed=1, device=cpu))
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (batch, seq))
+    layer_fn, seen = moe.moe_layer, []
+
+    def capture(x, lp, cfg_, par):
+        seen.append((x.detach(), lp["router"].detach()))
+        return layer_fn(x, lp, cfg_, par)
+
+    def router_logits(x, router):
+        return x.reshape(N, D) @ router
+
+    # (params, each layer's (input, router)) on the card, then the CPU
+    sides = []
+    moe.moe_layer = capture
+    try:
+        for where in (dev, cpu):
+            seen.clear()
+            params = convert.llama_params_from_numpy(np_params, device=where)
+            with torch.no_grad():
+                llama.hidden(params, torch.as_tensor(
+                    toks, dtype=torch.long, device=where), cfg)
+            sides.append((params, seen[:cfg.n_layers]))
+    finally:
+        moe.moe_layer = layer_fn
+    full = [route_compare(router_logits(*g), router_logits(*c), k)[1]
+            for g, c in zip(sides[0][1], sides[1][1])]
+
+    x0 = sides[1][1][0][0]
+    runs = []
+    for where, (params, _) in zip((dev, cpu), sides):
+        lp = {n: params["layers"][0][n].to(cfg.dtype).detach()
+              .requires_grad_() for n in ("router", "we_gate", "we_up",
+                                          "we_down")}
+        x = x0.to(where).requires_grad_()
+        y, _ = moe.moe_layer(x, lp, cfg, llama.ParallelSpec())
+        with torch.no_grad():
+            logits = router_logits(x, lp["router"])
+            kept = moe._top_k_dispatch(torch.softmax(logits.float(), -1),
+                                       k, C)[0].sum(-1).cpu()
+        runs.append((x, lp, y, logits, kept))
+    (xg, lpg, yg, lg, kg), (xc, lpc, yc, lc, kc) = runs
+    differ, stats = route_compare(lg, lc, k)
+    agree = ~differ & (kg == kc).all(-1)
+    dy = torch.from_numpy(np.random.RandomState(2).standard_normal(
+        (N, D)).astype(np.float32)) * agree[:, None]
+    for y in (yg, yc):
+        y.backward(dy.to(y.device, y.dtype).reshape(y.shape))
+    pairs = {"y_rows": (yg.detach().reshape(N, D)[agree.to(dev)],
+                        yc.detach().reshape(N, D)[agree]),
+             "dx": (xg.grad, xc.grad),
+             **{f"d{n}": (lpg[n].grad, lpc[n].grad) for n in lpg}}
+    norms = {n: (a.double().norm().item(), b.double().norm().item())
+             for n, (a, b) in pairs.items()}
+    cos = {n: cosine(a.cpu(), b) for n, (a, b) in pairs.items()}
+    layer0 = {**stats, "capacity": C, "agreeing": int(agree.sum()),
+              "picks_agree_kept_differ": int((~differ & ~(kg == kc).all(-1))
+                                             .sum()),
+              "norms": norms, "cos": cos}
+    emit("parity_moe_route", layers=cfg.n_layers, top_k=k,
+         capacity_factor=cfg.capacity_factor, batch=batch, seq=seq,
+         full_model=full, layer0=layer0)
+    bad = route_problems(stats)
+    if not agree.any():
+        bad.append("no token's picks and slots agree")
+    for n, (a, b) in norms.items():
+        if abs(a - b) > PARITY_NORM_REL * b:
+            bad.append(f"{n} norm {a} (card) vs {b} (cpu)")
+        if cos[n] <= PARITY_COS:
+            bad.append(f"{n} cos {cos[n]}")
+    require(not bad, f"parity_moe_route: {bad}")
+    return layer0
 
 
 def serve_params(llama, gen, cfg, dev, seed: int = 0):
@@ -3940,6 +4571,10 @@ def main() -> int:
     if "--hier-rank" in sys.argv:
         return hier_child(int(sys.argv[sys.argv.index("--hier-rank") + 1]),
                           dev)
+    if "--mp-rank" in sys.argv:
+        return mp_child(int(sys.argv[sys.argv.index("--mp-rank") + 1]), dev)
+    if "--ep-rank" in sys.argv:
+        return ep_child(int(sys.argv[sys.argv.index("--ep-rank") + 1]), dev)
     if "--resnet-dp2-rank" in sys.argv:
         return resnet_dp2_child(
             int(sys.argv[sys.argv.index("--resnet-dp2-rank") + 1]), dev)
@@ -4001,6 +4636,16 @@ def main() -> int:
           fused=False)
     timed("parity_fused", parity_phase, llama, training, adamw_lp, convert,
           dev, fused=True)
+    # the mixture of experts at world 1: 4 layers at the 1B widths, then
+    # 2 layers card against CPU
+    launches_moe, _ = timed(
+        "train_moe", train_phase, fa, fx, llama, training, adamw_lp, dev,
+        fused=False, name="train_moe",
+        over={**MOE_OVER, "n_layers": MOE_LAYERS},
+        expected=EXPECTED_MOE_LAUNCHES)
+    timed("parity_moe", parity_phase, llama, training, adamw_lp, convert,
+          dev, fused=False, name="parity_moe", over=PARITY_MOE_OVER)
+    timed("parity_moe_route", parity_moe_route_phase, llama, convert, dev)
 
     # the Horovod core at world 1 over NCCL: every op, the train step with
     # its gradients through the engine, then overlapped through the grad
@@ -4077,6 +4722,10 @@ def main() -> int:
     timed("train_dp2", train_dp2_phase)
     timed("train_a5_dp2", train_a5_dp2_phase)
     timed("train_hier_dp4", train_hier_dp4_phase)
+    # the model-parallel Llama: tp x sp (ring, then Ulysses) and experts
+    # over dp, gloo ranks sharing the card
+    mp = timed("train_tp2_sp2", train_tp2_sp2_phase)
+    ep = timed("train_moe_ep2", train_moe_ep2_phase)
     timed("decode", decode_phase, llama, gen, paging, fa, fx, convert, dev)
     timed("serve", serve_phase, llama, gen, paging, fa, fx, dev)
 
@@ -4128,6 +4777,28 @@ def main() -> int:
             summary[-1]["bert"]["launches"] = train_bert["launches"][k]
             require(train_bert["launches"][k] > 0,
                     f"{label} never ran on train_bert's path")
+            # the model-parallel paths' shapes (the ring tile through
+            # flash_attention_lse, Ulysses, ep), and the launches of those
+            # paths' timed steps (per rank)
+            for case in MP_CASES:
+                row = kernels[(case, k)]
+                summary[-1][case] = {key: row[key] for key in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_pair_ms", "tflops")}
+                if "autograd" in row:
+                    summary[-1][case]["autograd"] = row["autograd"]
+            paths = {"train_moe": [launches_moe[k]],
+                     "train_tp2_sp2_ring": [
+                         n[k] for n in mp["ring"]["launches_by_rank"]],
+                     "train_tp2_sp2_ulysses": [
+                         n[k] for n in mp["ulysses"]["launches_by_rank"]],
+                     "train_moe_ep2": [
+                         n[k] for run in ep["variants"].values()
+                         for n in run["launches_by_rank"]]}
+            summary[-1]["launches_by_path"] = paths
+            for path, counts in paths.items():
+                require(all(n > 0 for n in counts),
+                        f"{label} never ran on {path}'s path: {counts}")
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,6 +62,8 @@ from .compression import (  # noqa: E402
     WIRE_FORMATS, Compression, WireFormat, resolve_wire_format)
 from .exceptions import (  # noqa: E402
     HorovodInternalError, HostsUpdatedInterrupt, NotInitializedError)
+from .ops.collectives import (  # noqa: E402
+    allgather_p, allreduce_p, alltoall_p, broadcast_p, reducescatter_p)
 from .optim.distributed import (  # noqa: E402
     DistributedGradientTransform, DistributedOptimizer,
     all_gather_sharded_tree, broadcast_optimizer_state, broadcast_parameters,
@@ -105,6 +107,8 @@ __all__ = [
     "reducescatter_async", "grouped_reducescatter",
     "grouped_reducescatter_async", "broadcast", "broadcast_async",
     "broadcast_", "broadcast_async_", "alltoall", "alltoall_async",
+    "allreduce_p", "allgather_p", "broadcast_p", "alltoall_p",
+    "reducescatter_p",
     "synchronize", "poll", "wait", "join", "barrier", "broadcast_object",
     "allgather_object", "broadcast_parameters", "broadcast_optimizer_state",
     "DistributedOptimizer", "DistributedGradientTransform",

@@ -5,7 +5,11 @@ Counterpart: none.  Arrays cross as numpy, so JAX never runs here.
 * Llama and BERT: the JAX trees stack the layers on a leading axis
   (``{"layers": {name: [L, ...]}}``); the port keeps the same leaves as a
   list of per-layer dicts.  Only the stacking differs: every weight keeps
-  its ``[in, out]`` layout.
+  its ``[in, out]`` layout, and a mixture of experts' leaves (``router
+  [L, D, E]``, ``we_* [L, E, D, F]``) cross the same way.
+  :func:`llama_shard_params` cuts a rank's slice of the full params by
+  ``models.llama.param_specs`` over a model-parallel mesh, and
+  :func:`llama_gather_params` gathers the slices back.
 * ResNet and MNIST: the trees have the same structure (ResNet's params and
   batch-norm state alike); convolution weights go from JAX's HWIO to
   torch's OIHW.
@@ -19,7 +23,7 @@ import numpy as np
 import torch
 
 from . import DeviceLike, resolve_device
-from .tree import tree_map
+from .tree import tree_map, tree_paths
 
 
 def _leaf_fn(device: DeviceLike, dtype: Optional[torch.dtype]):
@@ -65,6 +69,45 @@ def llama_params_from_numpy(tree: Dict, device: DeviceLike = None,
 def llama_params_to_numpy(params: Dict) -> Dict:
     """The port's parameters → JAX-layout numpy arrays (bf16 as fp32)."""
     return _restack(params)
+
+
+def llama_shard_params(full: Dict, cfg, pmesh, par) -> Dict:
+    """This rank's slice of the full Llama params (the port's tree) over
+    ``pmesh``: every dim that ``models.llama.param_specs(par, cfg)`` names
+    an axis for is cut to this rank's chunk along it (tp columns or rows,
+    ep experts, vp vocab rows).  The slices are new contiguous tensors."""
+    from .models import llama
+    specs = llama.param_specs(par, cfg)
+
+    def cut(path, t):
+        for dim, name in enumerate(llama.leaf_spec(specs, path)):
+            if name is not None:
+                n = t.shape[dim] // pmesh.axis_size(name)
+                t = t.narrow(dim, pmesh.axis_index(name) * n, n)
+        return t.detach().clone().contiguous()
+
+    paths = iter(tree_paths(full))
+    return tree_map(lambda t: cut(next(paths), t), full)
+
+
+def llama_gather_params(params: Dict, cfg, pmesh, par) -> Dict:
+    """The full Llama params from every rank's slice: the inverse of
+    :func:`llama_shard_params`, a tiled all-gather over each sharded
+    dim's axis (collective: every rank of the mesh calls it)."""
+    from .models import llama
+    from .parallel import axis as ax
+    specs = llama.param_specs(par, cfg)
+
+    def gather(path, t):
+        t = t.detach()
+        for dim, name in enumerate(llama.leaf_spec(specs, path)):
+            g = pmesh.group(name) if name is not None else None
+            if g is not None:
+                t = ax._gather(t, g, name, dim)
+        return t
+
+    paths = iter(tree_paths(params))
+    return tree_map(lambda t: gather(next(paths), t), params)
 
 
 # the order of the port's init_params

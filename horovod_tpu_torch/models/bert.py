@@ -20,7 +20,7 @@ through ``grad_tap`` and the other leaves through ``tap_root``, the
 identity outside an armed ``overlapped_backprop``.
 
 Tensor and sequence parallelism (``tp``, ``param_specs``, ``sp_axis``)
-raise ``NotImplementedError`` naming ROADMAP.md A6.
+raise ``NotImplementedError`` naming ROADMAP.md A6 item 6.
 """
 
 from __future__ import annotations
@@ -89,7 +89,8 @@ def _refuse(par: ParallelSpec) -> None:
         if getattr(par, axis) is not None:
             raise NotImplementedError(
                 f"{axis}={getattr(par, axis)!r}: BERT's tensor and sequence "
-                f"parallel layouts are not ported yet (ROADMAP.md A6)")
+                f"parallel layouts are not ported yet (ROADMAP.md A6 item 6, "
+                f"BERT's tp and sp)")
 
 
 def init_params(cfg: BertConfig, seed: int = 0, tp: int = 1,
@@ -99,7 +100,7 @@ def init_params(cfg: BertConfig, seed: int = 0, tp: int = 1,
     if tp != 1:
         raise NotImplementedError(
             "tensor-parallel BERT parameters are not ported yet "
-            "(ROADMAP.md A6)")
+            "(ROADMAP.md A6 item 6, BERT's tp and sp)")
     device = resolve_device(device)
     D, H, Dh, F_, L, V = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
                           cfg.n_layers, cfg.vocab_size)
@@ -146,7 +147,7 @@ def param_specs(par: ParallelSpec, cfg: Optional[BertConfig] = None):
     """The megatron layout's shardings: not ported yet."""
     raise NotImplementedError(
         "BERT's tensor-parallel param_specs are not ported yet "
-        "(ROADMAP.md A6)")
+        "(ROADMAP.md A6 item 6, BERT's tp and sp)")
 
 
 def _layernorm(x, w, b, eps):

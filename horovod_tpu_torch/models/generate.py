@@ -24,8 +24,8 @@ a list of per-layer dicts, ``[in, out]`` weights, the head tied to
 Sampling (``temperature > 0``) draws from a ``torch.Generator``; JAX's
 ``jax.random.categorical`` stream cannot be reproduced in torch, so the
 port's samples agree with JAX's in law, not token for token.  MoE decode
-(``n_experts > 0``) raises naming ROADMAP.md A6, as the training
-forward does.
+(``n_experts > 0``) routes each forward's tokens through
+``models/moe.py`` with no expert axis, as the JAX package does.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Llama-3-style decoder in PyTorch.
 
 Counterpart: ``horovod_tpu/models/llama.py``.  bf16 activations over fp32
-master weights, fp32 RMSNorm statistics and softmax, GQA with RoPE and a
-SwiGLU MLP, attention through the flash kernels.
+master weights, fp32 RMSNorm statistics and softmax, GQA with RoPE, a
+SwiGLU MLP or a mixture of experts (``models/moe.py``), attention through
+the flash kernels.
 
 Parameters keep the JAX package's layout at the public surface: weights
 are ``[in, out]`` and applied as ``x @ w``, ``embed`` is ``[V, D]`` and
@@ -11,13 +12,19 @@ JAX tree stacks the layers on a leading ``[L, ...]`` axis for ``lax.scan``,
 ``params["layers"]`` here is a list of per-layer dicts, so each layer's
 gradient lands in its own tensor (``convert.py`` splits and restacks).
 
-This slice is the dense, data-parallel model; ``fused_xent=True`` takes
-the loss through the fused cross-entropy kernels.  Each layer's weights and
-the root leaves pass through the grad taps of ``optim/overlap.py``, the
-identity unless an overlapped step arms them.  What it does not cover
-raises ``NotImplementedError`` naming its ROADMAP.md item: MoE
-(``n_experts > 0``) and tensor/sequence/pipeline/expert parallel axes
-(including ``vocab_parallel`` over tp).
+Parallelism follows a ``ParallelSpec`` of mesh axis names, run inside the
+mesh's context (``with pmesh:``; ``parallel/axis.py`` finds the groups
+there): Megatron tensor parallelism over tp (column-parallel
+wq/wk/wv/w_gate/w_up and the experts' we_gate/we_up, row-parallel
+wo/w_down/we_down, one all-reduce after each row-parallel product, and
+the vocabulary of the tied embedding sharded over tp with
+``vocab_parallel``), ring or Ulysses attention over sp, experts over ep.
+Each rank holds its slice of the params (:func:`param_specs`,
+``convert.llama_shard_params``).  ``fused_xent=True`` takes the loss
+through the fused cross-entropy kernels.  Each layer's weights and the
+root leaves pass through the grad taps of ``optim/overlap.py``, the
+identity unless an overlapped step arms them.  Pipeline parallelism
+(``pp_axis``) raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -35,7 +42,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .. import DeviceLike, resolve_device
 from ..ops import fused_xent
 from ..optim.overlap import grad_tap, tap_root
+from ..parallel import axis as ax
 from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention
+from . import moe as moe_mod
 
 _log = logging.getLogger("horovod_tpu_torch")
 
@@ -74,6 +84,24 @@ class LlamaConfig:
         return self.d_model // self.n_heads
 
 
+def llama3_8b() -> LlamaConfig:
+    """Llama-3-8B geometry (the BASELINE config-4 target)."""
+    return LlamaConfig()
+
+
+# BASELINE config-4 mesh: dp16 x tp4
+LLAMA8B_TP = 4
+LLAMA8B_DP = 16
+
+
+def llama3_8b_train_cfg(seq: int = 4096) -> LlamaConfig:
+    """Config 4's training configuration: vocab-parallel embedding and
+    head, chunk-1024 cross-entropy, full remat."""
+    return dataclasses.replace(
+        llama3_8b(), vocab_parallel=True, loss_chunk=1024, remat=True,
+        remat_policy="full", max_seq_len=seq)
+
+
 def tiny(vocab: int = 256, seq: int = 128) -> LlamaConfig:
     """Test-scale config: same code paths, toy sizes."""
     return LlamaConfig(vocab_size=vocab, d_model=64, n_layers=2, n_heads=4,
@@ -93,36 +121,31 @@ class ParallelSpec:
 
 
 def check_slice(cfg: LlamaConfig, par: ParallelSpec = ParallelSpec()) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    if cfg.n_experts > 0:
+    """Raise ``NotImplementedError`` for what the port does not have yet:
+    pipeline parallelism."""
+    del cfg
+    if par.pp_axis is not None:
         raise NotImplementedError(
-            "mixture of experts (n_experts > 0) is not ported yet "
-            "(ROADMAP.md A6, models/moe.py)")
-    if cfg.vocab_parallel and par.tp_axis is not None:
-        raise NotImplementedError(
-            "vocab_parallel over tp is not ported yet (ROADMAP.md A6)")
-    for axis in ("tp_axis", "sp_axis", "pp_axis", "ep_axis"):
-        if getattr(par, axis) is not None:
-            raise NotImplementedError(
-                f"{axis}={getattr(par, axis)!r}: tensor, sequence, pipeline "
-                f"and expert parallelism are not ported yet (ROADMAP.md A6)")
-    if par.attn == "ulysses":
-        raise NotImplementedError(
-            "Ulysses attention is not ported yet (ROADMAP.md A6)")
+            f"pp_axis={par.pp_axis!r}: pipeline parallelism is not ported "
+            f"yet (ROADMAP.md A6 item 5, pipeline)")
+    if par.attn not in ("ring", "ulysses", "local"):
+        raise ValueError(f"attn must be 'ring', 'ulysses' or 'local', got "
+                         f"{par.attn!r}")
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0, tp: int = 1,
                 device: DeviceLike = None) -> Dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
-    on ``device`` (default: the CUDA device; raises without one)."""
-    if tp != 1:
-        raise NotImplementedError(
-            "tensor-parallel parameters are not ported yet (ROADMAP.md A6)")
-    check_slice(cfg)
-    device = resolve_device(device)
+    on ``device`` (default: the CUDA device; raises without one).  With
+    ``tp > 1`` they are still the FULL params, as in the JAX package:
+    ``convert.llama_shard_params`` takes a rank's slice."""
     D, H, Hkv, Dh, F_, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim, cfg.d_ff, cfg.n_layers,
                                cfg.vocab_size)
+    if H % tp or Hkv % tp or F_ % tp:
+        raise ValueError(
+            f"heads({H})/kv_heads({Hkv})/d_ff({F_}) must divide tp={tp}")
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -135,6 +158,7 @@ def init_params(cfg: LlamaConfig, seed: int = 0, tp: int = 1,
         return torch.ones((n,), device=device, dtype=cfg.param_dtype)
 
     embed = norm((V, D), D)
+    moe = cfg.n_experts > 0
     layers = [{
         "attn_norm": ones(D),
         "wq": norm((D, H * Dh), D),
@@ -142,15 +166,105 @@ def init_params(cfg: LlamaConfig, seed: int = 0, tp: int = 1,
         "wv": norm((D, Hkv * Dh), D),
         "wo": norm((H * Dh, D), H * Dh),
         "mlp_norm": ones(D),
-        "w_gate": norm((D, F_), D),
-        "w_up": norm((D, F_), D),
-        "w_down": norm((F_, D), F_),
+        **({} if moe else {
+            "w_gate": norm((D, F_), D),
+            "w_up": norm((D, F_), D),
+            "w_down": norm((F_, D), F_)}),
     } for _ in range(L)]
+    if moe:
+        for lp, extra in zip(layers, moe_mod.init_moe_layer_params(
+                gen, L, D, F_, cfg.n_experts, cfg.param_dtype, device)):
+            lp.update(extra)
     return {"embed": embed, "layers": layers, "final_norm": ones(D)}
 
 
-def _embed_lookup(embed, tokens, cfg: LlamaConfig):
-    return F.embedding(tokens, embed.to(cfg.dtype))
+def param_specs(par: ParallelSpec, cfg: Optional[LlamaConfig] = None):
+    """Each leaf's mesh axes, dim by dim (a tuple of axis names or None;
+    ``()`` for a replicated leaf), over the port's tree: the JAX package's
+    PartitionSpecs with the stacked layer dim (pp) dropped from each
+    layer's leaves.  Column-parallel weights shard their output dim over
+    tp, row-parallel ones their input dim; the experts shard their expert
+    dim over ep; the embedding's vocab dim over tp with vocab_parallel."""
+    tp = par.tp_axis
+    embed = ((tp, None) if cfg is not None and cfg.vocab_parallel
+             and tp is not None else ())
+    layer = {"attn_norm": (None,), "wq": (None, tp), "wk": (None, tp),
+             "wv": (None, tp), "wo": (tp, None), "mlp_norm": (None,)}
+    if cfg is not None and cfg.n_experts > 0:
+        ep = par.ep_axis
+        layer.update({"router": (None, None), "we_gate": (ep, None, tp),
+                      "we_up": (ep, None, tp), "we_down": (ep, tp, None)})
+    else:
+        layer.update({"w_gate": (None, tp), "w_up": (None, tp),
+                      "w_down": (tp, None)})
+    n = cfg.n_layers if cfg is not None else 1
+    return {"embed": embed, "layers": [dict(layer) for _ in range(n)],
+            "final_norm": ()}
+
+
+def leaf_spec(specs: Dict, path: str):
+    """The spec of the leaf at the dotted ``path`` (``tree.tree_paths``)
+    of a :func:`param_specs` tree."""
+    node = specs
+    for part in path.split("."):
+        node = node[int(part)] if isinstance(node, list) else node[part]
+    return node
+
+
+def _vp_active(cfg: LlamaConfig, par: ParallelSpec) -> bool:
+    return cfg.vocab_parallel and par.tp_axis is not None
+
+
+def _embed_lookup(embed, tokens, cfg: LlamaConfig,
+                  par: ParallelSpec = ParallelSpec()):
+    """Token embedding; with vocab_parallel this rank holds rows
+    ``[i·V/tp, (i+1)·V/tp)``: out-of-shard tokens contribute zero and one
+    all-reduce over tp assembles the rows."""
+    w = embed.to(cfg.dtype)
+    if not _vp_active(cfg, par):
+        return F.embedding(tokens, w)
+    Vl = w.shape[0]
+    local = tokens - ax.axis_index(par.tp_axis) * Vl
+    inside = (local >= 0) & (local < Vl)
+    rows = F.embedding(local.clamp(0, Vl - 1), w)
+    rows = rows * inside[..., None].to(w.dtype)
+    return ax.reduce_from(rows, par.tp_axis)
+
+
+def _vp_chunk_losses(h, w, targets, par: ParallelSpec):
+    """Sum of ``lse - target_logit`` over one sequence chunk against a
+    tp-sharded vocabulary: local partial logits ``[B, c, V/tp]``, the
+    logsumexp by a max (no gradient) and a sum over tp, the target logit
+    by a masked sum over tp."""
+    Vl = w.shape[0]
+    h = ax.copy_to(h, par.tp_axis)
+    logits_l = (h @ w.T).float()                        # [B, c, V/tp]
+    m = ax.pmax(logits_l.detach().amax(-1), par.tp_axis)
+    sumexp = ax.reduce_from(torch.exp(logits_l - m[..., None]).sum(-1),
+                            par.tp_axis)
+    lse = m + torch.log(sumexp)
+    local = targets.long() - ax.axis_index(par.tp_axis) * Vl
+    inside = (local >= 0) & (local < Vl)
+    tgt_l = logits_l.gather(-1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    tgt = ax.reduce_from(tgt_l * inside.float(), par.tp_axis)
+    return (lse - tgt).sum()
+
+
+def _vocab_parallel_xent(h, embed, targets, par: ParallelSpec,
+                         chunk: int = 0):
+    """Mean cross-entropy over a tp-sharded vocabulary; with ``chunk``
+    dividing the local sequence, the partial logits are tiled over
+    sequence chunks, each recomputed in the backward pass."""
+    w = embed.to(h.dtype)
+    B, T, _ = h.shape
+    if chunk <= 0 or T % chunk:
+        return _vp_chunk_losses(h, w, targets, par) / (B * T)
+    total = h.new_zeros((), dtype=torch.float32)
+    for c in range(0, T, chunk):
+        total = total + checkpoint(_vp_chunk_losses, h[:, c:c + chunk], w,
+                                   targets[:, c:c + chunk], par,
+                                   use_reentrant=False)
+    return total / (B * T)
 
 
 def _rmsnorm(x, w, eps):
@@ -174,29 +288,42 @@ def _rope(x, positions, theta):
 
 
 def _attention(x, lp, cfg: LlamaConfig, par: ParallelSpec, positions):
+    """One attention sublayer on tp-local heads and the sp-local
+    sequence."""
     B, T, _ = x.shape
     Dh = cfg.head_dim
+    # local head counts under tp (the weights arrive sharded)
     Hl = lp["wq"].shape[-1] // Dh
     Hkvl = lp["wk"].shape[-1] // Dh
+    x = ax.copy_to(x, par.tp_axis)
     q = (x @ lp["wq"].to(x.dtype)).view(B, T, Hl, Dh)
     k = (x @ lp["wk"].to(x.dtype)).view(B, T, Hkvl, Dh)
     v = (x @ lp["wv"].to(x.dtype)).view(B, T, Hkvl, Dh)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    o = ring_attention(q, k, v, par.sp_axis, causal=True)
-    return o.reshape(B, T, Hl * Dh) @ lp["wo"].to(x.dtype)
+    if par.attn == "ulysses":
+        o = ulysses_attention(q, k, v, par.sp_axis, causal=True)
+    else:
+        o = ring_attention(q, k, v, par.sp_axis, causal=True)
+    o = o.reshape(B, T, Hl * Dh) @ lp["wo"].to(x.dtype)
+    return ax.reduce_from(o, par.tp_axis)  # row-parallel reduction
 
 
-def _mlp(x, lp):
+def _mlp(x, lp, par: ParallelSpec = ParallelSpec()):
+    x = ax.copy_to(x, par.tp_axis)
     gate = F.silu(x @ lp["w_gate"].to(x.dtype))
     up = x @ lp["w_up"].to(x.dtype)
-    return (gate * up) @ lp["w_down"].to(x.dtype)
+    return ax.reduce_from((gate * up) @ lp["w_down"].to(x.dtype),
+                          par.tp_axis)
 
 
 def ffn(pre, lp, cfg: LlamaConfig, par: ParallelSpec):
-    """The post-attention FFN sublayer; returns ``(y, aux_loss)``, the aux
-    loss 0 for the dense MLP (MoE is refused by :func:`check_slice`)."""
-    return _mlp(pre, lp), pre.new_zeros((), dtype=torch.float32)
+    """The post-attention FFN sublayer, dense SwiGLU or MoE routing;
+    returns ``(y, aux_loss)``, the aux loss 0 for the dense MLP: the one
+    dispatch point of the training block and the KV-cache decode."""
+    if cfg.n_experts > 0:
+        return moe_mod.moe_layer(pre, lp, cfg, par)
+    return _mlp(pre, lp, par), pre.new_zeros((), dtype=torch.float32)
 
 
 def block(x, lp, cfg: LlamaConfig, par: ParallelSpec, positions):
@@ -251,21 +378,27 @@ def _layer_stack(h, layers, cfg: LlamaConfig, par: ParallelSpec, positions):
 
 def hidden(params, tokens, cfg: LlamaConfig, par: ParallelSpec = ParallelSpec(),
            n_microbatches: int = 0):
-    """Token ids ``[B, T]`` → final-norm hidden states ``[B, T, D]``."""
+    """Token ids ``[B, Tl]`` (batch over dp, sequence over sp) →
+    final-norm hidden states ``[B, Tl, D]`` and the summed MoE aux loss."""
     del n_microbatches  # pipeline parallelism is refused by check_slice
     check_slice(cfg, par)
     B, T = tokens.shape
-    positions = torch.arange(T, device=tokens.device,
-                             dtype=torch.int32)[None, :].expand(B, T)
-    h = _embed_lookup(params["embed"], tokens, cfg)
+    sp_idx = ax.axis_index(par.sp_axis) if par.sp_axis is not None else 0
+    positions = (torch.arange(T, device=tokens.device, dtype=torch.int32)
+                 + sp_idx * T)[None, :].expand(B, T)
+    h = _embed_lookup(params["embed"], tokens, cfg, par)
     h, aux = _layer_stack(h, params["layers"], cfg, par, positions)
     return _rmsnorm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def forward(params, tokens, cfg: LlamaConfig, par: ParallelSpec = ParallelSpec(),
             n_microbatches: int = 0):
-    """Token ids → ``(logits [B, T, V], aux)`` through the tied head."""
+    """Token ids → ``(logits [B, T, V], aux)`` through the tied head; with
+    vocab_parallel the tp shards' logits are gathered in vocab order."""
     h, aux = hidden(params, tokens, cfg, par, n_microbatches)
+    if _vp_active(cfg, par):
+        logits = ax.copy_to(h, par.tp_axis) @ params["embed"].T.to(h.dtype)
+        return ax.all_gather(logits, par.tp_axis, dim=-1), aux
     return h @ params["embed"].T.to(h.dtype), aux
 
 
@@ -308,20 +441,31 @@ def _oneshot_xent(h, w_embed, targets):
 
 def loss_fn(params, tokens, targets, cfg: LlamaConfig,
             par: ParallelSpec = ParallelSpec(), n_microbatches: int = 0):
-    """Mean next-token cross-entropy over the local tokens.
+    """Mean next-token cross-entropy over the local tokens, plus the MoE
+    load-balance loss (the caller averages over the data axes).
 
-    Keeps the JAX dispatch order: vocab-parallel (refused here with tp),
-    then the fused kernels, then chunked, then one-shot.  With
-    ``fused_xent`` on and ``HOROVOD_FUSED_XENT`` not 0, inputs the fused
-    kernels do not take fall through on the CPU, as in JAX, and raise on
-    the card.
+    Keeps the JAX dispatch order: vocab-parallel, then the fused kernels,
+    then chunked, then one-shot.  With ``fused_xent`` on and
+    ``HOROVOD_FUSED_XENT`` not 0, inputs the fused kernels do not take
+    fall through on the CPU, as in JAX, and raise on the card.
     """
     # the leaves outside the layer stack, tapped as one (the identity
     # outside an armed optim.overlap.overlapped_backprop): the tied
     # embedding's lookup and head add into one cotangent
     params = tap_root(params)
-    h, _ = hidden(params, tokens, cfg, par, n_microbatches)
-    w = params["embed"]
+    h, aux = hidden(params, tokens, cfg, par, n_microbatches)
+    loss = _xent(h, params["embed"], targets, cfg, par)
+    if cfg.n_experts > 0:
+        loss = loss + cfg.aux_loss_coef * aux / cfg.n_layers
+    return loss
+
+
+def _xent(h, w, targets, cfg: LlamaConfig, par: ParallelSpec):
+    T = h.shape[1]
+    if _vp_active(cfg, par):
+        if cfg.loss_chunk > 0 and T % cfg.loss_chunk:
+            _warn_unchunked(cfg.loss_chunk, T)
+        return _vocab_parallel_xent(h, w, targets, par, chunk=cfg.loss_chunk)
     if cfg.fused_xent and fused_xent.enabled():
         reason = fused_xent.unsupported_reason(h, w, targets)
         if reason is None:
@@ -331,7 +475,6 @@ def loss_fn(params, tokens, targets, cfg: LlamaConfig,
                 f"the fused cross-entropy kernels do not take this input: "
                 f"{reason}; set HOROVOD_FUSED_XENT=0 to run the chunked or "
                 f"one-shot loss on the card")
-    T = h.shape[1]
     if cfg.loss_chunk > 0 and T % cfg.loss_chunk == 0:
         return _chunked_xent(h, w, targets, cfg.loss_chunk)
     if cfg.loss_chunk > 0:
@@ -343,6 +486,9 @@ def count_params(cfg: LlamaConfig) -> int:
     D, H, Hkv, Dh, F_, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim, cfg.d_ff, cfg.n_layers,
                                cfg.vocab_size)
-    per_layer = (2 * D + D * H * Dh + 2 * D * Hkv * Dh + H * Dh * D
-                 + 3 * D * F_)
+    per_layer = 2 * D + D * H * Dh + 2 * D * Hkv * Dh + H * Dh * D
+    if cfg.n_experts > 0:
+        per_layer += D * cfg.n_experts + 3 * cfg.n_experts * D * F_
+    else:
+        per_layer += 3 * D * F_
     return V * D + L * per_layer + D

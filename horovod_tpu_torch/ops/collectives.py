@@ -39,7 +39,11 @@ which hosts made ``HOROVOD_TAIL_DEADLINE_MS`` and waits accordingly, and
 allreduce-MIN over the whole set.  :func:`hierarchical_allgather` gathers
 within each host, then across hosts.
 
-Not here yet: the model-parallel forms (ROADMAP.md A6).
+The in-step forms :func:`allreduce_p`, :func:`allgather_p`,
+:func:`broadcast_p`, :func:`alltoall_p` and :func:`reducescatter_p` (JAX's
+traceable ``*_p`` for use inside ``shard_map``) run over a named axis of
+the current ``ParallelMesh`` through ``parallel/axis.py``, differentiable
+where JAX's are.
 """
 
 from __future__ import annotations
@@ -708,3 +712,64 @@ def hierarchical_allreduce(flat: torch.Tensor, ps, op: str = ReduceOp.SUM,
     if op == ReduceOp.AVERAGE:
         _average_(red, ps.size())
     return red
+
+
+# ---------------------------------------------------------------------------
+# in-step forms over a named axis of the current mesh (JAX's *_p)
+# ---------------------------------------------------------------------------
+
+def allreduce_p(x: torch.Tensor, axis_name: str,
+                op: str = ReduceOp.AVERAGE) -> torch.Tensor:
+    """The reduction of ``x`` over mesh axis ``axis_name`` (JAX
+    ``allreduce_p``): Sum and Average (and Adasum, as a sum) through the
+    differentiable ``psum``, Min and Max without a gradient, Product by a
+    gather."""
+    from ..parallel import axis as ax
+    n = ax.axis_size(axis_name)
+    if op in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.ADASUM):
+        r = ax.psum(x, axis_name)
+        if op == ReduceOp.AVERAGE:
+            r = (r / n if r.is_floating_point()
+                 else torch.div(r, n, rounding_mode="floor"))
+        return r
+    if op in (ReduceOp.MIN, ReduceOp.MAX):
+        g = ax._group(axis_name)
+        return x.detach() if g is None else ax._all_reduce(
+            x, g, axis_name, _DIST_OPS[op])
+    if op == ReduceOp.PRODUCT:
+        return torch.prod(ax.all_gather(x, axis_name, tiled=False), dim=0)
+    raise ValueError(f"unsupported reduce op: {op}")
+
+
+def allgather_p(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Every rank's ``x`` along dim 0 in rank order (a 0-d ``x`` gives
+    ``[n]``)."""
+    from ..parallel import axis as ax
+    g = ax.all_gather(x, axis_name, tiled=False)
+    return g.reshape((-1,) + tuple(g.shape[2:])) if x.dim() else g
+
+
+def broadcast_p(x: torch.Tensor, root_rank: int,
+                axis_name: str) -> torch.Tensor:
+    """Rank ``root_rank``'s ``x`` on every rank of the axis, as the sum of
+    the root's value and everyone else's zeros."""
+    from ..parallel import axis as ax
+    keep = ax.axis_index(axis_name) == root_rank
+    return ax.psum(x if keep else torch.zeros_like(x), axis_name)
+
+
+def alltoall_p(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Chunk ``j`` of dim 0 to rank ``j``, received in rank order."""
+    from ..parallel import axis as ax
+    return ax.all_to_all(x, axis_name, split_axis=0, concat_axis=0)
+
+
+def reducescatter_p(x: torch.Tensor, axis_name: str,
+                    op: str = ReduceOp.AVERAGE) -> torch.Tensor:
+    """The sum (or average) over the axis; rank ``i`` keeps slice ``i`` of
+    dim 0."""
+    from ..parallel import axis as ax
+    out = ax.psum_scatter(x, axis_name, scatter_dimension=0)
+    if op == ReduceOp.AVERAGE:
+        out = out / ax.axis_size(axis_name)
+    return out

@@ -38,11 +38,16 @@ _KERNEL_BLOCK = 64      # rows of a query or key tile in the CUDA kernels
 
 #: kernel launches since the last :func:`reset_launches`, by kernel
 LAUNCHES: Dict[str, int] = {"fwd": 0, "dq": 0, "dkv": 0}
+#: backward passes that folded a cotangent of the exposed lse into delta
+#: (ring attention's tiles), since the last :func:`reset_launches`; not a
+#: launch count
+DLSE_FOLDS = [0]
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    DLSE_FOLDS[0] = 0
 
 
 def enabled() -> bool:
@@ -247,6 +252,7 @@ def _flash_bwd_bhtd(q, k, v, out, lse, do, causal: bool, scale: float,
     delta = (do.float() * out.float()).sum(-1)
     if dlse is not None:
         delta = delta - dlse.float()
+        DLSE_FOLDS[0] += 1
     delta = delta.contiguous()
     dq = _dq(q, k, v, do, lse, delta, causal, scale)
     dk, dv = _dkv(q, k, v, do, lse, delta, causal, scale)

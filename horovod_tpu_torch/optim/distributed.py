@@ -54,7 +54,7 @@ error-feedback residual and ``count``) to
 ``elastic.recovery.deliver_boundary`` (JAX: an in-jit tap through
 ``jax.debug.callback``); off-cadence boundaries copy nothing to the host.
 A replacement worker installs the pulled frame into a fresh ``init``
-with :func:`restore_dist_state`.  ``param_specs`` is ROADMAP.md A6;
+with :func:`restore_dist_state`.  ``param_specs`` is ROADMAP.md A6 item 8;
 health taps A9.
 """
 
@@ -779,9 +779,9 @@ def DistributedGradientTransform(
             ("health_check_every", health_check_every is not None,
              "the divergence sentinel", "A9"),
             ("param_specs", param_specs is not None, "spec-aware reduction",
-             "A6"),
+             "A6 item 8, the spec plan"),
             ("model_axes", model_axes is not None, "spec-aware reduction",
-             "A6")):
+             "A6 item 8, the spec plan")):
         if on:
             raise NotImplementedError(
                 f"DistributedGradientTransform({arg}=...): {what} is not "

@@ -1,9 +1,9 @@
 """Exact attention over the local sequence, through the flash kernels.
 
-Counterpart: ``horovod_tpu/parallel/ring_attention.py``.  This slice ports
-the single-shard path: :func:`ring_attention` with no sequence-parallel
-axis (or one of size 1) is :func:`local_attention`.  A ring over several
-devices needs the NCCL slice (ROADMAP.md A6) and raises.
+Counterpart: ``horovod_tpu/parallel/ring_attention.py``.
+:func:`ring_attention` with no sequence-parallel axis (or one of size 1)
+is :func:`local_attention`; over an axis it runs the ring, its tiles
+through the flash kernels' ``(out, lse)`` path where they take the shape.
 
 :func:`blockwise_attend` is the flash recurrence written in PyTorch; it is
 the CPU path for shapes the kernels do not take, and on the card the path
@@ -108,16 +108,88 @@ def local_attention(q, k, v, causal: bool = True,
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
+def _merge_tile(m, l, o, out_t, lse_t):
+    """Fold a kernel tile (normalized ``out_t [B,Tq,H,D]`` and its
+    logsumexp ``lse_t [B,H,Tq]``) into the accumulator: the tile weighs
+    ``exp(lse_t)``."""
+    m_new = torch.maximum(m, lse_t)
+    corr = torch.exp(m - m_new)
+    w_t = torch.exp(lse_t - m_new)
+    l_new = l * corr + w_t
+    o_new = (o * corr.transpose(1, 2)[..., None]
+             + out_t.float() * w_t.transpose(1, 2)[..., None])
+    return m_new, l_new, o_new
+
+
+class _Tie(torch.autograd.Function):
+    """``out`` unchanged, with ``dep`` (the last rotated k/v) joined to
+    its graph: a rank whose last ring tile was skipped still runs every
+    rotation's backward, with zero cotangents, so its peers' reverse
+    rotations find it."""
+
+    @staticmethod
+    def forward(ctx, out, dep):
+        ctx.save_for_backward(dep)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dep, = ctx.saved_tensors
+        return dout, torch.zeros_like(dep)
+
+
 def ring_attention(q, k, v, axis_name: Optional[str] = None,
                    causal: bool = True, sm_scale: Optional[float] = None):
     """Exact attention with the sequence sharded over ``axis_name``.
 
-    Only the single-shard case is ported: ``axis_name=None`` runs
-    :func:`local_attention`.  Returns ``[B, T, H, D]`` in q's dtype.
+    q ``[B, Tl, H, D]``, k/v ``[B, Tl, Hkv, D]``: this rank's block of the
+    sequence (GQA circulates only the Hkv heads).  ``axis_name=None`` (or
+    an axis of size 1) is :func:`local_attention`.  Otherwise ring step s
+    attends to the k/v block of rank ``(i - s) % n``, then rotates k/v one
+    rank on (a :func:`parallel.axis.ppermute`, n - 1 rotations in all,
+    whose backward carries the k/v cotangents back).  Shapes the flash
+    kernels take go through :func:`flash_attention_lse` (past blocks in
+    full, the diagonal causal, future blocks skipped by this rank's
+    coordinate, which still rotates) and fold by :func:`_merge_tile`;
+    others take :func:`blockwise_attend` on the CPU and raise on the card,
+    as :func:`local_attention` does (``HOROVOD_FLASH_ATTENTION=0`` takes
+    the blockwise path there).  Returns ``[B, Tl, H, D]`` in q's dtype.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"ring attention over the sequence axis {axis_name!r} needs the "
-            f"multi-device slices of the port (ROADMAP.md A6); this slice "
-            f"runs axis_name=None")
-    return local_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    from . import axis as ax
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    n = ax.axis_size(axis_name) if axis_name is not None else 1
+    if n == 1:
+        return local_attention(q, k, v, causal=causal, sm_scale=scale)
+    my = ax.axis_index(axis_name)
+    B, Tl, H, D = q.shape
+    reason = _fa.unsupported_reason(q, k, v) if _fa.enabled() else None
+    use_kernel = _fa.enabled() and reason is None
+    if reason is not None and q.device.type == "cuda":
+        raise ValueError(
+            f"the flash attention kernels do not take this ring tile: "
+            f"{reason}; set HOROVOD_FLASH_ATTENTION=0 to run the blockwise "
+            f"path on the card")
+    m = torch.full((B, H, Tl), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, Tl), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, Tl, H, D), dtype=torch.float32, device=q.device)
+    hkv = k.shape[2]
+    kv = torch.cat([k, v], dim=2)       # one rotation a step carries both
+    skipped = False
+    for s in range(n):
+        blk = (my - s) % n              # whose block this rank holds now
+        ck, cv = kv[:, :, :hkv], kv[:, :, hkv:]
+        skipped = use_kernel and causal and blk > my
+        if not use_kernel:
+            m, l, o = blockwise_attend(q, ck, cv, m, l, o, my * Tl,
+                                       blk * Tl, causal, scale)
+        elif not skipped:
+            out_t, lse_t = _fa.flash_attention_lse(
+                q, ck, cv, causal=causal and blk == my, sm_scale=scale)
+            m, l, o = _merge_tile(m, l, o, out_t, lse_t)
+        if s < n - 1:
+            kv = ax.ppermute(kv, axis_name,
+                             [(i, (i + 1) % n) for i in range(n)])
+    # causal guarantees every query attends at least to itself → l > 0
+    out = (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+    return _Tie.apply(out, kv) if skipped else out

@@ -224,6 +224,9 @@ class ProcessSetTable:
         self._lock = threading.Lock()
         self._table: Dict[int, ProcessSet] = {}
         self._next_id = 0
+        #: groups made outside any set (a ParallelMesh's axis lines), by
+        #: member ranks, so a second mesh over the same lines reuses them
+        self.subgroups: Dict[Tuple[int, ...], SubGroup] = {}
 
     def register(self, ps: ProcessSet, world: int) -> int:
         ranks = ps.ranks if ps.ranks is not None else list(range(world))
@@ -291,6 +294,9 @@ class ProcessSetTable:
                 ps._hier_groups = {}
             self._table.clear()
             self._next_id = 0
+            for sub in self.subgroups.values():
+                sub.group = None
+            self.subgroups.clear()
 
 
 class _RuntimeState:

@@ -16,7 +16,7 @@ array — the one signature the serving worker speaks:
 
 Each row of a decode continues its own prompt; per-row parity with
 sequential ``greedy_generate`` is the micro-batching correctness floor.
-The model-parallel decode waits for ROADMAP.md A6.
+The model-parallel decode waits for ROADMAP.md A6 item 7.
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ def mp_llama_decode_forward(params, cfg, max_new_tokens: int,
     """Decode over a model-parallel mesh slice: not ported yet."""
     raise NotImplementedError(
         "model-parallel serving (mp_llama_decode_forward) is not ported "
-        "yet (ROADMAP.md A6)")
+        "yet (ROADMAP.md A6 item 7, mp_llama_decode_forward)")
 
 
 def classifier_forward(forward: Callable, params, buckets: ShapeBuckets,

@@ -20,7 +20,7 @@ for an eager forward, which has no compile to count: a shape outside the
 buckets raises, a bucket's first call allocates its device buffers (its
 "compile"), ``warmup()`` runs every bucket once, and ``recompiles``
 counts a bucket prepared again after it was seen.  ``MeshSlicedForward``
-(model-parallel serving) waits for ROADMAP.md A6.
+(model-parallel serving) waits for ROADMAP.md A6 item 7.
 """
 
 from __future__ import annotations
@@ -167,7 +167,8 @@ class MeshSlicedForward(BucketedForward):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "model-parallel serving (MeshSlicedForward, "
-            "HOROVOD_SERVE_MP_AXES) is not ported yet (ROADMAP.md A6)")
+            "HOROVOD_SERVE_MP_AXES) is not ported yet (ROADMAP.md A6 item "
+            "7, MeshSlicedForward)")
 
 
 class ServingWorker:

@@ -25,7 +25,21 @@ the mesh then holds the global process set), the gradient plane is:
 ``grad_accum=k`` sums the losses and gradients of k microbatches of B/k,
 scales them by 1/k, then reduces once and updates once.  Without
 ``hvd.init()`` the step runs on one device and reduces nothing.
-``attn="ulysses"`` raises ``NotImplementedError``.
+
+Over a mesh with model axes (tp, sp, a dedicated ep, or MoE experts on
+an aliased ep = dp > 1) the step runs the model inside the mesh's
+context, each rank on its slice of the params (``param_specs``) and its
+cut of the batch (:meth:`TrainStep.shard_batch`), and the gradient rule
+is derived from ``param_specs``: a leaf's gradient is summed over each
+data axis it is replicated on (dp, sp, a dedicated ep), not over an axis
+it is sharded on, and every leaf is scaled by 1/(dp·sp·ep), with the
+loss riding along as a replicated leaf.  tp needs no reduction: the
+model's copy_to/reduce_from pairs leave tp-replicated and tp-sharded
+gradients complete, and the backward all-to-all has already summed the
+experts'.  Each axis reduces one flat buffer over its group, outside the
+engine.  ``zero1`` there shards the optimizer state of the leaves not
+sharded over dp by a reduce-scatter over dp, as on the dp-only path.
+``pp > 1`` raises naming ROADMAP.md A6 item 5.
 
 :func:`make_classifier_train_step` is the data-parallel step of the image
 classifiers (ResNet, MNIST): batch norm synchronized over dp through the
@@ -69,6 +83,8 @@ class TrainStep:
     # the overlapped step's DistributedGradientTransform (its plan is
     # optim.overlap.plan_for(transform)); None for the other steps
     transform: Any = None
+    # this rank's cut of a global [B, T] batch (JAX make_data_sharding)
+    shard_batch: Callable = None
 
 
 def sum_scaled_(tensors, names, ps, scale: float) -> None:
@@ -124,6 +140,27 @@ def make_llama_parallel_spec(pmesh: ParallelMesh, attn: str = "ring",
         attn=attn)
 
 
+def data_cut(pmesh: ParallelMesh, par: ParallelSpec):
+    """``cut(x)``: this rank's ``[B/(dp·ep), T/sp]`` block of a global
+    ``[B, T]`` batch, the batch split over dp (and a dedicated ep, dp
+    major) and the sequence over sp (JAX ``data_spec``)."""
+    c = pmesh.config
+    rows = c.dp * (c.ep or 1)
+    row = pmesh.axis_index("dp") * (c.ep or 1) + (
+        pmesh.axis_index("ep") if c.ep else 0)
+
+    def cut(x):
+        B, T = x.shape[0], x.shape[1]
+        if B % rows or T % c.sp:
+            raise ValueError(f"batch {tuple(x.shape)} does not split over "
+                             f"{rows} data shards and sp={c.sp}")
+        b, t = B // rows, T // c.sp
+        s = pmesh.axis_index("sp")
+        return x[row * b:(row + 1) * b, s * t:(s + 1) * t]
+
+    return cut
+
+
 def make_llama_train_step(cfg: LlamaConfig,
                           pmesh: Optional[ParallelMesh] = None,
                           optimizer: Optional[Callable[..., Any]] = None,
@@ -133,10 +170,11 @@ def make_llama_train_step(cfg: LlamaConfig,
                           grad_accum: int = 0,
                           overlap: bool = False,
                           device: DeviceLike = None) -> TrainStep:
-    """Build the data-parallel Llama train step (``zero1``, ``grad_accum``
-    and ``overlap`` as the module docstring says, with the JAX package's
-    composition rules: ``overlap`` refuses ``zero1``, ``grad_accum``, MoE
-    and meshes other than dp-only, and needs ``hvd.init()``).
+    """Build the Llama train step over ``pmesh`` (``zero1``,
+    ``grad_accum`` and ``overlap`` as the module docstring says, with the
+    JAX package's composition rules: ``overlap`` refuses ``zero1``,
+    ``grad_accum``, MoE and meshes other than dp-only, and needs
+    ``hvd.init()``).
 
     ``optimizer`` is a factory called with the list of parameters
     (``optim.precision.adamw_lp(lr)`` or a ``torch.optim`` class bound to
@@ -144,18 +182,32 @@ def make_llama_train_step(cfg: LlamaConfig,
     The mesh defaults to ``MeshConfig(dp=hvd.size())`` when the runtime is
     initialized, else to one device: ``device``, or the CUDA device when
     ``device`` is None (raising without one; pass ``device="cpu"``).
+    ``step_fn`` takes this rank's cut of the batch (``shard_batch``);
+    ``init_fn`` returns this rank's slice of the params.
     """
-    if attn == "ulysses":
-        raise NotImplementedError(
-            "attn='ulysses' is not ported yet (ROADMAP.md A6)")
     pmesh = resolve_mesh(pmesh, device)
     device = pmesh.devices[0]
     par = make_llama_parallel_spec(pmesh, attn, use_ep=cfg.n_experts > 0)
-    dp, sp = pmesh.config.dp, pmesh.config.sp
+    c = pmesh.config
+    dp, sp, tp = c.dp, c.sp, c.tp
+    ep = c.ep or 1  # a dedicated ep axis multiplies the data parallelism
+    if c.pp > 1:
+        raise NotImplementedError(
+            f"pp={c.pp}: pipeline parallelism is not ported yet "
+            f"(ROADMAP.md A6 item 5, pipeline)")
+    if cfg.n_experts > 0 and par.ep_axis is not None:
+        ep_size = pmesh.axis_size(par.ep_axis)
+        if cfg.n_experts % ep_size:
+            raise ValueError(f"n_experts={cfg.n_experts} must divide over "
+                             f"{par.ep_axis}={ep_size}")
+    if tp > 1 and (cfg.n_heads % tp or cfg.n_kv_heads % tp
+                   or cfg.d_ff % tp):
+        raise ValueError(
+            f"n_heads={cfg.n_heads}, n_kv_heads={cfg.n_kv_heads} and "
+            f"d_ff={cfg.d_ff} must all be divisible by tp={tp}")
     if overlap:
-        c = pmesh.config
-        if (c.tp > 1 or sp > 1 or c.pp > 1 or (c.ep or 1) > 1 or zero1
-                or grad_accum > 1 or cfg.n_experts > 0):
+        if (tp > 1 or sp > 1 or ep > 1 or zero1 or grad_accum > 1
+                or cfg.n_experts > 0):
             raise ValueError(
                 "overlap=True currently composes with dp-only DENSE meshes "
                 "(the grad taps psum every leaf over dp, but MoE aliases "
@@ -174,6 +226,12 @@ def make_llama_train_step(cfg: LlamaConfig,
         # against the CPU assume them (TF32 keeps ~3 decimal digits)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    # model axes, or experts sharded over dp: the spec-derived step
+    model_parallel = (tp > 1 or sp > 1 or ep > 1
+                      or par.ep_axis is not None)
+    if model_parallel:
+        return _model_parallel_step(cfg, pmesh, par, make_opt, zero1,
+                                    grad_accum, n_microbatches, device)
 
     ps = pmesh.process_set
     scale = 1.0 / (dp * sp)
@@ -219,35 +277,7 @@ def make_llama_train_step(cfg: LlamaConfig,
         return llama_mod.loss_fn(params, tokens, targets, cfg, par,
                                  n_microbatches)
 
-    def one_pass(params, tokens, targets):
-        loss = local_loss(params, tokens, targets)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
-        it = iter(grads)
-        return loss.detach(), tree_map(lambda _: next(it), params)
-
-    def loss_and_grads(params, tokens, targets):
-        if grad_accum <= 1:
-            return one_pass(params, tokens, targets)
-        # k microbatches, their losses and gradients summed, then scaled
-        # by 1/k (the JAX step's lax.scan of value_and_grad)
-        k = grad_accum
-        B = tokens.shape[0]
-        if B % k:
-            raise ValueError(
-                f"local batch {B} not divisible by grad_accum={k}")
-        mb = B // k
-        loss, grads = one_pass(params, tokens[:mb], targets[:mb])
-        for i in range(1, k):
-            l_i, g_i = one_pass(params, tokens[i * mb:(i + 1) * mb],
-                                targets[i * mb:(i + 1) * mb])
-            loss = loss + l_i
-            for a, g in zip(tree_leaves(grads), tree_leaves(g_i)):
-                a.add_(g)
-            del g_i
-        inv_k = 1.0 / k
-        for g in tree_leaves(grads):
-            collectives._scale_(g, inv_k)
-        return loss * inv_k, grads
+    loss_and_grads = _loss_and_grads(local_loss, grad_accum)
 
     def grads_fn(params, tokens, targets):
         return reduce_grads(*loss_and_grads(params, tokens, targets))
@@ -275,32 +305,14 @@ def make_llama_train_step(cfg: LlamaConfig,
         def step_fn(params, opt_state, tokens, targets):
             loss, grads = reduce_grads(
                 *loss_and_grads(params, tokens, targets), zero=use_zero)
-            views = opt_state.hvd_rows if use_zero else None
-            for i, (p, g) in enumerate(zip(tree_leaves(params),
-                                           tree_leaves(grads))):
-                (views[i] if views and views[i] is not None else p).grad = g
-            opt_state.step()
-            opt_state.zero_grad(set_to_none=True)
+            _apply(params, grads, opt_state, use_zero)
             if use_zero:
-                # every rank's updated rows back into the full leaves
-                with torch.no_grad():
-                    for _, p, r in sorted(zip(tree_paths(params),
-                                              tree_leaves(params), views),
-                                          key=lambda x: x[0]):
-                        if r is not None:
-                            p.view(-1).copy_(collectives.all_gather_flat(
-                                r.reshape(-1), ps))
+                _gather_rows(params, opt_state.hvd_rows, ps)
             return params, opt_state, loss
 
         def opt_init(params):
-            leaves = trainable_leaves(params)
-            if not use_zero:
-                return make_opt(leaves)
-            views = [zero_rows(p) for p in leaves]
-            opt = make_opt([v if v is not None else p
-                            for p, v in zip(leaves, views)])
-            opt.hvd_rows = views
-            return opt
+            return _make_opt(make_opt, params,
+                             zero_rows if use_zero else None)
 
     def init_fn(seed: int = 0):
         params = llama_mod.init_params(cfg, seed, device=device)
@@ -308,7 +320,187 @@ def make_llama_train_step(cfg: LlamaConfig,
 
     return TrainStep(step_fn=step_fn, init_fn=init_fn, opt_init=opt_init,
                      grads_fn=grads_fn, par=par, mesh=pmesh, device=device,
-                     transform=tx if overlap else None)
+                     transform=tx if overlap else None,
+                     shard_batch=data_cut(pmesh, par))
+
+
+def _loss_and_grads(local_loss, grad_accum: int):
+    """``(params, tokens, targets) -> (loss, grads)`` of one pass, or with
+    ``grad_accum=k`` of k microbatches of B/k, their losses and gradients
+    summed, then scaled by 1/k (the JAX step's lax.scan of
+    value_and_grad)."""
+
+    def one_pass(params, tokens, targets):
+        loss = local_loss(params, tokens, targets)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        it = iter(grads)
+        return loss.detach(), tree_map(lambda _: next(it), params)
+
+    def loss_and_grads(params, tokens, targets):
+        if grad_accum <= 1:
+            return one_pass(params, tokens, targets)
+        k = grad_accum
+        B = tokens.shape[0]
+        if B % k:
+            raise ValueError(
+                f"local batch {B} not divisible by grad_accum={k}")
+        mb = B // k
+        loss, grads = one_pass(params, tokens[:mb], targets[:mb])
+        for i in range(1, k):
+            l_i, g_i = one_pass(params, tokens[i * mb:(i + 1) * mb],
+                                targets[i * mb:(i + 1) * mb])
+            loss = loss + l_i
+            for a, g in zip(tree_leaves(grads), tree_leaves(g_i)):
+                a.add_(g)
+            del g_i
+        inv_k = 1.0 / k
+        for g in tree_leaves(grads):
+            collectives._scale_(g, inv_k)
+        return loss * inv_k, grads
+
+    return loss_and_grads
+
+
+def _make_opt(make_opt, params, zero_rows=None):
+    """The optimizer over ``params``' leaves or, with ``zero_rows``
+    (leaf → this rank's row view or None), over the ZeRO rows; the views
+    ride along as ``opt.hvd_rows``."""
+    leaves = trainable_leaves(params)
+    if zero_rows is None:
+        return make_opt(leaves)
+    views = [zero_rows(p) for p in leaves]
+    opt = make_opt([v if v is not None else p
+                    for p, v in zip(leaves, views)])
+    opt.hvd_rows = views
+    return opt
+
+
+def _apply(params, grads, opt_state, zero: bool) -> None:
+    """Set each leaf's (or ZeRO row view's) gradient, step, clear."""
+    views = opt_state.hvd_rows if zero else None
+    for i, (p, g) in enumerate(zip(tree_leaves(params), tree_leaves(grads))):
+        (views[i] if views and views[i] is not None else p).grad = g
+    opt_state.step()
+    opt_state.zero_grad(set_to_none=True)
+
+
+def _gather_rows(params, views, group) -> None:
+    """Every rank's updated ZeRO rows back into the full leaves, in path
+    order (the same on every rank)."""
+    with torch.no_grad():
+        for _, p, r in sorted(zip(tree_paths(params), tree_leaves(params),
+                                  views), key=lambda x: x[0]):
+            if r is not None:
+                p.view(-1).copy_(collectives.all_gather_flat(
+                    r.reshape(-1), group))
+
+
+def _model_parallel_step(cfg: LlamaConfig, pmesh: ParallelMesh,
+                         par: ParallelSpec, make_opt, zero1: bool,
+                         grad_accum: int, n_microbatches: int,
+                         device: torch.device) -> TrainStep:
+    """The step over a mesh with model axes: the module docstring's
+    spec-derived gradient rule."""
+    from . import convert
+    from .parallel import axis as ax
+    c = pmesh.config
+    dp = c.dp
+    scale = 1.0 / (dp * c.sp * (c.ep or 1))
+    specs = llama_mod.param_specs(par, cfg)
+    # the data axes, each reduced over its group in this order
+    data_axes = [a for a in ("sp", "ep", "dp")
+                 if a in pmesh.axis_names and pmesh.axis_size(a) > 1
+                 and pmesh.group(a) is not None]
+    dp_group = pmesh.group("dp")
+    use_zero = bool(zero1) and dp > 1
+
+    def axes_of(path):
+        return {a for a in llama_mod.leaf_spec(specs, path)
+                if a is not None}
+
+    def zero_leaf(path, p):
+        return (use_zero and "dp" not in axes_of(path) and p.dim() > 0
+                and p.shape[0] % dp == 0)
+
+    def reduce_grads(loss, grads, zero=False):
+        paths, leaves = tree_paths(grads), tree_leaves(grads)
+        leaves = list(leaves) + [loss]
+        owned = [axes_of(p) for p in paths] + [set()]
+        zeroed = {i for i, (p, g) in enumerate(zip(paths, leaves))
+                  if zero and zero_leaf(p, g)}
+        for a in data_axes:
+            if a == "dp" and zeroed:
+                for i in sorted(zeroed, key=lambda i: paths[i]):
+                    g = leaves[i]
+                    r = collectives.reduce_scatter_flat(g.reshape(-1),
+                                                        dp_group)
+                    leaves[i] = r.view((g.shape[0] // dp,) + g.shape[1:])
+            idx = [i for i, o in enumerate(owned)
+                   if a not in o and not (a == "dp" and i in zeroed)]
+            if not idx:
+                continue
+            flat = torch.cat([leaves[i].reshape(-1).float() for i in idx])
+            flat = ax._all_reduce(flat, pmesh.group(a), a)
+            for i, chunk in zip(idx, flat.split(
+                    [leaves[i].numel() for i in idx])):
+                leaves[i] = chunk.view(leaves[i].shape).to(leaves[i].dtype)
+        if scale != 1.0:
+            leaves = [t.clone() for t in leaves]
+            for t in leaves:
+                collectives._scale_(t, scale)
+        it = iter(leaves)
+        grads = tree_map(lambda _: next(it), grads)
+        return next(it), grads
+
+    def local_loss(params, tokens, targets):
+        return llama_mod.loss_fn(params, tokens, targets, cfg, par,
+                                 n_microbatches)
+
+    loss_and_grads = _loss_and_grads(local_loss, grad_accum)
+
+    def run(params, tokens, targets):
+        # the backward's collectives find the mesh through their ctx; the
+        # forward's (and a rematerialized block's) through the context
+        with pmesh:
+            return loss_and_grads(params, tokens, targets)
+
+    def grads_fn(params, tokens, targets):
+        return reduce_grads(*run(params, tokens, targets))
+
+    def zero_rows_of(params):
+        paths = iter(tree_paths(params))
+
+        def rows(p):
+            path = next(paths)
+            if not zero_leaf(path, p):
+                return None
+            n = p.shape[0] // dp
+            i = pmesh.axis_index("dp")
+            return p.detach()[i * n:(i + 1) * n]
+
+        return rows
+
+    def step_fn(params, opt_state, tokens, targets):
+        loss, grads = reduce_grads(*run(params, tokens, targets),
+                                   zero=use_zero)
+        _apply(params, grads, opt_state, use_zero)
+        if use_zero:
+            _gather_rows(params, opt_state.hvd_rows, dp_group)
+        return params, opt_state, loss
+
+    def opt_init(params):
+        return _make_opt(make_opt, params,
+                         zero_rows_of(params) if use_zero else None)
+
+    def init_fn(seed: int = 0):
+        full = llama_mod.init_params(cfg, seed, tp=c.tp, device=device)
+        params = convert.llama_shard_params(full, cfg, pmesh, par)
+        del full
+        return params, opt_init(params)
+
+    return TrainStep(step_fn=step_fn, init_fn=init_fn, opt_init=opt_init,
+                     grads_fn=grads_fn, par=par, mesh=pmesh, device=device,
+                     shard_batch=data_cut(pmesh, par))
 
 
 #: ``optax.sgd(0.1, momentum=0.9)``, the JAX classifier step's default:

@@ -913,3 +913,305 @@ def test_chip_smoke_recover_phase_on_the_cpu(tmp_path, capsys):
     assert [size for _, size in row["formed"]] == [2, 2]
     assert 0 < row["priced_tile_bytes"] < row["frame_bytes"]
     assert row["recover_s"] > 0 and row["push_ms"]
+
+
+# --- the model-parallel phases: the lse case, train_moe, train_tp2_sp2
+# and train_moe_ep2 ---------------------------------------------------------
+
+def test_lse_path_gates_pass_and_fail():
+    ok = {"out_err": 1e-2, "lse_err": 5e-4, "dq_rel": 1e-2, "dk_rel": 1e-2,
+          "dv_rel": 1e-2}
+    assert chip_smoke.lse_path_problems(ok) == []
+    for key, bad in (("out_err", 0.1), ("lse_err", 2e-3), ("dq_rel", 0.05),
+                     ("dv_rel", 1.0)):
+        assert chip_smoke.lse_path_problems(dict(ok, **{key: bad}))
+
+
+def test_lse_autograd_errors_are_small_for_the_plain_path(monkeypatch):
+    """lse_autograd_errors on the CPU: flash_attention_lse's plain path and
+    its autograd with an lse cotangent against the plain kernels with the
+    cotangent folded into delta, at a small ring-tile shape."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    g = torch.Generator().manual_seed(0)
+    B, H, Hkv, T, D = 1, 4, 2, 128, 64
+    q, do = (torch.randn(B, H, T, D, generator=g).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, T, D, generator=g).bfloat16()
+            for _ in range(2))
+    dlse = torch.randn(B, H, T, generator=g)
+    for causal in (True, False):
+        scale = D ** -0.5
+        ref_out, ref_lse = fa._fwd_reference(q, k, v, causal, scale)
+        delta = (do.float() * ref_out.float()).sum(-1) - dlse
+        args = (q, k, v, do, ref_lse, delta, causal, scale)
+        grads = (fa._dq_reference(*args), *fa._dkv_reference(*args))
+        errs = chip_smoke.lse_autograd_errors(
+            fa, q, k, v, do, dlse, causal, scale, ref_out, ref_lse, grads)
+        assert chip_smoke.lse_path_problems(errs) == [], errs
+        # the same check without the fold misses dlse's term
+        nofold = (do.float() * ref_out.float()).sum(-1)
+        wrong = fa._dq_reference(q, k, v, do, ref_lse, nofold, causal,
+                                 scale)
+        assert chip_smoke.rel(grads[0], wrong) > chip_smoke.GRAD_REL
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ring_launch_schedule(sp):
+    """Rank i of a causal ring runs its diagonal tile and the i earlier
+    blocks' (tests/test_torch_parallel.py counts the tiles of the ring
+    itself); all ranks together run sp(sp+1)/2 tiles a layer, non-causal
+    sp² ."""
+    tiles = [chip_smoke.ring_launches(i, sp, 1)["fwd"] for i in range(sp)]
+    assert tiles == list(range(1, sp + 1))
+    assert sum(tiles) == sp * (sp + 1) // 2
+    assert all(chip_smoke.ring_launches(i, sp, 3, causal=False)
+               == {"fwd": 3 * sp, "dq": 3 * sp, "dkv": 3 * sp}
+               for i in range(sp))
+    assert chip_smoke.ring_launches(1, 2, 2) == {"fwd": 4, "dq": 4,
+                                                 "dkv": 4}
+    assert chip_smoke.ulysses_launches(2) == {"fwd": 2, "dq": 2, "dkv": 2}
+
+
+def _mp_result():
+    ref = [10.9, 9.9, 8.9]
+    coords = [{"dp": 0, "pp": 0, "sp": s, "tp": t} for s in (0, 1)
+              for t in (0, 1)]
+
+    def run(attn):
+        want = [chip_smoke.ring_launches(c["sp"], 2, 2) if attn == "ring"
+                else chip_smoke.ulysses_launches(2) for c in coords]
+        return {"coords": coords,
+                "losses_by_rank": [[10.9005, 9.92, 8.92]] * 4,
+                "launches_per_step_by_rank": [[w] * 3 for w in want],
+                "dlse_folds_by_rank": ([6, 6, 12, 12] if attn == "ring"
+                                       else [0] * 4)}
+
+    return {"losses_world1": ref, "ring": run("ring"),
+            "ulysses": run("ulysses")}
+
+
+def test_mp_gates_pass_and_fail():
+    assert chip_smoke.mp_problems(_mp_result()) == []
+    assert chip_smoke.loss_gaps([1.1, 2.0], [1.0, 2.0]) == pytest.approx(
+        [0.1, 0.0])
+    res = _mp_result()
+    res["ring"]["losses_by_rank"][3] = [10.9005, 9.92, 8.9200001]
+    assert any("differ" in b for b in chip_smoke.mp_problems(res))
+    res = _mp_result()
+    res["ulysses"]["losses_by_rank"] = [[10.902, 9.92, 8.92]] * 4
+    assert any("gaps" in b for b in chip_smoke.mp_problems(res))
+    res = _mp_result()
+    res["ring"]["losses_by_rank"] = [[10.9005, 9.96, 8.92]] * 4
+    assert any("gaps" in b for b in chip_smoke.mp_problems(res))
+    res = _mp_result()
+    res["ring"]["launches_per_step_by_rank"][2][1] = {"fwd": 2, "dq": 2,
+                                                       "dkv": 2}
+    assert any("rank 2" in b for b in chip_smoke.mp_problems(res))
+    res = _mp_result()
+    res["ring"]["dlse_folds_by_rank"] = [0] * 4
+    assert any("lse" in b for b in chip_smoke.mp_problems(res))
+
+
+def _ep_run(losses, kept, world1=(10.9, 9.9, 8.9)):
+    return {"losses_world1": list(world1),
+            "losses_by_rank": [list(losses)] * 2,
+            "kept_by_rank": [list(kept)] * 2, "kept_world1": [1.0] * 6,
+            "launches_per_step_by_rank": [[{"fwd": 2, "dq": 2,
+                                            "dkv": 2}] * 3] * 2}
+
+
+def test_ep_gates_pass_and_fail():
+    """Every step is held where every pick kept its slot on both sides,
+    the first step alone where capacity dropped some."""
+    dropless = _ep_run([10.91, 9.94, 8.87], [1.0] * 6)
+    dropping = _ep_run([10.91, 9.6, 7.9], [0.85, 0.9, 0.7, 0.6, 0.7, 0.7])
+
+    def res(**variants):
+        return {"variants": variants}
+
+    assert chip_smoke.ep_problems(res(a=dropping, b=dropless)) == []
+    # without a dropless variant no step-by-step gate ran
+    assert chip_smoke.ep_problems(res(a=dropping))
+    assert chip_smoke.ep_problems(res(b=_ep_run([10.91, 9.96, 8.87],
+                                                [1.0] * 6)))
+    assert chip_smoke.ep_problems(res(a=_ep_run([10.96, 9.6, 7.9],
+                                                [0.9] * 6), b=dropless))
+    bad = dict(dropless, losses_by_rank=[[10.91, 9.94, 8.87],
+                                         [10.91, 9.94, 8.88]])
+    assert chip_smoke.ep_problems(res(b=bad))
+    bad = dict(dropless, launches_per_step_by_rank=[
+        [{"fwd": 4, "dq": 4, "dkv": 4}] * 3] * 2)
+    assert chip_smoke.ep_problems(res(b=bad))
+
+
+def test_moe_step_runs_each_flash_kernel_as_train_moe_expects(monkeypatch):
+    """train_moe's schedule at 4 layers, the last 2 not rematerialized:
+    the forward 6 times a step, dq and dK/dV 4; the step at tiny widths
+    with head_dim 64 and seq 128, the plain versions' calls counted."""
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    calls = {"fwd": 0, "dq": 0, "dkv": 0}
+    for kernel, name in (("fwd", "_flash_fwd_bhtd"), ("dq", "_dq"),
+                         ("dkv", "_dkv")):
+        def counted(*a, _f=getattr(fa, name), _k=kernel, **k):
+            calls[_k] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(fa, name, counted)
+    import dataclasses
+    cfg = dataclasses.replace(
+        chip_smoke.bench_config(llama, n_layers=chip_smoke.MOE_LAYERS,
+                                **chip_smoke.MOE_OVER),
+        vocab_size=256, d_model=128, n_heads=2, n_kv_heads=1, d_ff=128,
+        max_seq_len=128)
+    ts = training.make_llama_train_step(cfg, device="cpu")
+    params, opt_state = ts.init_fn(0)
+    toks = torch.zeros((1, 128), dtype=torch.long)
+    ts.step_fn(params, opt_state, toks, toks)
+    assert calls == chip_smoke.EXPECTED_MOE_LAUNCHES
+
+
+_MP_REHEARSAL = '''
+import dataclasses
+import sys
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+from horovod_tpu_torch.ops import flash_attention as fa
+_bench = chip_smoke.bench_config
+chip_smoke.bench_config = lambda llama, **over: dataclasses.replace(
+    _bench(llama, **over), vocab_size=512, d_model=256, n_heads=4,
+    n_kv_heads=2, d_ff=512, max_seq_len=256)
+for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+    setattr(torch.cuda, name, lambda *a, **k: None)
+torch.cuda.max_memory_allocated = lambda *a, **k: 0
+# the plain versions' calls stand for the kernels' launches
+for kernel, name in (("fwd", "_flash_fwd_bhtd"), ("dq", "_dq"),
+                     ("dkv", "_dkv")):
+    def counted(*a, _f=getattr(fa, name), _k=kernel, **k):
+        fa.LAUNCHES[_k] += 1
+        return _f(*a, **k)
+    setattr(fa, name, counted)
+child = chip_smoke.mp_child if sys.argv[1] == "--mp-rank" \\
+    else chip_smoke.ep_child
+sys.exit(child(int(sys.argv[2]), torch.device("cpu")))
+'''
+
+
+def test_chip_smoke_model_parallel_phases_on_the_cpu(tmp_path, capsys,
+                                                    monkeypatch):
+    """train_tp2_sp2 (four ranks: ring, then Ulysses, then one process on
+    the whole batch) and train_moe_ep2 (two ranks, then one process),
+    whole, at small widths on the CPU, through every gate of the phases:
+    the ranks' losses the same bits, the world-1 gaps, each rank's
+    launches on the ring's schedule, the lse folds, the all-to-all bytes
+    of the [E, C, D] slots."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # four ranks on few cores
+    wrapper = tmp_path / "ranks.py"
+    wrapper.write_text(_MP_REHEARSAL.format(
+        root=str(pathlib.Path(__file__).resolve().parents[1])))
+    mp = chip_smoke.train_tp2_sp2_phase(script=wrapper)
+    ep = chip_smoke.train_moe_ep2_phase(script=wrapper)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [x["phase"] for x in lines] == ["train_tp2_sp2", "train_moe_ep2"]
+    assert [n["fwd"] for n in mp["ring"]["launches_by_rank"]] == [6, 6, 12,
+                                                                  12]
+    assert mp["ring"]["local_batch"] == [chip_smoke.MP_BATCH, 128]
+    assert all("tp.all_reduce" in b and "sp.ppermute" in b
+               for b in mp["ring"]["host_bytes_per_step_by_rank"])
+    run = ep["variants"]["cf1.25"]
+    assert run["capacity"] == 160
+    assert run["all_to_all_bytes_per_layer_each_way"] == 8 * 160 * 256 * 2
+    # capacity factor 8 leaves a slot for every pick, on both sides
+    run = ep["variants"]["cf8"]
+    assert min(run["kept_by_rank"][0] + run["kept_world1"]) == 1.0
+
+
+def test_kernel_cases_hold_the_model_parallel_paths_shapes():
+    """The kernels phase checks each flash kernel at the shapes the
+    model-parallel phases give it: train_tp2_sp2's ring tile and Ulysses
+    attention, and train_moe_ep2's attention."""
+    from horovod_tpu_torch.models import llama
+    cfg = chip_smoke.bench_config(llama)
+    H, Hkv, D, T = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.max_seq_len
+    sp, tp = chip_smoke.MP_MESH["sp"], chip_smoke.MP_MESH["tp"]
+    cases = dict(chip_smoke.KERNEL_CASES)
+    B = chip_smoke.MP_BATCH
+    assert cases["lse"] == (B, T // sp, H // tp, Hkv // tp, D, True)
+    assert cases["lse_noncausal"] == (B, T // sp, H // tp, Hkv // tp, D,
+                                      False)
+    assert cases["ulysses"] == (B, T, H // (tp * sp), Hkv // (tp * sp), D,
+                                True)
+    assert cases["ep"] == (chip_smoke.EP_BATCH, T, H, Hkv, D, True)
+    assert set(chip_smoke.MP_CASES) <= set(cases)
+
+
+def test_bf16_step():
+    x = torch.tensor([1.0, 1.5, 0.75, -3.0, 0.0])
+    want = torch.tensor([2.0 ** -7, 2.0 ** -7, 2.0 ** -8, 2.0 ** -6,
+                         2.0 ** -133])
+    assert torch.equal(chip_smoke.bf16_step(x), want)
+    # a step up is the next bf16 value; a quarter step rounds back
+    for v in (1.0, 0.75, 3.0, 100.0, -5.5):
+        t = torch.tensor([v]).bfloat16().float()
+        step = chip_smoke.bf16_step(t)
+        assert torch.equal((t + step).bfloat16().float() - t, step)
+        assert torch.equal((t + step / 4).bfloat16().float(), t)
+
+
+def test_top_k_picks_are_the_dispatch_picks():
+    """top_k_picks gives the experts moe._top_k_dispatch routes each token
+    to, in pick order, at a capacity that drops nothing."""
+    from horovod_tpu_torch.models import moe
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(64, 8, generator=g).bfloat16()
+    picks = chip_smoke.top_k_picks(logits, 2)
+    dispatch = moe._top_k_dispatch(torch.softmax(logits.float(), -1), 2,
+                                   128)[0]
+    chosen = dispatch.sum(-1)
+    for n in range(64):
+        assert set(chosen[n].nonzero()[:, 0].tolist()) == set(
+            picks[n].tolist())
+        assert logits[n, picks[n, 0]] >= logits[n, picks[n, 1]]
+
+
+def test_route_compare_tells_a_near_tie_from_a_wrong_pick():
+    """One token's 2nd and 3rd logits a bf16 step apart and swapped on the
+    other side: a near-tie.  Ten steps apart and swapped: the rule fails."""
+    base = torch.tensor([[3.0, 1.0, 0.5, -1.0],
+                         [2.0, 1.0, 0.0, -2.0]]).bfloat16()
+    step = chip_smoke.bf16_step(torch.tensor(1.0)).item()
+    for gap, ok in ((1, True), (10, False)):
+        b = base.clone()
+        b[1, 2] = 1.0 - gap * step
+        a = b.clone()
+        a[1, 1], a[1, 2] = b[1, 2], b[1, 1]
+        differ, stats = chip_smoke.route_compare(a, b, 2)
+        assert differ.tolist() == [False, True]
+        assert stats["differing"] == 1 and stats["gap_steps"] == [gap]
+        assert (chip_smoke.route_problems(stats) == []) == ok
+    same, stats = chip_smoke.route_compare(base, base, 2)
+    assert not same.any() and stats["max_logit_diff_steps"] == 0
+
+
+def test_chip_smoke_parity_moe_route_on_the_cpu(monkeypatch, capsys):
+    """parity_moe_route whole at small widths with the CPU on both sides:
+    the same picks, the agreeing tokens' rows and gradients equal."""
+    import dataclasses
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models import llama
+    monkeypatch.setattr(chip_smoke, "bench_config", lambda _, **over: (
+        dataclasses.replace(llama.LlamaConfig(
+            vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+            d_ff=128, max_seq_len=256, remat=True, remat_policy="full",
+            remat_skip_layers=2), **over)))
+    row = chip_smoke.parity_moe_route_phase(llama, convert,
+                                            torch.device("cpu"))
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["phase"] == "parity_moe_route" and line["top_k"] == 2
+    assert [x["differing"] for x in line["full_model"]] == [0, 0]
+    assert row["agreeing"] == row["tokens"] == 512
+    assert row["capacity"] == 160
+    assert all(a == b for a, b in row["norms"].values())

@@ -169,6 +169,14 @@ def test_blockwise_local_attention_matches_jax(T, Hkv, blk):
 
 
 def test_ring_attention_refuses_a_sequence_axis():
+    """A sequence axis needs its mesh's context, where the ring finds its
+    group (tests/test_torch_parallel.py runs the ring over rank
+    processes); an axis of size 1 is local attention."""
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
     q = torch.zeros(1, 64, 2, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    with pytest.raises(ValueError, match="ParallelMesh context"):
         tra.ring_attention(q, q, q, axis_name="sp")
+    with ParallelMesh(MeshConfig(), devices=["cpu"]):
+        out = tra.ring_attention(q, q, q, axis_name="sp")
+    torch.testing.assert_close(out, tra.local_attention(q, q, q),
+                               rtol=0, atol=0)

@@ -302,11 +302,29 @@ def test_row_starts_is_decode_only_and_tables_need_the_pool(weights):
 
 
 def test_moe_decode_is_not_ported(weights):
-    _, _, tp = weights
-    cfg = dataclasses.replace(TCFG, n_experts=4)
-    cache = tg.init_kv_cache(cfg, 1, 4, device=CPU)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tg.forward_with_cache(tp, _t(np.zeros((1, 2))), cfg, cache)
+    """MoE decode is ported now (ROADMAP.md A6 item 1): with the experts'
+    capacity to spare, the cached prefill and one decode step give the
+    full forward's logits, and the JAX package's cached forward's
+    (tests/test_torch_moe.py holds the layer itself against JAX)."""
+    del weights
+    jcfg = dataclasses.replace(JCFG, n_experts=4, expert_top_k=2,
+                               capacity_factor=8.0)
+    cfg = torch_cfg(jcfg)
+    np_params = jax_params(jcfg, seed=5)
+    tp = convert.llama_params_from_numpy(np_params, device="cpu")
+    toks = np.random.RandomState(3).randint(0, 64, (2, 6))
+    full, _ = tl.forward(tp, _t(toks), cfg)
+    cache = tg.init_kv_cache(cfg, 2, 8, device=CPU)
+    pre, cache = tg.forward_with_cache(tp, _t(toks[:, :5]), cfg, cache)
+    step, cache = tg.forward_with_cache(tp, _t(toks[:, 5:6]), cfg, cache)
+    torch.testing.assert_close(pre, full[:, :5], rtol=0, atol=2e-4)
+    torch.testing.assert_close(step[:, 0], full[:, 5], rtol=0, atol=2e-3)
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
+    jcache = jg.init_kv_cache(jcfg, 2, 8)
+    jpre, _ = jg.forward_with_cache(jp, jnp.asarray(toks[:, :5]), jcfg,
+                                    jcache)
+    np.testing.assert_allclose(pre.numpy(), np.asarray(jpre), rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("temperature", [0.3, 1.0, 5.0])

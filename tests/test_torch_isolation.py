@@ -56,6 +56,11 @@ def test_importing_every_module_loads_no_jax():
     # the rest of the distributed optimizer and the engine's tools
     for m in ("ops.adasum", "timeline", "stall", "autotune"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # the parallel layouts: the mesh's axes, their collectives, the ring,
+    # Ulysses, MoE
+    for m in ("parallel.mesh", "parallel.axis", "parallel.ring_attention",
+              "parallel.ulysses", "models.moe"):
+        assert f"horovod_tpu_torch.{m}" in mods
     # checkpointless recovery, hvd.run and the executor, the parquet reader
     for m in ("elastic.recovery", "runner.api", "runner.run_task",
               "runner.executor", "runner.executor_task", "data.parquet",
@@ -100,10 +105,8 @@ def test_elastic_surface_imports_without_jax():
 DELIBERATE = {"mesh", "worker_axis", "process_count", "process_index",
               "stack_on_workers", "worker_values", "compat", "version"}
 #: top-level names not ported yet, by ROADMAP.md item
-STILL_MISSING = {"allreduce_p": "A6", "allgather_p": "A6",
-                 "broadcast_p": "A6", "alltoall_p": "A6",
-                 "reducescatter_p": "A6", "start_profiler": "A9",
-                 "stop_profiler": "A9", "health": "A9", "tracing": "A9"}
+STILL_MISSING = {"start_profiler": "A9", "stop_profiler": "A9",
+                 "health": "A9", "tracing": "A9"}
 
 
 def test_top_level_names_resolve_as_in_jax():

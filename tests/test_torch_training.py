@@ -174,20 +174,28 @@ def test_unported_step_options_raise(kw, item):
                                                 device="cpu", **kw)
             assert ts.mesh.process_set is None
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        training.make_llama_train_step(torch_cfg(CFG), device="cpu", **kw)
+    # A6's Ulysses is ported: on one device (no sp axis) it is local
+    # attention, the same step as ring's
+    ts = training.make_llama_train_step(torch_cfg(CFG), device="cpu", **kw)
+    assert ts.par.attn == "ulysses" and ts.par.sp_axis is None
+    params, opt_state = ts.init_fn(0)
+    _, _, loss = ts.step_fn(params, opt_state, torch.from_numpy(TOKS),
+                            torch.from_numpy(TGTS))
+    assert np.isfinite(loss.item())
 
 
 def test_mesh_is_one_device_until_the_nccl_slice():
-    """A process's mesh holds its own device; dp > 1 needs the runtime
-    initialized at that size (tests/test_torch_dp_step.py runs one), and
-    the model axes wait for the parallel layouts."""
+    """A process's mesh holds its own device; a mesh of more than one
+    device, on any axis, needs the runtime initialized at that size
+    (tests/test_torch_dp_step.py and tests/test_torch_llama_parallel.py
+    run them)."""
     mesh = ParallelMesh(MeshConfig(), devices=["cpu"])
     assert mesh.axis_names == ("dp", "pp", "sp", "tp")
     assert mesh.axis_size("ep") == 1 and mesh.devices == [torch.device("cpu")]
     assert mesh.process_set is None
+    assert mesh.axis_index("tp") == 0 and mesh.group("tp") is None
     with pytest.raises(ValueError, match=r"hvd\.init\(\)"):
         ParallelMesh(MeshConfig(dp=2), devices=["cpu"])
-    for axes in ({"tp": 2}, {"sp": 2}, {"pp": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    for axes in ({"tp": 2}, {"sp": 2}, {"pp": 2}, {"ep": 2}):
+        with pytest.raises(ValueError, match=r"hvd\.init\(\)"):
             ParallelMesh(MeshConfig(**axes), devices=["cpu"])

@@ -11,6 +11,7 @@ for the JAX package.  Run by hand::
     python tests/torch_ranks.py OUT_DIR CASE [CASE ...]   # with the env
 """
 
+import functools
 import json
 import os
 import pathlib
@@ -1317,6 +1318,253 @@ def case_recovery(hvd, rank, world):
         "params": _np(params["a"]).tolist(),
         "tile_kept": same(recovery_payload(state.dist), before),
         "dist_is_live": state.dist is st, "step": state.step}
+    return out
+
+
+# -- the parallel layouts (A6): the mesh, the axis collectives, the ring,
+# Ulysses, the in-step *_p forms, the model-parallel Llama ---------------
+
+#: (dp, sp, tp, ep) meshes whose coordinates and groups case_mesh reports,
+#: by world size
+MESHES = {
+    2: [{"tp": 2}, {"sp": 2}, {"dp": 2}, {"ep": 2}],
+    4: [{"dp": 4}, {"dp": 2, "tp": 2}, {"sp": 2, "tp": 2},
+        {"dp": 2, "sp": 2}, {"dp": 2, "ep": 2}, {"ep": 2, "tp": 2}],
+}
+
+
+def case_mesh(hvd, rank, world):
+    """Each mesh of :data:`MESHES`: this rank's coordinates, the ranks of
+    its group on every axis, and ``make_mesh``'s default dp."""
+    from horovod_tpu_torch.parallel.mesh import (MeshConfig, ParallelMesh,
+                                                 make_mesh)
+    out = []
+    for axes in MESHES[world]:
+        m = ParallelMesh(MeshConfig(**axes))
+        out.append({"axes": axes, "names": list(m.axis_names),
+                    "coords": m.coords,
+                    "ep_index": m.axis_index("ep"),
+                    "groups": {a: (m.group(a).ranks if m.group(a) else None)
+                               for a in m.axis_names}})
+    made = make_mesh(tp=2)
+    # a re-init on the same store port: the meshes' groups (and with them
+    # rank 0's store) must not outlive the runtime, and a mesh made under
+    # the old runtime refuses its groups
+    import torch
+    from horovod_tpu_torch.parallel import axis as ax
+    _reinit(hvd)
+    try:
+        made.group("tp")
+        stale = None
+    except ValueError as e:
+        stale = str(e)
+    with ParallelMesh(MeshConfig(tp=world)):
+        total = ax.psum(torch.tensor([float(rank + 1)]), "tp").item()
+    return {"meshes": out, "make_mesh_dp": made.config.dp,
+            "stale_group": stale, "psum_after_reinit": total}
+
+
+#: name -> (B, T, H, Hkv, D, causal, dtype, flash): the ring's inputs;
+#: ``flash`` takes the tiles through flash_attention_lse (the plain
+#: versions on the CPU) even at fp32, which the kernels' gate refuses
+RING_CASES = {
+    "causal": (2, 64, 4, 4, 16, True, "float32", False),
+    "noncausal": (2, 64, 4, 4, 16, False, "float32", False),
+    "gqa": (1, 32, 4, 2, 8, True, "float32", False),
+    "flash_causal": (1, 128, 4, 2, 64, True, "float32", True),
+    "flash_noncausal": (1, 128, 4, 2, 64, False, "float32", True),
+    "flash_bf16": (1, 256, 4, 2, 64, True, "bfloat16", False),
+}
+
+#: name -> (B, T, H, Hkv, D) for Ulysses at each world (causal, fp32)
+ULYSSES_CASES = {
+    2: {"grouped": (2, 32, 4, 2, 16), "repeated": (2, 32, 4, 1, 16),
+        "refused": (1, 32, 3, 3, 16)},
+    4: {"grouped": (2, 32, 8, 4, 16), "repeated": (2, 32, 8, 2, 16),
+        "refused": (1, 32, 2, 2, 16)},
+}
+
+
+def attn_inputs(B, T, H, Hkv, D, seed):
+    """q ``[B, T, H, D]``, k, v ``[B, T, Hkv, D]`` and a cotangent for the
+    output, fp32."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    return (rng.normal(size=(B, T, H, D)).astype(f),
+            rng.normal(size=(B, T, Hkv, D)).astype(f),
+            rng.normal(size=(B, T, Hkv, D)).astype(f),
+            rng.normal(size=(B, T, H, D)).astype(f))
+
+
+def _attend(fn, arrays, dtype, rank, world):
+    """This rank's sequence block of ``arrays`` through ``fn(q, k, v)``:
+    its output block and the gradients of sum(out * cotangent)."""
+    import torch
+    n = arrays[0].shape[1] // world
+    q, k, v, dout = (torch.from_numpy(a[:, rank * n:(rank + 1) * n].copy())
+                     .to(getattr(torch, dtype)) for a in arrays)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    out = fn(q, k, v)
+    (out.float() * dout.float()).sum().backward()
+    return {"out": _np(out), "dq": _np(q.grad), "dk": _np(k.grad),
+            "dv": _np(v.grad)}
+
+
+def case_ring(hvd, rank, world):
+    """ring_attention over sp = world for each of :data:`RING_CASES`, with
+    the flash launches (plain versions on the CPU) each ran."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention
+    mesh = ParallelMesh(MeshConfig(sp=world))
+    gate, tile = fa.unsupported_reason, fa.flash_attention_lse
+    tiles = []
+
+    def counted(*a, **kw):
+        tiles.append(kw.get("causal"))
+        return tile(*a, **kw)
+
+    out = {}
+    for i, (name, (B, T, H, Hkv, D, causal, dtype, flash)) in enumerate(
+            RING_CASES.items()):
+        if flash:
+            fa.unsupported_reason = lambda q, k, v: None
+        fa.flash_attention_lse = counted
+        tiles.clear()
+        try:
+            with mesh:
+                out[name] = _attend(
+                    lambda q, k, v: ring_attention(q, k, v, "sp",
+                                                   causal=causal),
+                    attn_inputs(B, T, H, Hkv, D, seed=20 + i), dtype,
+                    rank, world)
+        finally:
+            fa.unsupported_reason, fa.flash_attention_lse = gate, tile
+        out[name]["tiles"] = len(tiles)
+        out[name]["causal_tiles"] = sum(bool(c) for c in tiles)
+    return out
+
+
+def case_ulysses(hvd, rank, world):
+    """ulysses_attention over sp = world for each case of
+    :data:`ULYSSES_CASES`; a refused case returns its error."""
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.parallel.ulysses import ulysses_attention
+    mesh = ParallelMesh(MeshConfig(sp=world))
+    out = {}
+    for i, (name, shape) in enumerate(ULYSSES_CASES[world].items()):
+        try:
+            with mesh:
+                out[name] = _attend(
+                    lambda q, k, v: ulysses_attention(q, k, v, "sp"),
+                    attn_inputs(*shape, seed=40 + i), "float32", rank,
+                    world)
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+    return out
+
+
+def p_input(dtype, rank, world):
+    """Rank ``rank``'s input of the *_p forms: ``[2·world, 3]`` multiples of
+    1/4 (exact in every sum), positive for the product."""
+    return (base(dtype, rank, shape=(2 * world, 3), seed=7) % 3 + 1
+            if dtype in ("int32", "int64")
+            else base(dtype, rank, shape=(2 * world, 3), seed=7))
+
+
+def case_p_forms(hvd, rank, world):
+    """The in-step *_p forms over MeshConfig(dp=world) on fp32 and int32
+    inputs, and the gradients of psum-based ones."""
+    import torch
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    out = {}
+    with ParallelMesh(MeshConfig(dp=world)):
+        for dtype in ("float32", "int32"):
+            x = torch.from_numpy(p_input(dtype, rank, world))
+            r = {f"allreduce_{op}": _np(hvd.allreduce_p(x, "dp", op=op))
+                 for op in (hvd.Sum, hvd.Average, hvd.Min, hvd.Max,
+                            hvd.Product)}
+            r["allgather"] = _np(hvd.allgather_p(x, "dp"))
+            r["allgather_scalar"] = _np(hvd.allgather_p(x[0, 0], "dp"))
+            r["broadcast"] = _np(hvd.broadcast_p(x, 1, "dp"))
+            r["alltoall"] = _np(hvd.alltoall_p(x, "dp"))
+            for op in (hvd.Sum, hvd.Average):
+                if dtype == "float32" or op == hvd.Sum:
+                    r[f"reducescatter_{op}"] = _np(
+                        hvd.reducescatter_p(x, "dp", op=op))
+            out[dtype] = r
+        w = torch.arange(6 * world, dtype=torch.float32).view(2 * world, 3)
+        for key, loss in (
+                ("grad_allreduce", lambda x: (hvd.allreduce_p(
+                    x, "dp", op=hvd.Average) * w).sum()),
+                ("grad_reducescatter", lambda x: (hvd.reducescatter_p(
+                    x, "dp", op=hvd.Sum) ** 2).sum())):
+            x = torch.from_numpy(p_input("float32", rank, world))
+            x.requires_grad_(True)
+            loss(x).backward()
+            out[key] = _np(x.grad)
+    return out
+
+
+# the Llama configurations of tests/test_torch_llama_parallel.py: the test
+# process writes llama_mp.json (name -> config fields, mesh, step options,
+# optimizer), the full weights and the global batch to $LLAMA_MP_DIR
+
+def case_llama_mp(hvd, rank, world):
+    """3 steps of make_llama_train_step over each configuration of
+    ``llama_mp.json`` whose mesh spans ``world`` ranks, from the full JAX
+    weights sharded by convert.llama_shard_params, on this rank's cut of
+    the global batch; the losses, and whether llama_gather_params gives
+    the full weights back bit for bit."""
+    import torch
+    from horovod_tpu_torch import convert, training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.tree import tree_leaves
+    d = pathlib.Path(os.environ["LLAMA_MP_DIR"])
+    out = {}
+    for name, spec in json.loads((d / "llama_mp.json").read_text()).items():
+        mc = MeshConfig(**spec["mesh"])
+        if mc.n_devices != world:
+            continue
+        fields = dict(spec["cfg"], dtype=getattr(torch, spec["cfg"]["dtype"]),
+                      param_dtype=getattr(torch,
+                                          spec["cfg"]["param_dtype"]))
+        cfg = llama.LlamaConfig(**fields)
+        data = np.load(d / f"{spec['weights']}.npz")
+        tree = {"embed": data["embed"], "final_norm": data["final_norm"],
+                "layers": {k.split(".", 1)[1]: data[k] for k in data.files
+                           if k.startswith("layers.")}}
+        full = convert.llama_params_from_numpy(tree, device="cpu")
+        pmesh = ParallelMesh(mc)
+        opt = (functools.partial(torch.optim.SGD, lr=0.05)
+               if spec["opt"] == "sgd" else None)
+        ts = training.make_llama_train_step(cfg, pmesh, optimizer=opt,
+                                            device="cpu", **spec["step_kw"])
+        params = convert.llama_shard_params(full, cfg, pmesh, ts.par)
+        back = convert.llama_gather_params(params, cfg, pmesh, ts.par)
+        round_trip = all(torch.equal(a, b) for a, b in
+                         zip(tree_leaves(back), tree_leaves(full)))
+        opt_state = ts.opt_init(params)
+        batch = np.load(d / "batch.npz")
+        toks, tgts = (ts.shard_batch(torch.from_numpy(batch[k]))
+                      for k in ("toks", "tgts"))
+        losses = []
+        for _ in range(3):
+            params, opt_state, loss = ts.step_fn(params, opt_state, toks,
+                                                 tgts)
+            losses.append(loss.item())
+        out[name] = {"losses": losses, "round_trip": round_trip,
+                     "local_batch": list(toks.shape)}
+    # pipeline parallelism is A6 item 5: a pp axis refuses, naming it
+    try:
+        training.make_llama_train_step(
+            llama.tiny(), ParallelMesh(MeshConfig(pp=2, dp=world // 2)),
+            device="cpu")
+        out["pp_error"] = None
+    except NotImplementedError as e:
+        out["pp_error"] = str(e)
     return out
 
 
