@@ -19,7 +19,8 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            multiple of 64 but not of 128, BERT-base's fine-tune shape,
            B 512, T 128, 12 heads of 64, non-causal, train_tp2_sp2's ring
            tile through flash_attention_lse with a cotangent on lse, causal
-           and not, its Ulysses shape and train_moe_ep2's) against its plain
+           and not, its Ulysses shape and train_moe_ep2's, bert_tp2_sp2's
+           ring tile and train_fsdp_dp2's attention) against its plain
            PyTorch version on the same inputs, with its time, the plain
            version's,
            the least time the card could take, one
@@ -59,6 +60,21 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            with vocab_parallel, the ring then Ulysses, against one process
   train_moe_ep2  two gloo ranks with the experts over dp, against one
            process, at capacity factors 1.25 and 8
+  train_pp2  two gloo ranks as MeshConfig(pp=2): the 1B at 16 layers, 8 a
+           stage, batch 8 x 1024 in 4 microbatches, against train's losses;
+           each stage's flash launches on the live-tick schedule, the hop
+           and pp sum bytes a step
+  bert_tp2_sp2   four gloo ranks as MeshConfig(sp=2, tp=2): bert_base at
+           16 x 512, the non-causal ring's tiles through the flash
+           kernels; the loss and every leaf's gradient against one process
+  train_fsdp_dp2   two gloo ranks through make_llama_fsdp_step at the 1B
+           widths and 4 layers, without and with overlap, against one
+           process; each rank's parameter and optimizer bytes exactly the
+           shards fsdp_param_specs names
+  serve_mp2  two gloo ranks through mp_llama_decode_forward (the 1B in
+           bf16, 16 layers): 8 requests in batches of 1 and 4, each
+           call's tokens one process's bit for bit, the per-chip bytes
+           exact
   collectives    hvd.init() at world 1 over NCCL: every op of the API on
            fp32, bf16 and int64 CUDA tensors against its plain expectation,
            and 64 small tensors submitted in one call, which the engine
@@ -258,10 +274,15 @@ KERNEL_CASES = [
     # sequences a rank at full width), both causal
     ("ulysses", (2, 1024, 4, 2, 128, True)),
     ("ep", (2, 1024, 16, 8, 128, True)),
+    # bert_tp2_sp2's ring tile (batch 16, 512 / sp 2 tokens, 12 / tp 2
+    # heads of 64), non-causal, through flash_attention_lse; and
+    # train_fsdp_dp2's attention (4 sequences a rank at full width)
+    ("lse_bert", (16, 256, 6, 6, 64, False)),
+    ("fsdp", (4, 1024, 16, 8, 128, True)),
 ]
 # the model-parallel paths' cases, carried into each flash row of the
 # summary
-MP_CASES = ("lse", "lse_noncausal", "ulysses", "ep")
+MP_CASES = ("lse", "lse_noncausal", "ulysses", "ep", "lse_bert", "fsdp")
 # out is bf16 (|out| <= ~2 with N(0,1) inputs): a few bf16 steps; lse is
 # fp32 from the kernels' fast exp/log and another summation order; the
 # gradients are bf16 sums over T = 1024 products in which the kernels round
@@ -386,6 +407,72 @@ EP_STEPS = 3
 EP_LOSS_ATOL = 5e-2
 EP_VARIANTS = (("cf1.25", {}), ("cf8", {"capacity_factor": 8.0}))
 EP_TIMEOUT_S = 420
+
+# train_pp2: two processes (--pp-rank) share the card over gloo as
+# MeshConfig(pp=2): bench.py's 1B at its full 16 layers, 8 a stage, the
+# batch of 8 x 1024 in PP_MICRO microbatches of 2, adamw_lp, 1 warm-up
+# and 3 timed steps, against train's losses (one process, the same
+# config, seed and batch).  A stage computes on its live ticks only, so
+# it launches each of its layers' kernels once a microbatch (the last 2
+# of its 8 layers not rematerialized: pp_launches).  The first card run
+# (H100, 700 W) read gaps of 0 (the warm-up loss bit for bit: the
+# microbatches' products round as the whole batch's), then 8.3e-6,
+# 3.8e-5, 4.1e-5: the gates sit 10x above the largest
+PP_MESH = {"pp": 2}
+PP_MICRO = 4
+PP_FIRST_REL = 1e-5
+PP_LATER_REL = 4e-4
+PP_TIMEOUT_S = 420
+# bert_tp2_sp2: four processes (--bert-mp-rank) as MeshConfig(sp=2,
+# tp=2): bert_base (12 layers, D 768, 12 heads of 64, d_ff 3072) at batch
+# 16 x 512 (BERT's max_seq_len: a rank's ring tile is T 256 with 6
+# heads), one forward and backward of the mean of h · c (a fixed
+# cotangent c), against one process in bf16 and one in fp32 (the
+# blockwise attention, HOROVOD_FLASH_ATTENTION=0).  The first card run
+# (H100, 700 W) held the tp x sp gradients to the bf16 process by the
+# parity rule and found q and k's gradients noise from layer 5 on: at
+# random init the deep layers' attention is near uniform, so dS = P(dP -
+# delta) is a small difference that the bf16 rounding of O and P
+# dominates (cosines 0.975 at layer 5 down to -0.06 at layer 11 while the
+# norms fell from 0.24 to 0.009; every v, o and MLP gradient at 0.9999).
+# So each side is held to the fp32 process: the loss and every leaf's
+# gradient must lie within BERT_MP_NOISE times the bf16 process's
+# distance from fp32, or within BERT_MP_LOSS_REL / PARITY_NORM_REL of the
+# fp32 value.  The second card run read the tp x sp gradients' distances
+# at 0.59-1.11 times the bf16 process's (median 1.006), the loss's 0.80
+BERT_MP_MESH = {"sp": 2, "tp": 2}
+BERT_MP_BATCH = (16, 512)
+BERT_MP_LOSS_REL = 5e-3
+BERT_MP_NOISE = 2.0
+BERT_MP_TIMEOUT_S = 420
+# train_fsdp_dp2: two processes (--fsdp-rank), make_llama_fsdp_step over
+# dp 2: bench.py's 1B widths cut to FSDP_LAYERS layers (every layer is
+# gathered twice a step through host memory), FSDP_BATCH sequences a
+# rank, adamw_lp, FSDP_STEPS steps each without and with overlap, against
+# one process on the whole batch: the first card run (H100, 700 W) read
+# gaps of 8.8e-8, 1.2e-5, 1.2e-4, the same bits with and without overlap,
+# and the gates sit about 10x above them; 4 layers, the last 2 not
+# rematerialized, run the forward 6 times a step
+FSDP_MESH = {"dp": 2}
+FSDP_LAYERS = 4
+FSDP_BATCH = 4
+FSDP_STEPS = 3
+FSDP_FIRST_REL = 1e-6
+FSDP_LATER_REL = 1e-3
+EXPECTED_FSDP_LAUNCHES = {"fwd": 6, "dq": 4, "dkv": 4}
+FSDP_TIMEOUT_S = 420
+# serve_mp2: two processes (--serve-mp-rank), the 1B Llama in bf16 at 16
+# layers sharded over mp 2 (mp_llama_decode_forward), prompts of 1-64
+# tokens in the seq-64 bucket, 16 new tokens; SERVE_MP_CALLS batches of
+# (batch, calls): 8 requests, no warm-up (a call gathers 1.07 GB through
+# host memory, ~3 s)
+SERVE_MP_DEGREE = 2
+SERVE_MP_BATCHES = (1, 4)
+SERVE_MP_SEQ = 64
+SERVE_MP_NEW = 16
+SERVE_MP_CALLS = ((1, 4), (4, 1))
+SERVE_MP_MIN_REQUESTS = 8
+SERVE_MP_TIMEOUT_S = 420
 
 # train_hier_dp4: four processes (--hier-rank) share the card over gloo,
 # laid out as two hosts of two (HOROVOD_LOCAL_SIZE=2, HOROVOD_CROSS_SIZE=2,
@@ -2541,6 +2628,539 @@ def train_moe_ep2_phase(script=None):
     return res
 
 
+# -- A6 items 5-8: the pipeline, BERT's tp and sp, FSDP, mp serving ----------
+
+
+def pp_launches(layers: int, micro: int, skip: int):
+    """Flash launches a step of one pipeline stage of ``layers`` layers,
+    its last ``skip`` not rematerialized, computing on its ``micro`` live
+    ticks only: each microbatch runs every layer's forward, the
+    rematerialized ones' again in the backward, and one dq and dkv a
+    layer."""
+    k = min(skip, layers)
+    return {"fwd": micro * (2 * layers - k), "dq": micro * layers,
+            "dkv": micro * layers}
+
+
+def pp_problems(res, ref):
+    """train_pp2's gates: the stages' losses the same bits, finite and
+    falling, the first within PP_FIRST_REL of ``ref`` (train's, one
+    process on the same config, seed and batch) and the later within
+    PP_LATER_REL, and each stage's launches on the live-tick schedule at
+    every timed step."""
+    bad = []
+    per_rank = res["losses_by_rank"]
+    if any(x != per_rank[0] for x in per_rank):
+        bad.append(f"the stages' losses differ: {per_rank}")
+    bad += step_problems(per_rank[0], [], {})
+    gaps = loss_gaps(per_rank[0], ref)
+    if gaps[0] > PP_FIRST_REL or any(g > PP_LATER_REL for g in gaps[1:]):
+        bad.append(f"losses {per_rank[0]} against one process's {ref} "
+                   f"(gaps {gaps})")
+    want = pp_launches(res["layers_per_stage"], PP_MICRO,
+                       res["remat_skip_layers"])
+    for rank, steps in enumerate(res["launches_per_step_by_rank"]):
+        bad += [f"stage {rank}: launches {st}, expected {want}"
+                for st in steps if st != want]
+    return bad
+
+
+def pp_child(rank: int, dev: torch.device) -> int:
+    """One stage of ``train_pp2`` (``--pp-rank``): MeshConfig(pp=2) over
+    gloo on ``cuda:0``, bench.py's 1B at its 16 layers (8 a stage), the
+    whole batch of 8 x 1024 (train's seed and data) in PP_MICRO
+    microbatches, 1 warm-up and 3 timed steps; rank 0 prints both
+    stages' numbers as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    cfg = bench_config(llama)
+    rng = np.random.RandomState(0)      # train's batch
+    toks, tgts = (torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (8, cfg.max_seq_len)),
+        dtype=torch.long, device=dev) for _ in range(2))
+    hvd.init(device=dev)
+    pmesh = ParallelMesh(MeshConfig(**PP_MESH))
+    ts = training.make_llama_train_step(cfg, pmesh, optimizer=adamw_lp(3e-4),
+                                        n_microbatches=PP_MICRO, device=dev)
+    params, opt_state = ts.init_fn(0)
+    state = [params, opt_state]
+    del params, opt_state
+
+    def step():
+        state[0], state[1], loss = ts.step_fn(state[0], state[1], toks, tgts)
+        return loss
+
+    t0 = time.perf_counter()
+    first = step().item()
+    warmup_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()   # the path's run starts here
+    ax.reset_bytes()
+    step_ms, losses, per_step = run_steps(step, 3, lambda: dict(fa.LAUNCHES))
+    row = {"losses": [first] + losses, "warmup_ms": warmup_ms,
+           "step_ms": step_ms, "launches_per_step": per_step,
+           "layers": len(state[0]["layers"]),
+           "bytes_per_step": {k: v // 3 for k, v in sorted(ax.BYTES.items())},
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    rows = hvd.allgather_object(row)
+    hvd.shutdown()
+    if rank:
+        return 0
+    print(json.dumps({
+        "layers_per_stage": rows[0]["layers"],
+        "remat_skip_layers": cfg.remat_skip_layers,
+        "losses_by_rank": [r["losses"] for r in rows],
+        "warmup_ms_by_rank": [r["warmup_ms"] for r in rows],
+        "step_ms_by_rank": [r["step_ms"] for r in rows],
+        "launches_per_step_by_rank": [r["launches_per_step"] for r in rows],
+        "launches_by_rank": [{k: sum(st[k] for st in r["launches_per_step"])
+                              for k in ("fwd", "dq", "dkv")} for r in rows],
+        "host_bytes_per_step_by_rank": [r["bytes_per_step"] for r in rows],
+        "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                         for r in rows]}), flush=True)
+    return 0
+
+
+def train_pp2_phase(ref_losses, script=None):
+    """Two stages of :func:`pp_child` on the card over gloo, against
+    ``ref_losses`` (train's); the gates."""
+    res, seconds = _run_pair("--pp-rank", PP_TIMEOUT_S, script=script)
+    res["losses_world1"] = list(ref_losses)
+    emit("train_pp2", mesh=PP_MESH, n_microbatches=PP_MICRO,
+         batch=[8, 1024], backend="gloo", seconds=seconds,
+         loss_gaps=loss_gaps(res["losses_by_rank"][0], ref_losses), **res)
+    bad = pp_problems(res, ref_losses)
+    require(not bad, f"train_pp2: {bad}")
+    return res
+
+
+def bert_mp_launches(layers: int, sp: int, remat: bool):
+    """Flash launches of one rank's forward and backward of BERT over a
+    non-causal ring of ``sp``: a tile for every k/v block a layer, the
+    forward again in the backward's recompute under remat."""
+    tiles = sp * layers
+    return {"fwd": tiles * (2 if remat else 1), "dq": tiles, "dkv": tiles}
+
+
+def bert_mp_problems(res):
+    """bert_tp2_sp2's gates: the loss and every leaf's gradient no
+    farther from the fp32 process than BERT_MP_NOISE times the bf16
+    process is (or within BERT_MP_LOSS_REL / PARITY_NORM_REL of the fp32
+    value); each rank's flash launches on the ring's schedule."""
+    bad = []
+    loss, one, f32 = res["loss"], res["loss_world1"], res["loss_fp32"]
+    if not abs(loss - f32) <= max(BERT_MP_NOISE * abs(one - f32),
+                                  BERT_MP_LOSS_REL * abs(f32)):
+        bad.append(f"loss {loss}: {abs(loss - f32)} from fp32's {f32}, "
+                   f"one bf16 process's {one} {abs(one - f32)}")
+    for path, g in res["grads"].items():
+        if not g["err_fp32"] <= max(BERT_MP_NOISE * g["err_fp32_world1"],
+                                    PARITY_NORM_REL * g["norm_fp32"]):
+            bad.append(f"{path}: {g}")
+    want = bert_mp_launches(res["layers"], BERT_MP_MESH["sp"], True)
+    for rank, n in enumerate(res["launches_by_rank"]):
+        if n != want:
+            bad.append(f"rank {rank}: launches {n}, expected {want}")
+    return bad
+
+
+def bert_mp_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``bert_tp2_sp2`` (``--bert-mp-rank``): bert_base over
+    MeshConfig(sp=2, tp=2) on gloo, this rank's tp slice of the weights
+    (convert.bert_shard_params) and sp block of a batch of 16 x 512: the
+    forward and backward of the mean of h · c (a fixed cotangent c);
+    the loss summed and the gradients summed over sp and gathered over
+    tp; then rank 0, without the runtime, the same on the whole batch in
+    one process, in bf16 and in fp32 (the blockwise attention), and
+    every number as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models import bert
+    from horovod_tpu_torch.models.llama import ParallelSpec
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.tree import tree_leaves, tree_map, tree_paths
+    cfg = bert_config(bert)
+    B, T = BERT_MP_BATCH
+    rng = np.random.RandomState(5)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, T)),
+                           dtype=torch.long, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cot = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+
+    def loss_of(params, tk, c, par, cfg=cfg):
+        h = bert.encode(params, tk, cfg, par)
+        return (h.float() * c).sum() / (B * T)
+
+    hvd.init(device=dev)
+    pmesh = ParallelMesh(MeshConfig(**BERT_MP_MESH))
+    par = ParallelSpec(tp_axis="tp", sp_axis="sp")
+    params = convert.bert_shard_params(bert.init_params(cfg, 0, device=dev),
+                                       cfg, pmesh, par)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    n = T // pmesh.axis_size("sp")
+    block = slice(pmesh.axis_index("sp") * n, (pmesh.axis_index("sp") + 1)
+                  * n)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()   # the path's run starts here
+    ax.reset_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with pmesh:
+        loss = loss_of(params, toks[:, block], cot[:, block], par)
+        loss.backward()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    nbytes = dict(sorted(ax.BYTES.items()))
+    g_sp = pmesh.group("sp")
+    loss = ax._all_reduce(loss.detach(), g_sp, "sp").item()
+    grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                     else ax._all_reduce(p.grad, g_sp, "sp"), params)
+    grads = convert.bert_gather_params(grads, cfg, pmesh, par)
+    row = {"coords": pmesh.coords, "launches": launches, "ms": ms,
+           "host_bytes": nbytes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    rows = hvd.allgather_object(row)
+    hvd.shutdown()
+    if rank:
+        return 0
+    one = {}
+    for name, c, flash in (("bf16", cfg, "1"),
+                           ("fp32", dataclasses.replace(
+                               cfg, dtype=torch.float32), "0")):
+        full = bert.init_params(c, 0, device=dev)
+        for p in tree_leaves(full):
+            p.requires_grad_(True)
+        os.environ["HOROVOD_FLASH_ATTENTION"] = flash
+        try:
+            one_loss = loss_of(full, toks, cot, ParallelSpec(), c)
+            one_loss.backward()
+        finally:
+            os.environ.pop("HOROVOD_FLASH_ATTENTION")
+        one[name] = (one_loss.item(), [p.grad for p in tree_leaves(full)])
+        del full
+    out = {}
+    for path, g, g1, g32 in zip(tree_paths(grads), tree_leaves(grads),
+                                one["bf16"][1], one["fp32"][1]):
+        if g32 is None:
+            continue
+        out[path] = {"norm": g.double().norm().item(),
+                     "norm_world1": g1.double().norm().item(),
+                     "norm_fp32": g32.double().norm().item(),
+                     "cos": cosine(g, g1), "cos_fp32": cosine(g, g32),
+                     "err_fp32": (g.double() - g32.double()).norm().item(),
+                     "err_fp32_world1": (g1.double()
+                                         - g32.double()).norm().item()}
+    print(json.dumps({
+        "layers": cfg.n_layers, "loss": loss, "loss_world1": one["bf16"][0],
+        "loss_fp32": one["fp32"][0],
+        "grads": out, "coords": [r["coords"] for r in rows],
+        "launches_by_rank": [r["launches"] for r in rows],
+        "ms_by_rank": [r["ms"] for r in rows],
+        "host_bytes_by_rank": [r["host_bytes"] for r in rows],
+        "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                         for r in rows]}), flush=True)
+    return 0
+
+
+def bert_tp2_sp2_phase(script=None):
+    """Four ranks of :func:`bert_mp_child` on the card over gloo; the
+    gates."""
+    res, seconds = _run_pair("--bert-mp-rank", BERT_MP_TIMEOUT_S, world=4,
+                             script=script)
+    ratio = {p: g["err_fp32"] / max(g["err_fp32_world1"], 1e-30)
+             for p, g in res["grads"].items()}
+    worst = max(ratio, key=ratio.get)
+    emit("bert_tp2_sp2", mesh=BERT_MP_MESH, batch=list(BERT_MP_BATCH),
+         backend="gloo", seconds=seconds,
+         loss_from_fp32=[abs(res[k] - res["loss_fp32"])
+                         for k in ("loss", "loss_world1")],
+         largest_noise_ratio={worst: ratio[worst]}, **res)
+    bad = bert_mp_problems(res)
+    require(not bad, f"bert_tp2_sp2: {bad}")
+    return res
+
+
+def fsdp_expected_bytes(training, llama, cfg, dp: int):
+    """(per-rank parameter bytes, one replica's) from fsdp_param_specs:
+    each sharded leaf's numel / dp, a replicated one's whole, at the
+    params' 4 bytes."""
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    shapes = llama.init_params(cfg, device="meta")
+    specs = training.fsdp_param_specs(shapes, dp)
+    shard = replica = 0
+    for path, t in zip(tree_paths(shapes), tree_leaves(shapes)):
+        n = t.numel() * 4
+        replica += n
+        shard += n // dp if "dp" in llama.leaf_spec(specs, path) else n
+    return shard, replica
+
+
+def fsdp_problems(res):
+    """train_fsdp_dp2's gates, for each variant: the ranks' losses the
+    same bits, finite and falling, the first within FSDP_FIRST_REL of one
+    process on the whole batch and the later within FSDP_LATER_REL; the
+    launches of FSDP_LAYERS layers (the last 2 not rematerialized) at
+    every step; each rank's parameter bytes exactly the specs' shards and
+    its optimizer state (AdamWLP's bf16 moments, 4 bytes an element: on
+    the shards without overlap, on the plane's 1/dp tiles with it) under
+    one replica's."""
+    bad = []
+    ref = res["losses_world1"]
+    for name, run in res["variants"].items():
+        per_rank = run["losses_by_rank"]
+        if any(x != per_rank[0] for x in per_rank):
+            bad.append(f"{name}: ranks' losses differ: {per_rank}")
+        bad += [f"{name}: {b}" for b in step_problems(
+            per_rank[0], [], {})]
+        gaps = loss_gaps(per_rank[0], ref)
+        if gaps[0] > FSDP_FIRST_REL or any(g > FSDP_LATER_REL
+                                           for g in gaps[1:]):
+            bad.append(f"{name}: losses {per_rank[0]} against one "
+                       f"process's {ref} (gaps {gaps})")
+        for rank, steps in enumerate(run["launches_per_step_by_rank"]):
+            bad += [f"{name} rank {rank}: launches {st}, expected "
+                    f"{EXPECTED_FSDP_LAUNCHES}" for st in steps
+                    if st != EXPECTED_FSDP_LAUNCHES]
+        for rank, (pb, sb, tb) in enumerate(zip(
+                run["param_bytes_by_rank"], run["state_bytes_by_rank"],
+                run["tile_bytes_by_rank"])):
+            if pb != res["param_bytes_expected"]:
+                bad.append(f"{name} rank {rank}: parameter bytes {pb}, "
+                           f"the specs' shards {res['param_bytes_expected']}")
+            want_state = (res["param_bytes_expected"] if not tb else tb)
+            if sb != want_state:
+                bad.append(f"{name} rank {rank}: optimizer state {sb}, "
+                           f"expected {want_state}")
+            if not pb + sb + tb < res["replica_bytes"] + \
+                    res["replica_state_bytes"]:
+                bad.append(f"{name} rank {rank}: {pb + sb + tb} bytes, not "
+                           f"under the replica's")
+    return bad
+
+
+def fsdp_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``train_fsdp_dp2`` (``--fsdp-rank``): bench.py's 1B
+    widths at FSDP_LAYERS layers, make_llama_fsdp_step over dp 2 on gloo,
+    FSDP_BATCH sequences a rank of 1024, adamw_lp, 3 steps each of
+    overlap=False and overlap=True; then rank 0 the same steps in one
+    process on the whole batch, and every number as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.tree import tree_leaves
+    cfg = bench_config(llama, n_layers=FSDP_LAYERS)
+    dp = FSDP_MESH["dp"]
+    rng = np.random.RandomState(4)
+    toks, tgts = (torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (FSDP_BATCH * dp, cfg.max_seq_len)),
+        dtype=torch.long, device=dev) for _ in range(2))
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if torch.is_tensor(t) and t.dim() > 0)
+
+    def steps(ts, tk, tg):
+        params, opt_state = ts.init_fn(4)
+        state = [params, opt_state]
+
+        def step():
+            state[0], state[1], loss = ts.step_fn(state[0], state[1], tk, tg)
+            return loss
+
+        out = run_steps(step, FSDP_STEPS, lambda: dict(fa.LAUNCHES))
+        return out, state
+
+    hvd.init(device=dev)
+    pmesh = ParallelMesh(MeshConfig(**FSDP_MESH))
+    variants = {}
+    for overlap in (False, True):
+        ts = training.make_llama_fsdp_step(cfg, pmesh,
+                                           optimizer=adamw_lp(3e-4),
+                                           overlap=overlap, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()   # the path's run starts here
+        ax.reset_bytes()
+        (step_ms, losses, per_step), (params, opt_state) = steps(
+            ts, ts.shard_batch(toks), ts.shard_batch(tgts))
+        inner = opt_state.inner if overlap else opt_state
+        row = {"losses": losses, "step_ms": step_ms,
+               "launches_per_step": per_step,
+               "param_bytes": nbytes(tree_leaves(params)),
+               "state_bytes": nbytes(t for st in inner.state.values()
+                                     for t in st.values()),
+               "tile_bytes": nbytes(opt_state.tiles) if overlap else 0,
+               "bytes_per_step": {k: v // FSDP_STEPS
+                                  for k, v in sorted(ax.BYTES.items())},
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "local_batch": list(ts.shard_batch(toks).shape)}
+        rows = hvd.allgather_object(row)
+        variants["overlap" if overlap else "plain"] = {
+            f"{k}_by_rank": [r[k] for r in rows] for k in row}
+        variants["overlap" if overlap else "plain"][
+            "losses_by_rank"] = [r["losses"] for r in rows]
+        del ts, params, opt_state
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    if rank:
+        return 0
+    shard, replica = fsdp_expected_bytes(training, llama, cfg, dp)
+    ts = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
+                                        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    (step_ms, losses, _), (params, opt_state) = steps(ts, toks, tgts)
+    print(json.dumps({
+        "variants": variants, "losses_world1": losses,
+        "step_ms_world1": step_ms,
+        "max_memory_allocated_world1": torch.cuda.max_memory_allocated(),
+        "param_bytes_expected": shard, "replica_bytes": replica,
+        "replica_state_bytes": nbytes(t for st in opt_state.state.values()
+                                      for t in st.values())}), flush=True)
+    return 0
+
+
+def train_fsdp_dp2_phase(script=None):
+    """Two ranks of :func:`fsdp_child` on the card over gloo; the
+    gates."""
+    res, seconds = _run_pair("--fsdp-rank", FSDP_TIMEOUT_S, script=script)
+    gaps = {name: loss_gaps(run["losses_by_rank"][0], res["losses_world1"])
+            for name, run in res["variants"].items()}
+    emit("train_fsdp_dp2", mesh=FSDP_MESH, layers=FSDP_LAYERS,
+         batch=[FSDP_BATCH] * FSDP_MESH["dp"], seq=1024, backend="gloo",
+         seconds=seconds, loss_gaps=gaps, **res)
+    bad = fsdp_problems(res)
+    require(not bad, f"train_fsdp_dp2: {bad}")
+    return res
+
+
+def serve_mp_problems(res):
+    """serve_mp2's gates: at least SERVE_MP_MIN_REQUESTS answered over
+    both batch buckets, every call's tokens one process's at the same
+    batch shape bit for bit, the same output on both ranks, the per-chip
+    bytes exactly the specs' shards and under a replica's, and nothing
+    prepared twice."""
+    bad = []
+    if res["requests"] < SERVE_MP_MIN_REQUESTS or \
+            sorted(set(res["batches"])) != list(SERVE_MP_BATCHES):
+        bad.append(f"{res['requests']} requests in batches "
+                   f"{res['batches']}")
+    if not all(res["equal_world1"]):
+        bad.append(f"calls whose tokens differ from one process's: "
+                   f"{res['equal_world1']}")
+    if not res["ranks_agree"]:
+        bad.append("the ranks' outputs differ")
+    st = res["stats"]
+    if st["per_chip_param_nbytes"] != res["per_chip_expected"] or \
+            not st["per_chip_param_nbytes"] < st["replica_param_nbytes"]:
+        bad.append(f"per-chip bytes {st['per_chip_param_nbytes']}, "
+                   f"expected {res['per_chip_expected']} (replica "
+                   f"{st['replica_param_nbytes']})")
+    if st["recompiles"]:
+        bad.append(f"recompiles {st['recompiles']}")
+    return bad
+
+
+def serve_mp_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``serve_mp2`` (``--serve-mp-rank``): the 1B Llama in
+    bf16 at 16 layers through mp_llama_decode_forward over 2 ranks on
+    gloo, buckets batch SERVE_MP_BATCHES x seq SERVE_MP_SEQ,
+    SERVE_MP_NEW new tokens; rank 0 takes SERVE_MP_CALLS
+    batches of ragged prompts while rank 1 follows; then rank 0 holds
+    each call against llama_decode_forward in one process at the same
+    batch shape and prints every number as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import generate as gen
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.serving.models import (llama_decode_forward,
+                                                  mp_llama_decode_forward)
+    from horovod_tpu_torch.serving.shapes import ShapeBuckets
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    cfg = bench_config(llama)
+    params = serve_params(llama, gen, cfg, dev)
+    buckets = ShapeBuckets(batch_buckets=SERVE_MP_BATCHES,
+                           seq_buckets=(SERVE_MP_SEQ,))
+    hvd.init(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    fwd = mp_llama_decode_forward(params, cfg, SERVE_MP_NEW, buckets,
+                                  mp=SERVE_MP_DEGREE)
+    specs = training.fsdp_param_specs(params, SERVE_MP_DEGREE,
+                                      axis=fwd.axis)
+    expected = sum(t.numel() * t.element_size() // (
+        SERVE_MP_DEGREE if fwd.axis in llama.leaf_spec(specs, p) else 1)
+        for p, t in zip(tree_paths(params), tree_leaves(params)))
+    rng = np.random.RandomState(6)
+    calls, outs, ms = [], [], []
+    ax.reset_bytes()
+    if fwd.group.rank() == 0:
+        for b, n in SERVE_MP_CALLS:
+            for _ in range(n):
+                lengths = rng.randint(1, SERVE_MP_SEQ + 1, (b,)).astype(
+                    np.int32)
+                tokens = rng.randint(0, cfg.vocab_size,
+                                     (b, SERVE_MP_SEQ)).astype(np.int32)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(np.asarray(fwd(tokens, lengths)))
+                ms.append(1e3 * (time.perf_counter() - t0))
+                calls.append((tokens, lengths))
+        fwd.close()
+    else:
+        while True:
+            o = fwd()
+            if o is None:
+                break
+            outs.append(np.asarray(o))
+    nbytes = dict(sorted(ax.BYTES.items()))
+    digest = hvd.allgather_object([o.tolist() for o in outs])
+    st = fwd.stats()
+    peak = torch.cuda.max_memory_allocated()
+    hvd.shutdown()
+    if rank:
+        return 0
+    dense = llama_decode_forward(params, cfg, SERVE_MP_NEW, buckets)
+    equal = [bool(np.array_equal(np.asarray(dense(t, n)), o))
+             for (t, n), o in zip(calls, outs)]
+    print(json.dumps({
+        "requests": sum(len(n) for _, n in calls),
+        "batches": [len(n) for _, n in calls], "ms_by_call": ms,
+        "ms_per_token": [m / SERVE_MP_NEW for m in ms],
+        "equal_world1": equal, "ranks_agree": digest[0] == digest[1],
+        "stats": st, "per_chip_expected": expected,
+        "host_bytes_by_call": {k: v // len(calls)
+                               for k, v in nbytes.items()},
+        "max_memory_allocated": peak}), flush=True)
+    return 0
+
+
+def serve_mp2_phase(script=None):
+    """Two ranks of :func:`serve_mp_child` on the card over gloo; the
+    gates."""
+    res, seconds = _run_pair("--serve-mp-rank", SERVE_MP_TIMEOUT_S,
+                             script=script)
+    emit("serve_mp2", mp=SERVE_MP_DEGREE, layers=16, seq=SERVE_MP_SEQ,
+         new_tokens=SERVE_MP_NEW, backend="gloo", seconds=seconds, **res)
+    bad = serve_mp_problems(res)
+    require(not bad, f"serve_mp2: {bad}")
+    return res
+
+
+
 def cosine(a, b) -> float:
     """Cosine of two gradients in fp64: over the 16.8M entries of a 1B
     weight an fp32 sum errs by ~1e-3, above 1 for equal vectors."""
@@ -2552,10 +3172,13 @@ def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool,
                  name=None, over=None):
     """``parity``, or ``parity_fused`` with ``fused_xent=True``, or phase
     ``name`` with the config's fields ``over`` (``parity_moe``)."""
-    cfg = bench_config(llama, n_layers=2, fused_xent=fused, **(over or {}))
-    # the dense MLP's w_down of layer 1, or the experts' and the router
-    mlp = ({"we_down1": (1, "we_down"), "router0": (0, "router")}
-           if cfg.n_experts else {"w_down1": (1, "w_down")})
+    cfg = bench_config(llama, **{"n_layers": 2, "fused_xent": fused,
+                                 **(over or {})})
+    last = cfg.n_layers - 1
+    # the dense MLP's w_down of the last layer, or the experts' and the
+    # router
+    mlp = ({f"we_down{last}": (last, "we_down"), "router0": (0, "router")}
+           if cfg.n_experts else {f"w_down{last}": (last, "w_down")})
     batch, seq = 2, 256
     cpu = torch.device("cpu")
     np_params = convert.llama_params_to_numpy(
@@ -2577,7 +3200,7 @@ def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool,
         picked = {"embed": grads["embed"],
                   "wq0": grads["layers"][0]["wq"],
                   "wk0": grads["layers"][0]["wk"],
-                  "wo1": grads["layers"][1]["wo"],
+                  f"wo{last}": grads["layers"][last]["wo"],
                   **{n: grads["layers"][i][leaf]
                      for n, (i, leaf) in mlp.items()},
                   "final_norm": grads["final_norm"]}
@@ -4575,6 +5198,12 @@ def main() -> int:
         return mp_child(int(sys.argv[sys.argv.index("--mp-rank") + 1]), dev)
     if "--ep-rank" in sys.argv:
         return ep_child(int(sys.argv[sys.argv.index("--ep-rank") + 1]), dev)
+    for flag, child in (("--pp-rank", pp_child),
+                        ("--bert-mp-rank", bert_mp_child),
+                        ("--fsdp-rank", fsdp_child),
+                        ("--serve-mp-rank", serve_mp_child)):
+        if flag in sys.argv:
+            return child(int(sys.argv[sys.argv.index(flag) + 1]), dev)
     if "--resnet-dp2-rank" in sys.argv:
         return resnet_dp2_child(
             int(sys.argv[sys.argv.index("--resnet-dp2-rank") + 1]), dev)
@@ -4726,6 +5355,12 @@ def main() -> int:
     # over dp, gloo ranks sharing the card
     mp = timed("train_tp2_sp2", train_tp2_sp2_phase)
     ep = timed("train_moe_ep2", train_moe_ep2_phase)
+    # the pipeline, BERT's tp x sp, FSDP and model-parallel serving, gloo
+    # ranks sharing the card
+    pp = timed("train_pp2", train_pp2_phase, train["losses"])
+    bert_mp = timed("bert_tp2_sp2", bert_tp2_sp2_phase)
+    fsdp = timed("train_fsdp_dp2", train_fsdp_dp2_phase)
+    timed("serve_mp2", serve_mp2_phase)
     timed("decode", decode_phase, llama, gen, paging, fa, fx, convert, dev)
     timed("serve", serve_phase, llama, gen, paging, fa, fx, dev)
 
@@ -4794,7 +5429,14 @@ def main() -> int:
                          n[k] for n in mp["ulysses"]["launches_by_rank"]],
                      "train_moe_ep2": [
                          n[k] for run in ep["variants"].values()
-                         for n in run["launches_by_rank"]]}
+                         for n in run["launches_by_rank"]],
+                     "train_pp2": [n[k] for n in pp["launches_by_rank"]],
+                     "bert_tp2_sp2": [n[k] for n in
+                                      bert_mp["launches_by_rank"]],
+                     "train_fsdp_dp2": [
+                         sum(st[k] for st in steps)
+                         for run in fsdp["variants"].values()
+                         for steps in run["launches_per_step_by_rank"]]}
             summary[-1]["launches_by_path"] = paths
             for path, counts in paths.items():
                 require(all(n > 0 for n in counts),

@@ -16,6 +16,7 @@ agree bit for bit.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -146,15 +147,28 @@ def quantizable(dtype) -> bool:
     return str(dtype).removeprefix("torch.") in QUANTIZABLE_DTYPES
 
 
+@functools.lru_cache(maxsize=None)
+def _fp32_reciprocal(x: float) -> float:
+    """``1 / x`` rounded to fp32, as a Python float: it meets an fp32
+    tensor as that fp32 value (a device tensor would cost a host copy)."""
+    return torch.tensor(1.0 / x, dtype=torch.float32).item()
+
+
 def quantize_blocks(buf: torch.Tensor, fmt: WireFormat):
     """Block-scaled quantization of a 1-D buffer whose length is a
     multiple of ``fmt.block_size`` (callers pad with zeros, which quantize
     exactly).  Returns ``(q, scales)``: the payload in ``fmt.wire_dtype``
     and one fp32 scale per block, 1.0 for an all-zero block.  Integer
-    formats round half to even; both fp8 casts clip to ``qmax`` first."""
+    formats round half to even; both fp8 casts clip to ``qmax`` first.
+
+    The scale is ``amax`` times the fp32 reciprocal of ``qmax``: XLA
+    rewrites a division by a constant so inside every compiled JAX
+    collective, and that differs from ``amax / qmax`` in the last place
+    for some blocks (enough to move a code at the next stage)."""
     b = buf.float().reshape(-1, fmt.block_size)
     amax = b.abs().amax(dim=1, keepdim=True)
-    scale = torch.where(amax > 0, amax / fmt.qmax, torch.ones_like(amax))
+    scale = torch.where(amax > 0, amax * _fp32_reciprocal(fmt.qmax),
+                        torch.ones_like(amax))
     q = b / scale
     if not fmt.wire_dtype.is_floating_point:
         q = torch.round(q)
@@ -167,3 +181,47 @@ def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor,
     """Inverse of :func:`quantize_blocks`: an fp32 buffer of ``len(q)``."""
     b = q.float().reshape(-1, fmt.block_size)
     return (b * scales.reshape(-1, 1)).reshape(-1)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in fp32 with one rounding, as XLA fuses a dequantizing
+    multiply into the add or subtract after it.  On the card
+    ``torch.addcmul`` is one fused multiply-add.  On the CPU the product
+    of a wire code (at most 8 significant bits) and an fp32 scale is exact
+    in float64; the sum is rounded to odd there (TwoSum's error decides
+    the last bit), so the one rounding to fp32 is correct."""
+    if a.is_cuda:
+        return torch.addcmul(c.float(), a.float(), b.float())
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def dequantize_sum(q: torch.Tensor, scales: torch.Tensor, fmt: WireFormat,
+                   n: int) -> torch.Tensor:
+    """The fp32 sum of ``n`` equal rows of codes (``q`` is ``n`` rows laid
+    end to end, ``scales`` theirs), accumulated row by row as a chain of
+    fused multiply-adds: the order and the rounding of JAX's
+    ``jnp.sum(dequantize_blocks(...).reshape(n, -1), axis=0)``."""
+    qb = q.reshape(n, -1, fmt.block_size)
+    sb = scales.reshape(n, -1, 1).expand(qb.shape)
+    acc = qb[0].float() * sb[0]
+    for i in range(1, n):
+        acc = fma(qb[i], sb[i], acc)
+    return acc.reshape(-1)
+
+
+def quantization_error(buf: torch.Tensor, q: torch.Tensor,
+                       scales: torch.Tensor, fmt: WireFormat) -> torch.Tensor:
+    """``buf - dequantize_blocks(q, scales)`` with one rounding (the fused
+    multiply-subtract of JAX's error-feedback residual)."""
+    qb = q.reshape(-1, fmt.block_size)
+    return fma(-qb.float(), scales.reshape(-1, 1).expand(qb.shape),
+               buf.float().reshape(qb.shape)).reshape(-1)

@@ -8,8 +8,10 @@ Counterpart: none.  Arrays cross as numpy, so JAX never runs here.
   its ``[in, out]`` layout, and a mixture of experts' leaves (``router
   [L, D, E]``, ``we_* [L, E, D, F]``) cross the same way.
   :func:`llama_shard_params` cuts a rank's slice of the full params by
-  ``models.llama.param_specs`` over a model-parallel mesh, and
-  :func:`llama_gather_params` gathers the slices back.
+  ``models.llama.param_specs`` over a model-parallel mesh (over pp, the
+  stage's layers), and :func:`llama_gather_params` gathers the slices
+  back; :func:`bert_shard_params` and :func:`bert_gather_params` do the
+  same by ``models.bert.param_specs``.
 * ResNet and MNIST: the trees have the same structure (ResNet's params and
   batch-norm state alike); convolution weights go from JAX's HWIO to
   torch's OIHW.
@@ -71,16 +73,11 @@ def llama_params_to_numpy(params: Dict) -> Dict:
     return _restack(params)
 
 
-def llama_shard_params(full: Dict, cfg, pmesh, par) -> Dict:
-    """This rank's slice of the full Llama params (the port's tree) over
-    ``pmesh``: every dim that ``models.llama.param_specs(par, cfg)`` names
-    an axis for is cut to this rank's chunk along it (tp columns or rows,
-    ep experts, vp vocab rows).  The slices are new contiguous tensors."""
-    from .models import llama
-    specs = llama.param_specs(par, cfg)
-
+def _cut(full: Dict, specs: Dict, leaf_spec, pmesh) -> Dict:
+    """Each leaf of ``full`` cut to this rank's chunk along every dim its
+    spec names an axis for; new contiguous tensors."""
     def cut(path, t):
-        for dim, name in enumerate(llama.leaf_spec(specs, path)):
+        for dim, name in enumerate(leaf_spec(specs, path)):
             if name is not None:
                 n = t.shape[dim] // pmesh.axis_size(name)
                 t = t.narrow(dim, pmesh.axis_index(name) * n, n)
@@ -90,17 +87,14 @@ def llama_shard_params(full: Dict, cfg, pmesh, par) -> Dict:
     return tree_map(lambda t: cut(next(paths), t), full)
 
 
-def llama_gather_params(params: Dict, cfg, pmesh, par) -> Dict:
-    """The full Llama params from every rank's slice: the inverse of
-    :func:`llama_shard_params`, a tiled all-gather over each sharded
-    dim's axis (collective: every rank of the mesh calls it)."""
-    from .models import llama
+def _gather(params: Dict, specs: Dict, leaf_spec, pmesh) -> Dict:
+    """The inverse of :func:`_cut`: a tiled all-gather over each sharded
+    dim's axis (collective)."""
     from .parallel import axis as ax
-    specs = llama.param_specs(par, cfg)
 
     def gather(path, t):
         t = t.detach()
-        for dim, name in enumerate(llama.leaf_spec(specs, path)):
+        for dim, name in enumerate(leaf_spec(specs, path)):
             g = pmesh.group(name) if name is not None else None
             if g is not None:
                 t = ax._gather(t, g, name, dim)
@@ -108,6 +102,40 @@ def llama_gather_params(params: Dict, cfg, pmesh, par) -> Dict:
 
     paths = iter(tree_paths(params))
     return tree_map(lambda t: gather(next(paths), t), params)
+
+
+def llama_shard_params(full: Dict, cfg, pmesh, par) -> Dict:
+    """This rank's slice of the full Llama params (the port's tree) over
+    ``pmesh``: over pp the layer list is cut to this rank's stage, and
+    every dim that ``models.llama.param_specs(par, cfg)`` names an axis
+    for is cut to this rank's chunk along it (tp columns or rows, ep
+    experts, vp vocab rows).  The slices are new contiguous tensors."""
+    from .models import llama
+    specs = llama.param_specs(par, cfg)
+    if par.pp_axis is not None:
+        n = len(full["layers"]) // pmesh.axis_size(par.pp_axis)
+        s = pmesh.axis_index(par.pp_axis)
+        full = dict(full, layers=full["layers"][s * n:(s + 1) * n])
+    return _cut(full, specs, llama.leaf_spec, pmesh)
+
+
+def llama_gather_params(params: Dict, cfg, pmesh, par) -> Dict:
+    """The full Llama params from every rank's slice: the inverse of
+    :func:`llama_shard_params`, a tiled all-gather over each sharded
+    dim's axis, then over pp the stages' layer lists in stage order
+    (collective: every rank of the mesh calls it)."""
+    from .models import llama
+    from .parallel import axis as ax
+    specs = llama.param_specs(par, cfg)
+    out = _gather(params, specs, llama.leaf_spec, pmesh)
+    g = pmesh.group(par.pp_axis) if par.pp_axis is not None else None
+    if g is not None:
+        # every stage's layers, in stage order
+        stages = [{n: ax._gather(w.unsqueeze(0), g, par.pp_axis, 0)
+                   for n, w in lp.items()} for lp in out["layers"]]
+        out["layers"] = [{n: st[n][s] for n in st}
+                         for s in range(g.size()) for st in stages]
+    return out
 
 
 # the order of the port's init_params
@@ -126,6 +154,22 @@ def bert_params_from_numpy(tree: Dict, device: DeviceLike = None,
 def bert_params_to_numpy(params: Dict) -> Dict:
     """The port's BERT parameters → JAX-layout numpy arrays."""
     return _restack(params)
+
+
+def bert_shard_params(full: Dict, cfg, pmesh, par) -> Dict:
+    """This rank's tp slice of the full BERT params over ``pmesh``, by
+    ``models.bert.param_specs(par, cfg)`` (q/k/v and ``w_in`` columns with
+    their biases, ``wo``/``w_out`` rows); new contiguous tensors."""
+    from .models import bert, llama
+    return _cut(full, bert.param_specs(par, cfg), llama.leaf_spec, pmesh)
+
+
+def bert_gather_params(params: Dict, cfg, pmesh, par) -> Dict:
+    """The full BERT params from every rank's slice (collective): the
+    inverse of :func:`bert_shard_params`."""
+    from .models import bert, llama
+    return _gather(params, bert.param_specs(par, cfg), llama.leaf_spec,
+                   pmesh)
 
 
 def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:

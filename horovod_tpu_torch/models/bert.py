@@ -19,8 +19,16 @@ attention included, is recomputed in the backward pass, as JAX's
 through ``grad_tap`` and the other leaves through ``tap_root``, the
 identity outside an armed ``overlapped_backprop``.
 
-Tensor and sequence parallelism (``tp``, ``param_specs``, ``sp_axis``)
-raise ``NotImplementedError`` naming ROADMAP.md A6 item 6.
+Tensor and sequence parallelism follow a ``ParallelSpec`` run inside the
+mesh's context (``with pmesh:``), as in the port's Llama: Megatron tp
+(column-parallel q/k/v and ``w_in`` with their biases, row-parallel
+``wo``/``w_out``; ``copy_to`` before the column products and one
+all-reduce after each row product, where JAX's ``check_vma`` puts its
+transposes) on tp-local heads, and non-causal ring attention over sp
+(``parallel/ring_attention.py``, its tiles through the flash kernels).
+Each rank holds its slice of the params (:func:`param_specs`,
+``convert.bert_shard_params``).  BERT has no pipeline or expert layout:
+a pp or ep axis raises.
 """
 
 from __future__ import annotations
@@ -34,8 +42,9 @@ import torch.nn.functional as F
 
 from .. import DeviceLike, api, resolve_device, runtime
 from ..optim.overlap import grad_tap, tap_root
+from ..parallel import axis as ax
 from ..parallel.mesh import ParallelMesh
-from ..parallel.ring_attention import local_attention
+from ..parallel.ring_attention import local_attention, ring_attention
 from ..training import TrainStep, resolve_mesh, sum_scaled_, trainable_leaves
 from ..tree import tree_leaves, tree_map, tree_paths
 from .llama import ParallelSpec, _rematerialized
@@ -85,25 +94,26 @@ finetune_optimizer = functools.partial(torch.optim.AdamW, lr=5e-5,
 
 
 def _refuse(par: ParallelSpec) -> None:
-    for axis in ("tp_axis", "sp_axis", "pp_axis", "ep_axis"):
+    """BERT's layouts are dp, tp and sp (the JAX model reads no other
+    axis); a pp or ep axis raises rather than being ignored."""
+    for axis in ("pp_axis", "ep_axis"):
         if getattr(par, axis) is not None:
-            raise NotImplementedError(
-                f"{axis}={getattr(par, axis)!r}: BERT's tensor and sequence "
-                f"parallel layouts are not ported yet (ROADMAP.md A6 item 6, "
-                f"BERT's tp and sp)")
+            raise ValueError(
+                f"{axis}={getattr(par, axis)!r}: BERT has no pipeline or "
+                f"expert-parallel layout (its layouts are dp, tp and sp)")
 
 
 def init_params(cfg: BertConfig, seed: int = 0, tp: int = 1,
                 device: DeviceLike = None) -> Dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
-    on ``device`` (default: the CUDA device; raises without one)."""
-    if tp != 1:
-        raise NotImplementedError(
-            "tensor-parallel BERT parameters are not ported yet "
-            "(ROADMAP.md A6 item 6, BERT's tp and sp)")
-    device = resolve_device(device)
+    on ``device`` (default: the CUDA device; raises without one).  With
+    ``tp > 1`` they are still the FULL params, as in the JAX package:
+    ``convert.bert_shard_params`` takes a rank's slice."""
     D, H, Dh, F_, L, V = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
                           cfg.n_layers, cfg.vocab_size)
+    if H % tp or F_ % tp:
+        raise ValueError(f"heads({H})/d_ff({F_}) must divide tp={tp}")
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -144,10 +154,24 @@ def init_params(cfg: BertConfig, seed: int = 0, tp: int = 1,
 
 
 def param_specs(par: ParallelSpec, cfg: Optional[BertConfig] = None):
-    """The megatron layout's shardings: not ported yet."""
-    raise NotImplementedError(
-        "BERT's tensor-parallel param_specs are not ported yet "
-        "(ROADMAP.md A6 item 6, BERT's tp and sp)")
+    """Each leaf's mesh axes, dim by dim (``()`` for a replicated leaf),
+    over the port's tree: the JAX package's PartitionSpecs (megatron
+    layout) with the stacked layer dim dropped.  Column-parallel q/k/v
+    and ``w_in`` shard their output dim over tp, their biases with them;
+    row-parallel ``wo``/``w_out`` shard their input dim."""
+    tp = par.tp_axis
+    layer = {
+        "attn_norm_w": (None,), "attn_norm_b": (None,),
+        "wq": (None, tp), "bq": (tp,), "wk": (None, tp), "bk": (tp,),
+        "wv": (None, tp), "bv": (tp,), "wo": (tp, None), "bo": (None,),
+        "mlp_norm_w": (None,), "mlp_norm_b": (None,),
+        "w_in": (None, tp), "b_in": (tp,), "w_out": (tp, None),
+        "b_out": (None,)}
+    n = cfg.n_layers if cfg is not None else 1
+    return {"word_embed": (), "pos_embed": (), "type_embed": (),
+            "embed_norm_w": (), "embed_norm_b": (),
+            "layers": [dict(layer) for _ in range(n)],
+            "pooler_w": (), "pooler_b": (), "cls_w": (), "cls_b": ()}
 
 
 def _layernorm(x, w, b, eps):
@@ -167,43 +191,54 @@ def _dense_masked_attention(q, k, v, mask, scale):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
-def _attention(x, lp, cfg: BertConfig, mask):
+def _attention(x, lp, cfg: BertConfig, par: ParallelSpec, mask):
+    """Attention on tp-local heads and the sp-local sequence."""
     B, T, _ = x.shape
     Dh = cfg.head_dim
-    H = lp["wq"].shape[-1] // Dh
+    H = lp["wq"].shape[-1] // Dh          # tp-local heads
+    x = ax.copy_to(x, par.tp_axis)
     q = (x @ lp["wq"] + lp["bq"]).view(B, T, H, Dh)
     k = (x @ lp["wk"] + lp["bk"]).view(B, T, H, Dh)
     v = (x @ lp["wv"] + lp["bv"]).view(B, T, H, Dh)
     scale = Dh ** -0.5
     if mask is not None:
         o = _dense_masked_attention(q, k, v, mask, scale)
+    elif par.sp_axis is not None:
+        o = ring_attention(q, k, v, par.sp_axis, causal=False,
+                           sm_scale=scale)
     else:
         o = local_attention(q, k, v, causal=False, sm_scale=scale)
-    return o.reshape(B, T, H * Dh) @ lp["wo"] + lp["bo"]
+    o = ax.reduce_from(o.reshape(B, T, H * Dh) @ lp["wo"], par.tp_axis)
+    return o + lp["bo"]
 
 
-def _mlp(x, lp):
+def _mlp(x, lp, par: ParallelSpec):
+    x = ax.copy_to(x, par.tp_axis)
     h = F.gelu(x @ lp["w_in"] + lp["b_in"], approximate="tanh")
-    return h @ lp["w_out"] + lp["b_out"]
+    return ax.reduce_from(h @ lp["w_out"], par.tp_axis) + lp["b_out"]
 
 
-def block(x, lp, cfg: BertConfig, mask):
+def block(x, lp, cfg: BertConfig, par: ParallelSpec, mask):
     """One post-LN encoder block (BERT's layout: the residual, then the
     LayerNorm); ``lp`` already in the compute dtype."""
-    x = _layernorm(x + _attention(x, lp, cfg, mask), lp["attn_norm_w"],
+    x = _layernorm(x + _attention(x, lp, cfg, par, mask), lp["attn_norm_w"],
                    lp["attn_norm_b"], cfg.norm_eps)
-    return _layernorm(x + _mlp(x, lp), lp["mlp_norm_w"], lp["mlp_norm_b"],
-                      cfg.norm_eps)
+    return _layernorm(x + _mlp(x, lp, par), lp["mlp_norm_w"],
+                      lp["mlp_norm_b"], cfg.norm_eps)
 
 
 def encode(params, tokens, cfg: BertConfig,
            par: ParallelSpec = ParallelSpec(), token_types=None, mask=None):
-    """Token ids ``[B, T]`` -> hidden states ``[B, T, D]``.  ``mask``:
-    optional ``[B, T]`` 0/1 attention mask for padded batches (the dense
-    path)."""
+    """Token ids ``[B, T]`` -> hidden states ``[B, T, D]``, the sequence
+    this rank's block over sp.  ``mask``: optional ``[B, T]`` 0/1
+    attention mask for padded batches (the dense path; it refuses sp)."""
     _refuse(par)
+    if mask is not None and par.sp_axis is not None:
+        raise ValueError("attention masks require unsharded sequence "
+                         "(pad-free batches for the sp path)")
     B, T = tokens.shape
-    positions = torch.arange(T, device=tokens.device)
+    sp_idx = ax.axis_index(par.sp_axis) if par.sp_axis is not None else 0
+    positions = torch.arange(T, device=tokens.device) + sp_idx * T
     h = F.embedding(tokens, params["word_embed"].to(cfg.dtype))
     h = h + F.embedding(positions, params["pos_embed"].to(cfg.dtype))[None]
     tt = token_types if token_types is not None else torch.zeros_like(tokens)
@@ -214,7 +249,7 @@ def encode(params, tokens, cfg: BertConfig,
     for lp in params["layers"]:
         # tapped, then cast, inside the loop (see llama._layer_stack)
         lp = {n: w.to(cfg.dtype) for n, w in grad_tap(lp).items()}
-        h = body(h, lp, cfg, mask)
+        h = body(h, lp, cfg, par, mask)
     return h
 
 

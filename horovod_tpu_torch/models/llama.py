@@ -23,8 +23,10 @@ Each rank holds its slice of the params (:func:`param_specs`,
 ``convert.llama_shard_params``).  ``fused_xent=True`` takes the loss
 through the fused cross-entropy kernels.  Each layer's weights and the
 root leaves pass through the grad taps of ``optim/overlap.py``, the
-identity unless an overlapped step arms them.  Pipeline parallelism
-(``pp_axis``) raises ``NotImplementedError`` naming its ROADMAP.md item.
+identity unless an overlapped step arms them.  Over a pp axis the layer
+list is cut by stage (stage s holds layers ``[s·L/pp, (s+1)·L/pp)``) and
+the stack runs through ``parallel/pipeline.py``'s GPipe loop in
+``n_microbatches`` microbatches.
 """
 
 from __future__ import annotations
@@ -121,13 +123,9 @@ class ParallelSpec:
 
 
 def check_slice(cfg: LlamaConfig, par: ParallelSpec = ParallelSpec()) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet:
-    pipeline parallelism."""
+    """Raise ``ValueError`` for an attention mode the model does not
+    have."""
     del cfg
-    if par.pp_axis is not None:
-        raise NotImplementedError(
-            f"pp_axis={par.pp_axis!r}: pipeline parallelism is not ported "
-            f"yet (ROADMAP.md A6 item 5, pipeline)")
     if par.attn not in ("ring", "ulysses", "local"):
         raise ValueError(f"attn must be 'ring', 'ulysses' or 'local', got "
                          f"{par.attn!r}")
@@ -138,7 +136,8 @@ def init_params(cfg: LlamaConfig, seed: int = 0, tp: int = 1,
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
     on ``device`` (default: the CUDA device; raises without one).  With
     ``tp > 1`` they are still the FULL params, as in the JAX package:
-    ``convert.llama_shard_params`` takes a rank's slice."""
+    ``convert.llama_shard_params`` takes a rank's slice.  On the
+    ``"meta"`` device the tree holds the shapes alone."""
     D, H, Hkv, Dh, F_, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim, cfg.d_ff, cfg.n_layers,
                                cfg.vocab_size)
@@ -146,8 +145,10 @@ def init_params(cfg: LlamaConfig, seed: int = 0, tp: int = 1,
         raise ValueError(
             f"heads({H})/kv_heads({Hkv})/d_ff({F_}) must divide tp={tp}")
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
 
     def norm(shape, fan_in):
         w = torch.randn(shape, generator=gen, device=device,
@@ -182,7 +183,8 @@ def param_specs(par: ParallelSpec, cfg: Optional[LlamaConfig] = None):
     """Each leaf's mesh axes, dim by dim (a tuple of axis names or None;
     ``()`` for a replicated leaf), over the port's tree: the JAX package's
     PartitionSpecs with the stacked layer dim (pp) dropped from each
-    layer's leaves.  Column-parallel weights shard their output dim over
+    layer's leaves: a pp axis cuts ``params["layers"]``'s list instead
+    (:func:`leaf_axes`).  Column-parallel weights shard their output dim over
     tp, row-parallel ones their input dim; the experts shard their expert
     dim over ep; the embedding's vocab dim over tp with vocab_parallel."""
     tp = par.tp_axis
@@ -200,6 +202,15 @@ def param_specs(par: ParallelSpec, cfg: Optional[LlamaConfig] = None):
     n = cfg.n_layers if cfg is not None else 1
     return {"embed": embed, "layers": [dict(layer) for _ in range(n)],
             "final_norm": ()}
+
+
+def leaf_axes(specs: Dict, path: str, par: ParallelSpec) -> set:
+    """The mesh axes the leaf at ``path`` is sharded over: its spec's, and
+    the pp axis for a layer leaf (the list is cut by stage)."""
+    axes = {a for a in leaf_spec(specs, path) if a is not None}
+    if par.pp_axis is not None and path.startswith("layers."):
+        axes.add(par.pp_axis)
+    return axes
 
 
 def leaf_spec(specs: Dict, path: str):
@@ -350,13 +361,25 @@ def _rematerialized(fn, policy: str):
                                      _save_matmuls))
 
 
-def _layer_stack(h, layers, cfg: LlamaConfig, par: ParallelSpec, positions):
-    body = block
+def _layer_stack(h, layers, cfg: LlamaConfig, par: ParallelSpec, positions,
+                 gather=None):
+    """The decoder blocks over ``layers``; ``gather(lp)`` (FSDP's) makes
+    each layer's full weights from its shards inside the layer's
+    (rematerialized) block, so only that layer is resident unsharded and
+    a recompute gathers again."""
+    def cast(lp):
+        return {n: w.to(cfg.dtype) for n, w in lp.items()}
+
+    run = block
+    if gather is not None:
+        def run(x, lp, cfg, par, positions):
+            return block(x, cast(gather(lp)), cfg, par, positions)
+    body = run
     if cfg.remat:
         if cfg.remat_policy not in ("full", "dots"):
             raise ValueError(f"remat_policy must be 'full' or 'dots', got "
                              f"{cfg.remat_policy!r}")
-        body = _rematerialized(block, cfg.remat_policy)
+        body = _rematerialized(run, cfg.remat_policy)
     aux = h.new_zeros((), dtype=torch.float32)
     n = len(layers)
     # the last k layers run without rematerialization: their activations
@@ -369,25 +392,53 @@ def _layer_stack(h, layers, cfg: LlamaConfig, par: ParallelSpec, positions):
         # recompute does not cast again, and autograd, which runs ready
         # nodes by descending sequence number, reaches each layer's casts
         # right after that layer's backward instead of after every layer's
-        # (casts made before the loop would all wait for layer 0).
-        lp = {n: w.to(cfg.dtype) for n, w in grad_tap(lp).items()}
-        h, aux_l = (body if i < n - k else block)(h, lp, cfg, par, positions)
+        # (casts made before the loop would all wait for layer 0).  Under
+        # FSDP the gather and the cast run inside the block.
+        lp = grad_tap(lp)
+        if gather is None:
+            lp = cast(lp)
+        h, aux_l = (body if i < n - k else run)(h, lp, cfg, par, positions)
         aux = aux + aux_l
     return h, aux
 
 
 def hidden(params, tokens, cfg: LlamaConfig, par: ParallelSpec = ParallelSpec(),
-           n_microbatches: int = 0):
+           n_microbatches: int = 0, gather=None):
     """Token ids ``[B, Tl]`` (batch over dp, sequence over sp) →
-    final-norm hidden states ``[B, Tl, D]`` and the summed MoE aux loss."""
-    del n_microbatches  # pipeline parallelism is refused by check_slice
+    final-norm hidden states ``[B, Tl, D]`` and the summed MoE aux loss.
+    With ``par.pp_axis``, ``n_microbatches`` must divide B and the stage's
+    layers run through the GPipe loop; the aux is then the stages' sum
+    averaged over the microbatches, as in the JAX package.  ``gather``
+    as in :func:`_layer_stack`."""
     check_slice(cfg, par)
     B, T = tokens.shape
     sp_idx = ax.axis_index(par.sp_axis) if par.sp_axis is not None else 0
-    positions = (torch.arange(T, device=tokens.device, dtype=torch.int32)
-                 + sp_idx * T)[None, :].expand(B, T)
+    pos = (torch.arange(T, device=tokens.device, dtype=torch.int32)
+           + sp_idx * T)[None, :]
     h = _embed_lookup(params["embed"], tokens, cfg, par)
-    h, aux = _layer_stack(h, params["layers"], cfg, par, positions)
+    if par.pp_axis is not None:
+        from ..parallel.pipeline import pipeline_apply
+        if n_microbatches <= 0:
+            raise ValueError("pipeline parallelism needs n_microbatches > 0")
+        if B % n_microbatches:
+            raise ValueError(f"batch {B} not divisible by "
+                             f"n_microbatches={n_microbatches}")
+        mb = B // n_microbatches
+        # positions are a function of the sp shard alone: every
+        # microbatch shares them
+        pos_mb = pos.expand(mb, T)
+
+        def stage_fn(stage_layers, x):
+            return _layer_stack(x, stage_layers, cfg, par, pos_mb)
+
+        out, aux = pipeline_apply(
+            stage_fn, params["layers"],
+            h.reshape(n_microbatches, mb, *h.shape[1:]),
+            axis_name=par.pp_axis, with_aux=True)
+        h = out.reshape(h.shape)
+    else:
+        h, aux = _layer_stack(h, params["layers"], cfg, par,
+                              pos.expand(B, T), gather)
     return _rmsnorm(h, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -440,7 +491,8 @@ def _oneshot_xent(h, w_embed, targets):
 
 
 def loss_fn(params, tokens, targets, cfg: LlamaConfig,
-            par: ParallelSpec = ParallelSpec(), n_microbatches: int = 0):
+            par: ParallelSpec = ParallelSpec(), n_microbatches: int = 0,
+            gather=None):
     """Mean next-token cross-entropy over the local tokens, plus the MoE
     load-balance loss (the caller averages over the data axes).
 
@@ -453,7 +505,7 @@ def loss_fn(params, tokens, targets, cfg: LlamaConfig,
     # outside an armed optim.overlap.overlapped_backprop): the tied
     # embedding's lookup and head add into one cotangent
     params = tap_root(params)
-    h, aux = hidden(params, tokens, cfg, par, n_microbatches)
+    h, aux = hidden(params, tokens, cfg, par, n_microbatches, gather)
     loss = _xent(h, params["embed"], targets, cfg, par)
     if cfg.n_experts > 0:
         loss = loss + cfg.aux_loss_coef * aux / cfg.n_layers

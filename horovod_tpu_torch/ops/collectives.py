@@ -58,7 +58,8 @@ import torch.distributed as dist
 
 from .. import chaos as _chaos
 from .. import metrics as _metrics
-from ..compression import WireFormat, dequantize_blocks, quantize_blocks
+from ..compression import (WireFormat, dequantize_blocks, dequantize_sum,
+                           quantization_error, quantize_blocks)
 from ..config import TAIL_POLICIES
 from ..runtime import ReduceOp
 
@@ -363,11 +364,10 @@ def quantized_sum_scatter(flat: torch.Tensor, ps, fmt: WireFormat,
     q, s = quantize_blocks(flat, fmt)
     residual = None
     if error_feedback:
-        residual = flat.float() - dequantize_blocks(q, s, fmt)
+        residual = quantization_error(flat, q, s, fmt)
     qx = _all_to_all_flat(q, ps)
     sx = _all_to_all_flat(s, ps)
-    deq = dequantize_blocks(qx, sx, fmt).reshape(n, -1)
-    return deq.sum(dim=0), residual
+    return dequantize_sum(qx, sx, fmt, n), residual
 
 
 def quantized_all_gather(tile: torch.Tensor, ps,

@@ -5,8 +5,9 @@ Counterpart: what ``lax`` does inside ``shard_map`` in the JAX package
 ``psum_scatter``, ``axis_index``).  Each differentiable form is a
 ``torch.autograd.Function`` whose backward is the JAX transpose:
 ``ppermute`` the reverse rotation, ``all_to_all`` the inverse exchange,
-tiled ``all_gather`` this rank's slice of the cotangent, ``psum_scatter``
-the tiled all-gather; ``pmax`` carries no gradient.
+tiled ``all_gather`` this rank's slice of the cotangent (or, as
+``all_gather_scatter``, the reduce-scatter JAX transposes it to),
+``psum_scatter`` the tiled all-gather; ``pmax`` carries no gradient.
 
 JAX's ``check_vma`` inserts the transposes of replicated-meets-sharded
 products itself; eager autograd cannot, so the model places Megatron's
@@ -187,6 +188,17 @@ class _AllGather(torch.autograd.Function):
         return _slice(dy, ctx.g, ctx.dim), None, None, None
 
 
+class _AllGatherScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, name, dim):
+        ctx.args = (g, name, dim)
+        return _gather(x, g, name, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _scatter_sum(dy, *ctx.args), None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, name, split_axis, concat_axis):
@@ -257,6 +269,17 @@ def all_gather(x: torch.Tensor, name: str, dim: int = 0,
         x = x.unsqueeze(0)
         dim = 0
     return x if g is None else _AllGather.apply(x, g, name, dim)
+
+
+def all_gather_scatter(x: torch.Tensor, name: str,
+                       dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` along ``dim`` in rank order, with JAX's
+    transpose of a tiled ``all_gather``: the backward reduce-scatters the
+    cotangent (each rank's comes from its own data, as under FSDP), where
+    :func:`all_gather` keeps this rank's slice of a cotangent every rank
+    holds alike."""
+    g = _group(name)
+    return x if g is None else _AllGatherScatter.apply(x, g, name, dim)
 
 
 def all_to_all(x: torch.Tensor, name: str, split_axis: int,

@@ -16,7 +16,8 @@ array — the one signature the serving worker speaks:
 
 Each row of a decode continues its own prompt; per-row parity with
 sequential ``greedy_generate`` is the micro-batching correctness floor.
-The model-parallel decode waits for ROADMAP.md A6 item 7.
+``mp_llama_decode_forward`` is the dense decode over a model-parallel
+slice of ranks.
 """
 
 from __future__ import annotations
@@ -81,10 +82,18 @@ def paged_llama_decode_forward(params, cfg, max_new_tokens: int,
 def mp_llama_decode_forward(params, cfg, max_new_tokens: int,
                             buckets: ShapeBuckets, mp: int = 2,
                             axis: str = "hvd_serve_mp", devices=None):
-    """Decode over a model-parallel mesh slice: not ported yet."""
-    raise NotImplementedError(
-        "model-parallel serving (mp_llama_decode_forward) is not ported "
-        "yet (ROADMAP.md A6 item 7, mp_llama_decode_forward)")
+    """:func:`llama_decode_forward` over a model-parallel slice of ``mp``
+    ranks: the params rest sharded ``mp`` ways and are gathered inside
+    each call (serving/worker.py ``MeshSlicedForward``), for models whose
+    replica exceeds one card.  Every rank of the slice builds it."""
+    from .worker import MeshSlicedForward
+    if buckets.max_seq + max_new_tokens > cfg.max_seq_len:
+        raise ValueError(
+            f"largest seq bucket {buckets.max_seq} + max_new_tokens "
+            f"{max_new_tokens} exceeds the model's max_seq_len "
+            f"{cfg.max_seq_len}")
+    return MeshSlicedForward(params, cfg, max_new_tokens, buckets,
+                             mp=mp, axis=axis, devices=devices)
 
 
 def classifier_forward(forward: Callable, params, buckets: ShapeBuckets,

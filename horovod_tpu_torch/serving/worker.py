@@ -20,7 +20,8 @@ for an eager forward, which has no compile to count: a shape outside the
 buckets raises, a bucket's first call allocates its device buffers (its
 "compile"), ``warmup()`` runs every bucket once, and ``recompiles``
 counts a bucket prepared again after it was seen.  ``MeshSlicedForward``
-(model-parallel serving) waits for ROADMAP.md A6 item 7.
+(model-parallel serving) spans ``mp`` ranks, each holding a shard of the
+weights, its group's rank 0 taking the batches.
 """
 
 from __future__ import annotations
@@ -162,13 +163,151 @@ class BucketedForward:
 
 
 class MeshSlicedForward(BucketedForward):
-    """Llama decode over a model-parallel mesh slice: not ported yet."""
+    """Llama decode over a model-parallel slice: params that do not fit
+    one card live SHARDED across ``mp`` ranks.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "model-parallel serving (MeshSlicedForward, "
-            "HOROVOD_SERVE_MP_AXES) is not ported yet (ROADMAP.md A6 item "
-            "7, MeshSlicedForward)")
+    Counterpart: JAX ``serving/worker.py MeshSlicedForward``, whose
+    ``pmap`` spans ``mp`` local devices; the port runs one process per
+    GPU, so the slice is this rank's line of ``mp`` consecutive ranks, a
+    ``torch.distributed`` group (every rank makes every line's group, in
+    the same order).  Each rank keeps its ``1/mp`` shard of every leaf
+    ``training.fsdp_param_specs`` shards (the same planner as FSDP
+    training) and the small norms whole; ``per_chip_param_nbytes`` prices
+    that exactly, as JAX does.
+
+    A call all-gathers the shards leaf by leaf over the group and runs
+    ``batched_greedy_decode`` on the full weights (in the compute dtype,
+    cast once here, a dense cache per bucket as ``llama_decode_forward``
+    keeps).  The group's rank 0 takes the request batch and broadcasts
+    it; the others call with no batch (or loop in :meth:`follow` until
+    the leader's :meth:`close`), and every rank returns the same output.
+    """
+
+    def __init__(self, params, cfg, max_new_tokens: int, buckets,
+                 mp: int = 2, axis: str = "hvd_serve_mp", devices=None):
+        from .. import runtime
+        from ..models.generate import (batched_greedy_decode, cast_params,
+                                       init_kv_cache)
+        from ..models.llama import leaf_spec
+        from ..parallel import axis as ax
+        from ..parallel.mesh import _subgroup
+        from ..training import _spec_dim, fsdp_param_specs
+        from ..tree import tree_leaves, tree_paths
+        if mp < 2:
+            raise ValueError(f"mp must be >= 2 (use BucketedForward for "
+                             f"single-chip serving), got {mp}")
+        size = runtime.size() if runtime.is_initialized() else 1
+        if size < mp or size % mp:
+            raise ValueError(f"mp={mp} needs {mp} ranks (hvd.init() in "
+                             f"each, the world a multiple of mp), have "
+                             f"{size}")
+        rank = runtime.rank()
+        lines = [list(range(i, i + mp)) for i in range(0, size, mp)]
+        groups = [_subgroup(line) for line in lines]   # every rank, in order
+        self.group = groups[rank // mp]
+        self.ranks = lines[rank // mp]
+        device = runtime.device() if devices is None else torch.device(
+            list(devices)[0])
+        self.mp = mp
+        self.axis = axis
+        params = cast_params(params, cfg)
+        specs = fsdp_param_specs(params, mp, axis=axis)
+        me = self.group.rank()
+        self.replica_param_nbytes = 0
+        self.per_chip_param_nbytes = 0
+        # (leaf, sharded dim or None, this rank's shard) in tree order
+        leaves = []
+        for path, t in zip(tree_paths(params), tree_leaves(params)):
+            dim = _spec_dim(leaf_spec(specs, path), axis)
+            n = t.numel() * t.element_size()
+            self.replica_param_nbytes += n
+            self.per_chip_param_nbytes += n if dim is None else n // mp
+            if dim is not None:
+                size = t.shape[dim] // mp
+                t = t.narrow(dim, me * size, size)
+            leaves.append((path, dim, t.detach().to(device).clone()))
+
+        layer_names = [list(lp) for lp in params["layers"]]
+        del params          # only the shards stay resident
+
+        def gather():
+            full = {p: (t if d is None else ax._gather(t, self.group, axis, d))
+                    for p, d, t in leaves}
+            return {"embed": full["embed"], "final_norm": full["final_norm"],
+                    "layers": [{n: full[f"layers.{i}.{n}"] for n in names}
+                               for i, names in enumerate(layer_names)]}
+
+        def prepare(shape):
+            b, s = shape
+            return {"cache": init_kv_cache(cfg, b, s + max_new_tokens,
+                                           device=device)}
+
+        def fn(bufs):
+            tokens = bufs["tokens"]
+            with torch.inference_mode():
+                return batched_greedy_decode(
+                    gather(), cfg, tokens, bufs["lengths"], max_new_tokens,
+                    max_len=tokens.shape[1] + max_new_tokens,
+                    cache=bufs["cache"])
+
+        super().__init__(fn, buckets, device=device, prepare=prepare)
+        import torch.distributed as dist
+        self._wire = (torch.device("cpu")
+                      if dist.get_backend(self.group.group) == "gloo"
+                      else device)
+
+    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        t = t.to(self._wire)
+        dist.broadcast(t, self.ranks[0], group=self.group.group)
+        return t
+
+    def _header(self, flag: int, shape=(0, 0)) -> Tuple[int, int, int]:
+        h = self._bcast(torch.tensor([flag, *shape], dtype=torch.long))
+        return tuple(int(x) for x in h.cpu())
+
+    def __call__(self, tokens: Optional[np.ndarray] = None,
+                 lengths: Optional[np.ndarray] = None):
+        """The leader passes the batch, the others nothing; returns the
+        ``[B, max_new_tokens]`` ids on every rank (None on a follower
+        when the leader has closed)."""
+        if self.group.rank() == 0:
+            shape = tuple(np.shape(tokens))
+            self._check_bucket(shape)
+            self._header(1, shape)
+            t = self._bcast(torch.from_numpy(np.ascontiguousarray(
+                tokens, dtype=np.int64)))
+            n = self._bcast(torch.from_numpy(np.ascontiguousarray(
+                lengths, dtype=np.int64)))
+        else:
+            flag, b, s = self._header(0)
+            if not flag:
+                return None
+            shape = (b, s)
+            t = self._bcast(torch.empty(shape, dtype=torch.long))
+            n = self._bcast(torch.empty((b,), dtype=torch.long))
+        return self._run(shape, {"tokens": t.cpu().numpy(),
+                                 "lengths": n.cpu().numpy()})
+
+    def follow(self) -> int:
+        """A follower's loop: run each batch the leader broadcasts until
+        it closes; returns the number of batches run."""
+        n = 0
+        while self() is not None:
+            n += 1
+        return n
+
+    def close(self) -> None:
+        """The leader ends its followers' :meth:`follow`."""
+        if self.group.rank() == 0:
+            self._header(0)
+
+    def stats(self) -> Dict[str, int]:
+        out = super().stats()
+        out["mp"] = self.mp
+        out["per_chip_param_nbytes"] = self.per_chip_param_nbytes
+        out["replica_param_nbytes"] = self.replica_param_nbytes
+        return out
 
 
 class ServingWorker:

@@ -39,7 +39,10 @@ gradients complete, and the backward all-to-all has already summed the
 experts'.  Each axis reduces one flat buffer over its group, outside the
 engine.  ``zero1`` there shards the optimizer state of the leaves not
 sharded over dp by a reduce-scatter over dp, as on the dp-only path.
-``pp > 1`` raises naming ROADMAP.md A6 item 5.
+Over pp each rank holds its stage's layers and runs the GPipe loop in
+``n_microbatches`` microbatches; only the last stage's loss is real and
+a masked sum broadcasts it over pp, and the leaves every stage holds (the
+tied embedding, the final norm) have their gradients summed over pp.
 
 :func:`make_classifier_train_step` is the data-parallel step of the image
 classifiers (ResNet, MNIST): batch norm synchronized over dp through the
@@ -85,6 +88,8 @@ class TrainStep:
     transform: Any = None
     # this rank's cut of a global [B, T] batch (JAX make_data_sharding)
     shard_batch: Callable = None
+    # the FSDP steps' storage specs (fsdp_param_specs); None elsewhere
+    specs: Any = None
 
 
 def sum_scaled_(tensors, names, ps, scale: float) -> None:
@@ -191,10 +196,6 @@ def make_llama_train_step(cfg: LlamaConfig,
     c = pmesh.config
     dp, sp, tp = c.dp, c.sp, c.tp
     ep = c.ep or 1  # a dedicated ep axis multiplies the data parallelism
-    if c.pp > 1:
-        raise NotImplementedError(
-            f"pp={c.pp}: pipeline parallelism is not ported yet "
-            f"(ROADMAP.md A6 item 5, pipeline)")
     if cfg.n_experts > 0 and par.ep_axis is not None:
         ep_size = pmesh.axis_size(par.ep_axis)
         if cfg.n_experts % ep_size:
@@ -205,8 +206,11 @@ def make_llama_train_step(cfg: LlamaConfig,
         raise ValueError(
             f"n_heads={cfg.n_heads}, n_kv_heads={cfg.n_kv_heads} and "
             f"d_ff={cfg.d_ff} must all be divisible by tp={tp}")
+    if c.pp > 1 and cfg.n_layers % c.pp:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} must be divisible by pp={c.pp}")
     if overlap:
-        if (tp > 1 or sp > 1 or ep > 1 or zero1 or grad_accum > 1
+        if (tp > 1 or sp > 1 or c.pp > 1 or ep > 1 or zero1 or grad_accum > 1
                 or cfg.n_experts > 0):
             raise ValueError(
                 "overlap=True currently composes with dp-only DENSE meshes "
@@ -227,7 +231,7 @@ def make_llama_train_step(cfg: LlamaConfig,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     # model axes, or experts sharded over dp: the spec-derived step
-    model_parallel = (tp > 1 or sp > 1 or ep > 1
+    model_parallel = (tp > 1 or sp > 1 or c.pp > 1 or ep > 1
                       or par.ep_axis is not None)
     if model_parallel:
         return _model_parallel_step(cfg, pmesh, par, make_opt, zero1,
@@ -415,8 +419,7 @@ def _model_parallel_step(cfg: LlamaConfig, pmesh: ParallelMesh,
     use_zero = bool(zero1) and dp > 1
 
     def axes_of(path):
-        return {a for a in llama_mod.leaf_spec(specs, path)
-                if a is not None}
+        return llama_mod.leaf_axes(specs, path, par)
 
     def zero_leaf(path, p):
         return (use_zero and "dp" not in axes_of(path) and p.dim() > 0
@@ -444,6 +447,15 @@ def _model_parallel_step(cfg: LlamaConfig, pmesh: ParallelMesh,
             for i, chunk in zip(idx, flat.split(
                     [leaves[i].numel() for i in idx])):
                 leaves[i] = chunk.view(leaves[i].shape).to(leaves[i].dtype)
+        if par.pp_axis is not None:
+            # the leaves every stage holds: the stages' contributions sum
+            # (the loss is already the same on every stage)
+            idx = [i for i, o in enumerate(owned[:-1]) if "pp" not in o]
+            flat = torch.cat([leaves[i].reshape(-1).float() for i in idx])
+            flat = ax._all_reduce(flat, pmesh.group("pp"), "pp")
+            for i, chunk in zip(idx, flat.split(
+                    [leaves[i].numel() for i in idx])):
+                leaves[i] = chunk.view(leaves[i].shape).to(leaves[i].dtype)
         if scale != 1.0:
             leaves = [t.clone() for t in leaves]
             for t in leaves:
@@ -453,8 +465,14 @@ def _model_parallel_step(cfg: LlamaConfig, pmesh: ParallelMesh,
         return next(it), grads
 
     def local_loss(params, tokens, targets):
-        return llama_mod.loss_fn(params, tokens, targets, cfg, par,
+        loss = llama_mod.loss_fn(params, tokens, targets, cfg, par,
                                  n_microbatches)
+        if par.pp_axis is not None:
+            # only the last stage's loss is real: a masked sum over pp
+            # (identity backward, JAX's psum) gives it to every stage
+            last = pmesh.axis_index("pp") == c.pp - 1
+            loss = ax.reduce_from(loss * float(last), par.pp_axis)
+        return loss
 
     loss_and_grads = _loss_and_grads(local_loss, grad_accum)
 
@@ -501,6 +519,275 @@ def _model_parallel_step(cfg: LlamaConfig, pmesh: ParallelMesh,
     return TrainStep(step_fn=step_fn, init_fn=init_fn, opt_init=opt_init,
                      grads_fn=grads_fn, par=par, mesh=pmesh, device=device,
                      shard_batch=data_cut(pmesh, par))
+
+
+def fsdp_param_specs(param_shapes, dp: int, axis: str = "dp"):
+    """FSDP shardings (JAX ``training.fsdp_param_specs``): each leaf of
+    ``param_shapes`` (tensors, of any device, or anything with a
+    ``shape``) shards its largest dp-divisible dim over ``axis``, the
+    first such dim on a tie; a leaf with none stays replicated (``()``).
+    The specs are per dim, as ``models.llama.param_specs``'s.  JAX never
+    shards a stacked layer leaf's scan dim 0; the port's per-layer leaves
+    have no such dim, so every dim may shard and a layer leaf's dim is
+    JAX's minus 1."""
+    def spec_for(t):
+        dims = tuple(t.shape)
+        best, best_i = 0, None
+        for i, d in enumerate(dims):
+            if d % dp == 0 and d > best:
+                best, best_i = d, i
+        if best_i is None:
+            return ()
+        return tuple(axis if i == best_i else None for i in range(len(dims)))
+
+    return tree_map(spec_for, param_shapes)
+
+
+def _spec_dim(spec, axis: str):
+    """The dim ``spec`` shards over ``axis`` (None for none)."""
+    return spec.index(axis) if axis in spec else None
+
+
+def spec_all_gather(tree, specs, axis: str):
+    """The full value of every leaf whose spec names ``axis``: a tiled
+    all-gather over the axis's group of the current mesh along that dim,
+    whose backward reduce-scatters the cotangent (JAX's transpose of a
+    tiled ``all_gather``); other leaves pass through.  Run inside ``with
+    pmesh:``."""
+    from .parallel import axis as ax
+    paths = iter(tree_paths(tree))
+
+    def gather(t):
+        dim = _spec_dim(llama_mod.leaf_spec(specs, next(paths)), axis)
+        return t if dim is None else ax.all_gather_scatter(t, axis, dim)
+
+    return tree_map(gather, tree)
+
+
+def spec_shard(tree, specs, axis: str):
+    """This rank's slice of every leaf whose spec names ``axis``, along
+    that dim (views; the inverse of :func:`spec_all_gather`).  Run inside
+    ``with pmesh:``."""
+    from .parallel import axis as ax
+    n, i = ax.axis_size(axis), ax.axis_index(axis)
+    paths = iter(tree_paths(tree))
+
+    def shard(t):
+        dim = _spec_dim(llama_mod.leaf_spec(specs, next(paths)), axis)
+        if dim is None:
+            return t
+        size = t.shape[dim] // n
+        return t.narrow(dim, i * size, size)
+
+    return tree_map(shard, tree)
+
+
+def _fsdp_refuse(cfg: LlamaConfig, pmesh: ParallelMesh) -> None:
+    """The JAX package's refusals, with its messages."""
+    if cfg.n_experts > 0:
+        raise ValueError(
+            "make_llama_fsdp_step does not support MoE: expert "
+            "parallelism aliases the ep axis onto dp, so expert "
+            "weights are dp-SHARDED by routing — FSDP's dp-gathered "
+            "working copy (and any dp-averaging gradient plane) would "
+            "mix weights of DIFFERENT experts across ranks; use "
+            "make_llama_train_step for MoE")
+    for a in ("tp", "pp", "sp"):
+        if getattr(pmesh.config, a) > 1:
+            raise ValueError(
+                f"make_llama_fsdp_step does not compose with {a}>1: "
+                f"the model is sharded over the {a!r} axis, but this "
+                f"step only gathers/scatters over dp — use "
+                f"make_llama_train_step (optionally with zero1) for "
+                f"{a} meshes")
+    if (pmesh.config.ep or 1) > 1:
+        raise ValueError(
+            "make_llama_fsdp_step does not compose with a dedicated "
+            "ep axis: expert routing shards weights over ep, which "
+            "this step does not gather over — use "
+            "make_llama_train_step for MoE/ep meshes")
+
+
+def make_llama_fsdp_step(cfg: LlamaConfig,
+                         pmesh: Optional[ParallelMesh] = None,
+                         optimizer: Optional[Callable[..., Any]] = None,
+                         overlap: bool = False,
+                         device: DeviceLike = None) -> TrainStep:
+    """Fully sharded data parallelism (ZeRO-3 class; JAX
+    ``training.make_llama_fsdp_step``): the params, their gradients and
+    the optimizer state live as 1/dp shards by :func:`fsdp_param_specs`.
+
+    With ``overlap=False`` the root leaves are gathered before the model
+    and each layer's weights just in time inside its (rematerialized)
+    block, so one layer is resident unsharded at a time (a recompute
+    gathers it again); the gathers' backward reduce-scatters the
+    gradients, which are averaged over dp (a replicated leaf's by an
+    all-reduce), and the optimizer steps the shards.  With
+    ``overlap=True`` one gather makes the working copy, the model's grad
+    taps reduce-scatter each layer's buckets in the backward pass
+    (``DistributedGradientTransform(overlap=True, sharded_update=True)``,
+    its 1/dp tiles the optimizer state), and the updated copy is sliced
+    back into the shards; the working copy's storage is freed between
+    steps, its tensors kept (the taps know the leaves by identity).
+
+    ``step_fn(params, opt_state, tokens, targets)`` takes this rank's
+    shards and its rows of the batch (``shard_batch``) and returns the
+    loss averaged over dp.  The mesh, the optimizer factory and
+    ``device`` as in :func:`make_llama_train_step`; MoE, tp, pp, sp and a
+    dedicated ep raise with the JAX package's messages.
+    """
+    pmesh = resolve_mesh(pmesh, device)
+    _fsdp_refuse(cfg, pmesh)
+    device = pmesh.devices[0]
+    dp = pmesh.config.dp
+    make_opt = optimizer if optimizer is not None else default_optimizer
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    shapes = llama_mod.init_params(cfg, device="meta")
+    specs = fsdp_param_specs(shapes, dp)
+    par = ParallelSpec()
+    if overlap:
+        return _make_llama_fsdp_overlap_step(cfg, pmesh, make_opt, specs,
+                                             par, device)
+
+    def gather_layer(lp):
+        return spec_all_gather(lp, specs["layers"][0], "dp")
+
+    def loss_and_grads(params, tokens, targets):
+        leaves = tree_leaves(params)
+        with pmesh:
+            root = spec_all_gather(
+                {k: params[k] for k in ("embed", "final_norm")},
+                {k: specs[k] for k in ("embed", "final_norm")}, "dp")
+            loss = llama_mod.loss_fn(dict(params, **root), tokens, targets,
+                                     cfg, par, gather=gather_layer)
+            grads = list(torch.autograd.grad(loss, leaves))
+        return loss.detach(), grads
+
+    # the leaves no dim of which divides by dp: whole on every rank
+    rep = [i for i, p in enumerate(tree_paths(shapes))
+           if _spec_dim(llama_mod.leaf_spec(specs, p), "dp") is None]
+
+    def reduce(loss, grads):
+        """The loss and the replicated leaves' gradients summed over dp,
+        then every gradient and the loss scaled by 1/dp."""
+        from .parallel import axis as ax
+        group = pmesh.group("dp")
+        parts = [grads[i] for i in rep] + [loss.reshape(1)]
+        if group is not None:
+            flat = ax._all_reduce(torch.cat([t.reshape(-1).float()
+                                             for t in parts]), group, "dp")
+            parts = [c.view(t.shape).to(t.dtype) for c, t in zip(
+                flat.split([t.numel() for t in parts]), parts)]
+        for i, t in zip(rep, parts):
+            grads[i] = t
+        loss = parts[-1].reshape(())
+        if dp > 1:
+            grads = [g.mul_(1.0 / dp) if g.is_floating_point() else g
+                     for g in grads]
+            loss = loss / dp
+        return loss, grads
+
+    def grads_fn(params, tokens, targets):
+        loss, grads = reduce(*loss_and_grads(params, tokens, targets))
+        it = iter(grads)
+        return loss, tree_map(lambda _: next(it), params)
+
+    def step_fn(params, opt_state, tokens, targets):
+        loss, grads = reduce(*loss_and_grads(params, tokens, targets))
+        _apply(params, grads, opt_state, False)
+        return params, opt_state, loss
+
+    def opt_init(params):
+        return _make_opt(make_opt, params)
+
+    def init_fn(seed: int = 0):
+        params = _fsdp_shards(cfg, seed, pmesh, specs, device)
+        return params, opt_init(params)
+
+    return TrainStep(step_fn=step_fn, init_fn=init_fn, opt_init=opt_init,
+                     grads_fn=grads_fn, par=par, mesh=pmesh, device=device,
+                     shard_batch=data_cut(pmesh, par), specs=specs)
+
+
+def _fsdp_shards(cfg: LlamaConfig, seed: int, pmesh: ParallelMesh, specs,
+                 device: torch.device):
+    """This rank's shards of ``init_params(cfg, seed)``: new contiguous
+    tensors (the full params are dropped)."""
+    full = llama_mod.init_params(cfg, seed, device=device)
+    with pmesh:
+        return tree_map(lambda t: t.clone().contiguous(),
+                        spec_shard(full, specs, "dp"))
+
+
+def _make_llama_fsdp_overlap_step(cfg: LlamaConfig, pmesh: ParallelMesh,
+                                  make_opt, specs, par: ParallelSpec,
+                                  device: torch.device) -> TrainStep:
+    """FSDP storage with the overlapped gradient plane (see
+    :func:`make_llama_fsdp_step`)."""
+    from .parallel import axis as ax
+    ps = pmesh.process_set
+    if ps is None:
+        raise ValueError("overlap=True reduces over the runtime's "
+                         "process set: call hvd.init() first")
+    tx = DistributedGradientTransform(make_opt, op=runtime.Average,
+                                      process_set=ps, overlap=True,
+                                      sharded_update=True)
+    work = {}
+
+    def materialize(params):
+        """The working copy's tensors (made once, kept) holding the
+        gathered full values."""
+        with pmesh, torch.no_grad():
+            full = spec_all_gather(params, specs, "dp")
+        if not work:
+            work["tree"] = tree_map(lambda t: t.detach().requires_grad_(),
+                                    full)
+        else:
+            for w, f in zip(tree_leaves(work["tree"]), tree_leaves(full)):
+                w.data = f
+        return work["tree"]
+
+    def release(params):
+        """The updated working copy sliced back into the shards, its
+        storage freed."""
+        with pmesh, torch.no_grad():
+            for p, s in zip(tree_leaves(params), tree_leaves(
+                    spec_shard(work["tree"], specs, "dp"))):
+                p.copy_(s)
+        for w in tree_leaves(work["tree"]):
+            w.data = w.data.new_empty(0)
+
+    def step_fn(params, opt_state, tokens, targets):
+        full = materialize(params)
+        leaves = tree_leaves(full)
+        with overlap_mod.overlapped_backprop(tx):
+            loss = llama_mod.loss_fn(full, tokens, targets, cfg, par)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        it = iter(grads)
+        tx.update(tree_map(lambda _: next(it), full), opt_state, full)
+        release(params)
+        loss = loss.detach()
+        if pmesh.config.dp > 1:
+            loss = ax._all_reduce(loss, pmesh.group("dp"), "dp") / \
+                pmesh.config.dp
+        return params, opt_state, loss
+
+    def opt_init(params):
+        state = tx.init(materialize(params))
+        for w in tree_leaves(work["tree"]):
+            w.data = w.data.new_empty(0)
+        return state
+
+    def init_fn(seed: int = 0):
+        params = _fsdp_shards(cfg, seed, pmesh, specs, device)
+        return params, opt_init(params)
+
+    return TrainStep(step_fn=step_fn, init_fn=init_fn, opt_init=opt_init,
+                     grads_fn=None, par=par, mesh=pmesh, device=device,
+                     transform=tx, shard_batch=data_cut(pmesh, par),
+                     specs=specs)
 
 
 #: ``optax.sgd(0.1, momentum=0.9)``, the JAX classifier step's default:

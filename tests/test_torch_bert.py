@@ -269,26 +269,156 @@ def test_convert_round_trip_and_count_params():
     assert base.head_dim == 64
 
 
-@pytest.mark.parametrize("call", [
-    lambda cfg, p, t: tb.init_params(cfg, tp=2, device="cpu"),
-    lambda cfg, p, t: tb.param_specs(ParallelSpec(tp_axis="tp"), cfg),
-    lambda cfg, p, t: tb.encode(p, t, cfg, ParallelSpec(tp_axis="tp")),
-    lambda cfg, p, t: tb.loss_fn(p, t, t[:, 0], cfg,
-                                 ParallelSpec(sp_axis="sp")),
-], ids=["init_tp", "param_specs", "encode_tp", "loss_sp"])
-def test_tp_and_sp_name_their_roadmap_item(call):
+def _jax_spec(s):
+    return tuple(s)[1:] if len(tuple(s)) > 1 or tuple(s) == (None,) \
+        else tuple(s)
+
+
+@pytest.mark.parametrize("check", ["init_tp", "param_specs", "pp_ep",
+                                   "mask_sp"])
+def test_tp_sp_refusals_and_specs_match_jax(check):
+    """What the slice's refusals guard now: tp init checks divisibility
+    with JAX's message; the specs are JAX's PartitionSpecs leaf by leaf
+    with the stacked layer dim dropped; pp and ep, which BERT has no
+    layout for, raise; a mask with sp raises JAX's message."""
     cfg = torch_cfg(TINY)
-    params = tb.init_params(cfg, device="cpu")
     toks = torch.zeros(1, 32, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        call(cfg, params, toks)
+    if check == "init_tp":
+        full = tb.init_params(cfg, seed=3, device="cpu")
+        tp2 = tb.init_params(cfg, seed=3, tp=2, device="cpu")
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(full), tree_leaves(tp2)))
+        for f in (lambda: tb.init_params(cfg, tp=3, device="cpu"),
+                  lambda: jb.init_params(TINY, jax.random.PRNGKey(0), tp=3)):
+            with pytest.raises(ValueError,
+                               match=r"heads\(4\)/d_ff\(128\) must divide "
+                                     r"tp=3"):
+                f()
+    elif check == "param_specs":
+        for tp in ("tp", None):
+            jspec = jb.param_specs(jb.ParallelSpec(tp_axis=tp), TINY)
+            tspec = tb.param_specs(ParallelSpec(tp_axis=tp), cfg)
+            assert len(tspec["layers"]) == TINY.n_layers
+            for k, v in jspec.items():
+                if k == "layers":
+                    for lp in tspec["layers"]:
+                        assert sorted(lp) == sorted(v)
+                        for n, sp in v.items():
+                            assert tuple(sp)[0] is None
+                            assert lp[n] == tuple(sp)[1:], (n, lp[n], sp)
+                else:
+                    assert tspec[k] == tuple(v), k
+    elif check == "pp_ep":
+        params = tb.init_params(cfg, device="cpu")
+        for par in (ParallelSpec(pp_axis="pp"), ParallelSpec(ep_axis="ep")):
+            with pytest.raises(ValueError, match="BERT has no pipeline or "
+                                                 "expert-parallel layout"):
+                tb.encode(params, toks, cfg, par)
+    else:
+        params = tb.init_params(cfg, device="cpu")
+        msg = "attention masks require unsharded sequence"
+        with pytest.raises(ValueError, match=msg):
+            tb.encode(params, toks, cfg, ParallelSpec(sp_axis="sp"),
+                      mask=torch.ones_like(toks))
+        with pytest.raises(ValueError, match=msg):
+            jb.encode(jax_params(TINY), jnp.zeros((1, 32), jnp.int32), TINY,
+                      jb.ParallelSpec(sp_axis="sp"),
+                      mask=jnp.ones((1, 32), jnp.int32))
 
 
 # -- over rank processes ------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    return tr.Worlds(tmp_path_factory, ["bert_overlap"])
+def ranks(tmp_path_factory, bert_mp_dir):
+    import os
+    os.environ["BERT_MP_DIR"] = str(bert_mp_dir)
+    return tr.Worlds(tmp_path_factory, ["bert_overlap", "bert_mp"])
+
+
+BERT_MP_B = 2
+
+
+@pytest.fixture(scope="module")
+def bert_mp_dir(tmp_path_factory):
+    """TINY's JAX weights, a batch and the cotangents for the
+    model-parallel ranks."""
+    import json
+    d = tmp_path_factory.mktemp("bert_mp")
+    np.savez(d / "weights.npz", **_flat_stacked(jax_params(TINY)))
+    rng = np.random.RandomState(7)
+    np.savez(d / "inputs.npz",
+             toks=rng.randint(0, 64, (BERT_MP_B, 32)).astype(np.int32),
+             cot=rng.normal(size=(BERT_MP_B, 32, 64)).astype(np.float32),
+             cot_logits=rng.normal(size=(BERT_MP_B, 3)).astype(np.float32))
+    fields = {f.name: getattr(TINY, f.name)
+              for f in dataclasses.fields(TINY)
+              if f.name not in ("dtype", "param_dtype")}
+    (d / "bert_mp.json").write_text(json.dumps({"cfg": fields}))
+    return d
+
+
+def _flat_stacked(tree):
+    return {**{k: v for k, v in tree.items() if k != "layers"},
+            **{f"layers.{k}": v for k, v in tree["layers"].items()}}
+
+
+def _jax_mp_reference(d, with_logits):
+    """Single-device JAX: h, logits and the gradients of
+    sum(h · cot) (+ sum(logits · cot_logits)), by the port's paths."""
+    io = np.load(d / "inputs.npz")
+    toks = jnp.asarray(io["toks"])
+
+    def f(p):
+        h = jb.encode(p, toks, TINY, jb.ParallelSpec())
+        loss = (h * io["cot"]).sum()
+        logits = jb.classify(p, toks, TINY, jb.ParallelSpec())
+        if with_logits:
+            loss = loss + (logits * io["cot_logits"]).sum()
+        return loss, (h, logits)
+
+    (_, (h, logits)), g = jax.jit(jax.value_and_grad(f, has_aux=True))(
+        jax.tree_util.tree_map(jnp.asarray, jax_params(TINY)))
+    return np.asarray(h), np.asarray(logits), _flat_jax(g)
+
+
+MP_ATOL = 2e-4   # tests/test_bert.py's tp and sp tolerance
+
+
+@pytest.mark.parametrize("world,name", [(2, "tp2"), (2, "sp2"),
+                                        (4, "sp2_tp2")])
+def test_tp_and_sp_match_jax(ranks, bert_mp_dir, world, name):
+    """tests/test_bert.py:67 and :88 as rank processes: tp 2, sp 2 and
+    tp 2 × sp 2 against the unsharded JAX model, the outputs (the
+    sequence blocks assembled, the logits where there is no sp) and every
+    leaf's gradient (summed over sp, the tp slices assembled along the
+    dim param_specs shards), atol 2e-4."""
+    mesh = tr.BERT_MP_MESHES[world][name]
+    sp, tp = mesh.get("sp", 1), mesh.get("tp", 1)
+    res = [r["bert_mp"][name] for r in ranks[world]]
+    h, logits, grads = _jax_mp_reference(bert_mp_dir, sp == 1)
+    # rank = sp_index * tp + tp_index (tp innermost)
+    got_h = np.concatenate([res[i * tp]["h"] for i in range(sp)], axis=1)
+    np.testing.assert_allclose(got_h, h, rtol=0, atol=MP_ATOL)
+    for r in res:
+        assert r["round_trip"]
+        if sp == 1:
+            np.testing.assert_allclose(r["logits"], logits, rtol=0,
+                                       atol=MP_ATOL)
+    specs = tb.param_specs(ParallelSpec(tp_axis="tp" if tp > 1 else None),
+                           torch_cfg(TINY))
+    from horovod_tpu_torch.models.llama import leaf_spec
+    for path, want in grads.items():
+        parts = [sum(res[i * tp + j]["grads"][path] for i in range(sp))
+                 for j in range(tp)]
+        dims = [d for d, a in enumerate(leaf_spec(specs, path))
+                if a is not None]
+        got = np.concatenate(parts, axis=dims[0]) if dims else parts[0]
+        for j in range(1, tp):
+            if not dims:   # tp-replicated: the same on every tp rank
+                np.testing.assert_allclose(parts[j], parts[0], rtol=0,
+                                           atol=1e-6, err_msg=path)
+        np.testing.assert_allclose(got, want, rtol=0, atol=MP_ATOL,
+                                   err_msg=f"{name} {path}")
 
 
 @pytest.mark.parametrize("world", WORLDS)

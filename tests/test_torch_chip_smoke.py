@@ -1215,3 +1215,241 @@ def test_chip_smoke_parity_moe_route_on_the_cpu(monkeypatch, capsys):
     assert row["agreeing"] == row["tokens"] == 512
     assert row["capacity"] == 160
     assert all(a == b for a, b in row["norms"].values())
+
+
+# -- the pipeline, BERT's tp x sp, FSDP and mp serving ------------------------
+
+def test_pp_launch_schedule():
+    """A stage of 8 layers, the last 2 not rematerialized, on 4 live
+    microbatches: the forward 4 x 14 times, dq and dkv 4 x 8."""
+    assert chip_smoke.pp_launches(8, 4, 2) == {"fwd": 56, "dq": 32,
+                                               "dkv": 32}
+    assert chip_smoke.pp_launches(1, 4, 2) == {"fwd": 4, "dq": 4, "dkv": 4}
+
+
+def _pp_result(**over):
+    want = chip_smoke.pp_launches(8, chip_smoke.PP_MICRO, 2)
+    res = {"layers_per_stage": 8, "remat_skip_layers": 2,
+           "losses_by_rank": [[10.9, 9.9001, 8.9002, 7.9]] * 2,
+           "launches_per_step_by_rank": [[want] * 3] * 2}
+    res.update(over)
+    return res
+
+
+def test_pp_gates_pass_and_fail():
+    ref = [10.9, 9.9, 8.9, 7.9]
+    assert chip_smoke.pp_problems(_pp_result(), ref) == []
+    res = _pp_result(losses_by_rank=[[10.9, 9.9001, 8.9002, 7.9],
+                                     [10.9, 9.9001, 8.9002, 7.90001]])
+    assert any("differ" in b for b in chip_smoke.pp_problems(res, ref))
+    res = _pp_result(losses_by_rank=[[10.91, 9.9, 8.9, 7.9]] * 2)
+    assert any("gaps" in b for b in chip_smoke.pp_problems(res, ref))
+    res = _pp_result(losses_by_rank=[[10.9, 9.9, 8.9, 11.0]] * 2)
+    assert any("fall" in b for b in chip_smoke.pp_problems(res, ref))
+    bad = {"fwd": 64, "dq": 32, "dkv": 32}     # fill and drain computed
+    res = _pp_result(launches_per_step_by_rank=[
+        [bad] * 3, _pp_result()["launches_per_step_by_rank"][1]])
+    assert any("stage 0" in b for b in chip_smoke.pp_problems(res, ref))
+
+
+def _bert_mp_result(**over):
+    want = chip_smoke.bert_mp_launches(12, 2, True)
+    grads = {
+        # a v weight near fp32 on both sides: within 2e-2 of its norm
+        "layers.0.wv": {"norm_fp32": 6.0, "err_fp32": 0.01,
+                        "err_fp32_world1": 0.004},
+        # a deep q weight whose bf16 gradient is noise on both sides
+        "layers.11.wq": {"norm_fp32": 0.01, "err_fp32": 0.012,
+                         "err_fp32_world1": 0.01},
+        # a key bias: exactly 0 in fp32, rounding residue in bf16
+        "layers.0.bk": {"norm_fp32": 1e-9, "err_fp32": 1e-4,
+                        "err_fp32_world1": 2e-4}}
+    res = {"layers": 12, "loss": -0.0889, "loss_world1": -0.0895,
+           "loss_fp32": -0.0892, "grads": grads,
+           "launches_by_rank": [want] * 4}
+    res.update(over)
+    return res
+
+
+def test_bert_mp_gates_pass_and_fail():
+    assert chip_smoke.bert_mp_launches(12, 2, True) == {
+        "fwd": 48, "dq": 24, "dkv": 24}
+    assert chip_smoke.bert_mp_problems(_bert_mp_result()) == []
+    res = _bert_mp_result(loss=-0.0850)
+    assert any("loss" in b for b in chip_smoke.bert_mp_problems(res))
+    res = _bert_mp_result()
+    res["grads"]["layers.0.wv"]["err_fp32"] = 0.2
+    assert any("layers.0.wv" in b for b in chip_smoke.bert_mp_problems(res))
+    res = _bert_mp_result()
+    res["grads"]["layers.11.wq"]["err_fp32"] = 0.03
+    assert any("layers.11.wq" in b
+               for b in chip_smoke.bert_mp_problems(res))
+    res = _bert_mp_result()
+    res["grads"]["layers.0.bk"]["err_fp32"] = 1e-3
+    assert any("bk" in b for b in chip_smoke.bert_mp_problems(res))
+    res = _bert_mp_result(launches_by_rank=[{"fwd": 24, "dq": 12,
+                                             "dkv": 12}] * 4)
+    assert any("launches" in b for b in chip_smoke.bert_mp_problems(res))
+
+
+def _fsdp_result(**over):
+    run = {"losses_by_rank": [[10.9, 9.9004, 8.9]] * 2,
+           "launches_per_step_by_rank": [
+               [chip_smoke.EXPECTED_FSDP_LAUNCHES] * 3] * 2,
+           "param_bytes_by_rank": [1000, 1000],
+           "state_bytes_by_rank": [1000, 1000],
+           "tile_bytes_by_rank": [0, 0]}
+    ov = dict(run, state_bytes_by_rank=[1002, 1002],
+              tile_bytes_by_rank=[1002, 1002])
+    res = {"variants": {"plain": run, "overlap": ov},
+           "losses_world1": [10.9, 9.9, 8.9], "param_bytes_expected": 1000,
+           "replica_bytes": 1990, "replica_state_bytes": 1990}
+    res.update(over)
+    return res
+
+
+def test_fsdp_gates_pass_and_fail():
+    assert chip_smoke.fsdp_problems(_fsdp_result()) == []
+    res = _fsdp_result()
+    res["variants"]["plain"]["param_bytes_by_rank"] = [1000, 1004]
+    assert any("parameter bytes" in b for b in chip_smoke.fsdp_problems(res))
+    res = _fsdp_result()
+    res["variants"]["overlap"]["state_bytes_by_rank"] = [2004, 2004]
+    assert any("optimizer state" in b for b in chip_smoke.fsdp_problems(res))
+    res = _fsdp_result(replica_bytes=1000, replica_state_bytes=1000)
+    assert any("replica" in b for b in chip_smoke.fsdp_problems(res))
+    res = _fsdp_result()
+    res["variants"]["overlap"]["losses_by_rank"] = [[10.9, 9.95, 8.9]] * 2
+    assert any("gaps" in b for b in chip_smoke.fsdp_problems(res))
+    res = _fsdp_result()
+    res["variants"]["plain"]["launches_per_step_by_rank"] = [
+        [{"fwd": 4, "dq": 4, "dkv": 4}] * 3] * 2
+    assert any("launches" in b for b in chip_smoke.fsdp_problems(res))
+
+
+def _serve_mp_result(**over):
+    res = {"requests": 8, "batches": [1, 1, 1, 1, 4],
+           "equal_world1": [True] * 5, "ranks_agree": True,
+           "stats": {"per_chip_param_nbytes": 600,
+                     "replica_param_nbytes": 1000, "recompiles": 0},
+           "per_chip_expected": 600}
+    res.update(over)
+    return res
+
+
+def test_serve_mp_gates_pass_and_fail():
+    assert chip_smoke.serve_mp_problems(_serve_mp_result()) == []
+    for over, word in (({"requests": 4, "batches": [4]}, "requests"),
+                       ({"equal_world1": [True] * 4 + [False]}, "differ"),
+                       ({"ranks_agree": False}, "ranks"),
+                       ({"per_chip_expected": 500}, "per-chip"),
+                       ({"stats": {"per_chip_param_nbytes": 600,
+                                   "replica_param_nbytes": 1000,
+                                   "recompiles": 1}}, "recompiles")):
+        bad = chip_smoke.serve_mp_problems(_serve_mp_result(**over))
+        assert any(word in b for b in bad), (over, bad)
+
+
+def test_kernel_cases_hold_the_new_paths_shapes():
+    """bert_tp2_sp2's ring tile (B 16, 512 / sp tokens, 12 / tp heads of
+    64, non-causal) and train_fsdp_dp2's attention (FSDP_BATCH sequences
+    at the 1B widths, causal), both in the summary's cases."""
+    from horovod_tpu_torch.models import bert, llama
+    b = chip_smoke.bert_config(bert)
+    B, T = chip_smoke.BERT_MP_BATCH
+    sp, tp = chip_smoke.BERT_MP_MESH["sp"], chip_smoke.BERT_MP_MESH["tp"]
+    cases = dict(chip_smoke.KERNEL_CASES)
+    assert T == b.max_seq_len
+    assert cases["lse_bert"] == (B, T // sp, b.n_heads // tp,
+                                 b.n_heads // tp, b.head_dim, False)
+    c = chip_smoke.bench_config(llama)
+    assert cases["fsdp"] == (chip_smoke.FSDP_BATCH, c.max_seq_len,
+                             c.n_heads, c.n_kv_heads, c.head_dim, True)
+    assert {"lse_bert", "fsdp"} <= set(chip_smoke.MP_CASES)
+
+
+_A6_REHEARSAL = '''
+import dataclasses
+import sys
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+from horovod_tpu_torch.ops import flash_attention as fa
+_bench = chip_smoke.bench_config
+chip_smoke.bench_config = lambda llama, **over: dataclasses.replace(
+    _bench(llama, **over), vocab_size=512, d_model=128, n_heads=2,
+    n_kv_heads=1, d_ff=256, max_seq_len=128)
+_bert = chip_smoke.bert_config
+chip_smoke.bert_config = lambda bert, **over: dataclasses.replace(
+    _bert(bert, **over), vocab_size=256, d_model=128, n_heads=2, d_ff=256,
+    n_layers=2, max_seq_len=128)
+chip_smoke.BERT_MP_BATCH = (2, 128)
+for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+    setattr(torch.cuda, name, lambda *a, **k: None)
+torch.cuda.max_memory_allocated = lambda *a, **k: 0
+# the plain versions' calls stand for the kernels' launches
+for kernel, name in (("fwd", "_flash_fwd_bhtd"), ("dq", "_dq"),
+                     ("dkv", "_dkv")):
+    def counted(*a, _f=getattr(fa, name), _k=kernel, **k):
+        fa.LAUNCHES[_k] += 1
+        return _f(*a, **k)
+    setattr(fa, name, counted)
+child = {{"--pp-rank": chip_smoke.pp_child,
+          "--bert-mp-rank": chip_smoke.bert_mp_child,
+          "--fsdp-rank": chip_smoke.fsdp_child,
+          "--serve-mp-rank": chip_smoke.serve_mp_child}}[sys.argv[1]]
+sys.exit(child(int(sys.argv[2]), torch.device("cpu")))
+'''
+
+
+def _rehearsal_ref_losses():
+    """train's losses at the rehearsal's widths: one process, the same
+    config, seed and batch, 1 + 3 steps."""
+    import dataclasses
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    cfg = dataclasses.replace(
+        chip_smoke.bench_config(llama), vocab_size=512, d_model=128,
+        n_heads=2, n_kv_heads=1, d_ff=256, max_seq_len=128)
+    ts = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
+                                        device="cpu")
+    params, opt = ts.init_fn(0)
+    rng = np.random.RandomState(0)
+    toks, tgts = (torch.as_tensor(rng.randint(0, 512, (8, 128)))
+                  for _ in range(2))
+    out = []
+    for _ in range(4):
+        params, opt, loss = ts.step_fn(params, opt, toks, tgts)
+        out.append(loss.item())
+    return out
+
+
+def test_chip_smoke_a6_phases_on_the_cpu(tmp_path, capsys, monkeypatch):
+    """train_pp2 (two stages against one process), bert_tp2_sp2 (four
+    ranks, then one process), train_fsdp_dp2 (two ranks without and with
+    overlap, then one process) and serve_mp2 (two ranks, then one
+    process's decode), whole, at small widths on the CPU, through every
+    gate of the phases."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # four ranks on few cores
+    wrapper = tmp_path / "ranks.py"
+    wrapper.write_text(_A6_REHEARSAL.format(
+        root=str(pathlib.Path(__file__).resolve().parents[1])))
+    pp = chip_smoke.train_pp2_phase(_rehearsal_ref_losses(), script=wrapper)
+    monkeypatch.setattr(chip_smoke, "BERT_MP_BATCH", (2, 128))
+    bert = chip_smoke.bert_tp2_sp2_phase(script=wrapper)
+    fsdp = chip_smoke.train_fsdp_dp2_phase(script=wrapper)
+    serve = chip_smoke.serve_mp2_phase(script=wrapper)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [x["phase"] for x in lines] == ["train_pp2", "bert_tp2_sp2",
+                                           "train_fsdp_dp2", "serve_mp2"]
+    assert pp["layers_per_stage"] == 8
+    assert all(b["pp.ppermute"] > 0 and b["pp.all_reduce"] > 0
+               for b in pp["host_bytes_per_step_by_rank"])
+    assert bert["launches_by_rank"] == [
+        chip_smoke.bert_mp_launches(2, 2, True)] * 4
+    run = fsdp["variants"]["plain"]
+    assert all(b["dp.all_gather"] > 0 and b["dp.psum_scatter"] > 0
+               for b in run["bytes_per_step_by_rank"])
+    assert serve["requests"] == 8 and all(serve["equal_world1"])

@@ -61,6 +61,10 @@ def test_importing_every_module_loads_no_jax():
     for m in ("parallel.mesh", "parallel.axis", "parallel.ring_attention",
               "parallel.ulysses", "models.moe"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # the pipeline; BERT's tp and sp, FSDP and model-parallel serving
+    # live in modules listed above
+    for m in ("parallel.pipeline",):
+        assert f"horovod_tpu_torch.{m}" in mods
     # checkpointless recovery, hvd.run and the executor, the parquet reader
     for m in ("elastic.recovery", "runner.api", "runner.run_task",
               "runner.executor", "runner.executor_task", "data.parquet",

@@ -184,16 +184,19 @@ def test_convert_round_trip_and_count_params():
     ({}, tl.ParallelSpec(pp_axis="pp")),
 ])
 def test_unported_options_name_their_roadmap_item(over, par):
-    """Only pipeline parallelism is still unported, and names its item.
-    MoE runs on one device; a tp or sp axis needs its mesh's context
-    (tests/test_torch_llama_parallel.py runs them over rank processes)."""
+    """Every option is ported: MoE runs on one device; a tp, sp or pp
+    axis needs its mesh's context (tests/test_torch_llama_parallel.py
+    runs them over rank processes), and a pp axis first needs
+    n_microbatches, with JAX's message."""
     cfg = dataclasses.replace(torch_cfg(TINY), **over)
     params = tl.init_params(cfg, device="cpu")
     toks = torch.zeros(1, 64, dtype=torch.long)
     if par.pp_axis is not None:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md A6 item 5, pipeline"):
+        with pytest.raises(ValueError, match="pipeline parallelism needs "
+                                             "n_microbatches > 0"):
             tl.loss_fn(params, toks, toks, cfg, par)
+        with pytest.raises(ValueError, match="ParallelMesh context"):
+            tl.loss_fn(params, toks, toks, cfg, par, n_microbatches=1)
     elif par.tp_axis or par.sp_axis:
         with pytest.raises(ValueError, match="ParallelMesh context"):
             tl.loss_fn(params, toks, toks, cfg, par)

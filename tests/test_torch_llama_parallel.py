@@ -1,6 +1,7 @@
 """The slice as a whole: the port's model-parallel Llama step over tp, sp
-(ring and Ulysses), vocab parallelism and experts, against the JAX
-package's step at the same MeshConfig and its one-device baseline.
+(ring and Ulysses), vocab parallelism, experts and the pipeline (pp),
+against the JAX package's step at the same MeshConfig and its one-device
+baseline.
 
 Rank processes (tests/torch_ranks.py ``llama_mp``, gloo on the CPU) run
 ``make_llama_train_step`` over ``ParallelMesh(MeshConfig(...))`` for 3
@@ -18,9 +19,13 @@ dense and vocab-parallel meshes, against the one-device baseline and
 against JAX at the same mesh; the MoE meshes track the baseline within
 5e-2 (per-shard capacity drops other tokens than one shard does) and
 match JAX at the same mesh within 1e-4 (the same shards drop the same
-tokens).  Every rank's losses are the same bits, and gathering a rank's
-slices (``convert.llama_gather_params``) gives the full weights back bit
-for bit.
+tokens).  The pipeline runs tests/test_llama.py's pp meshes at world 4
+(``dp2_pp2``, ``pp2_tp2``), pp 2 and pp 4 (a 4-layer model), and MoE
+through the pipeline; with aux_loss_coef 1 the first loss does not scale
+with n_microbatches (within tests/test_llama.py's 0.15).  Every rank's
+losses are the same bits, and gathering a rank's slices
+(``convert.llama_gather_params``) gives the full weights back bit for
+bit.
 """
 
 import dataclasses
@@ -80,6 +85,35 @@ CONFIGS["moe_dp2_tp2"] = (MOE, {"dp": 2, "tp": 2}, {}, "sgd")
 CONFIGS["moe_dp2_ep2"] = (MOE, {"dp": 2, "ep": 2}, {}, "sgd")
 CONFIGS["moe_zero1_dp2_tp2"] = (MOE, {"dp": 2, "tp": 2}, {"zero1": True},
                                 "sgd")
+DEEP = dataclasses.replace(CFG, n_layers=4)
+MOE_AUX1 = dataclasses.replace(MOE, aux_loss_coef=1.0)
+for _opt in ("adamw", "sgd"):
+    CONFIGS[f"dp2_pp2_{_opt}"] = (CFG, {"dp": 2, "pp": 2},
+                                  {"n_microbatches": 2}, _opt)
+    CONFIGS[f"pp2_tp2_{_opt}"] = (CFG, {"pp": 2, "tp": 2},
+                                  {"n_microbatches": 4}, _opt)
+CONFIGS["pp2_sgd"] = (CFG, {"pp": 2}, {"n_microbatches": 4}, "sgd")
+CONFIGS["pp4_sgd"] = (DEEP, {"pp": 4}, {"n_microbatches": 2}, "sgd")
+CONFIGS["remat_pp2_tp2"] = (
+    dataclasses.replace(DEEP, remat_policy="full", remat_skip_layers=1),
+    {"pp": 2, "tp": 2}, {"n_microbatches": 2}, "sgd")
+CONFIGS["moe_dp2_pp2"] = (MOE, {"dp": 2, "pp": 2}, {"n_microbatches": 2},
+                          "sgd")
+CONFIGS["moe_aux1_pp2_mb2"] = (MOE_AUX1, {"pp": 2}, {"n_microbatches": 2},
+                               "sgd")
+CONFIGS["moe_aux1_pp2_mb4"] = (MOE_AUX1, {"pp": 2}, {"n_microbatches": 4},
+                               "sgd")
+#: tests/test_llama.py holds these to each other (the aux invariance
+#: test), not to the one-device baseline: with coefficient 1 the
+#: per-microbatch load balance is another loss than the whole batch's
+NO_BASELINE = {"moe_aux1_pp2_mb2", "moe_aux1_pp2_mb4"}
+#: the weights each configuration starts from
+WEIGHTS = {"dense": CFG, "moe": MOE, "deep": DEEP}
+
+
+def _weights_key(jcfg):
+    return ("moe" if jcfg.n_experts else
+            "deep" if jcfg.n_layers == DEEP.n_layers else "dense")
 
 
 def _fields(jcfg):
@@ -117,15 +151,14 @@ def port(tmp_path_factory):
     """Each configuration's losses and round trip, per rank."""
     d = tmp_path_factory.mktemp("llama_mp")
     specs = {}
-    for key, jcfg in (("dense", CFG), ("moe", MOE)):
+    for key, jcfg in WEIGHTS.items():
         w = _weights(jcfg)
         flat = {"embed": w["embed"], "final_norm": w["final_norm"],
                 **{f"layers.{k}": v for k, v in w["layers"].items()}}
         np.savez(d / f"{key}.npz", **flat)
     for name, (jcfg, mesh, kw, opt) in CONFIGS.items():
         specs[name] = {"cfg": _fields(jcfg), "mesh": mesh, "step_kw": kw,
-                       "opt": opt,
-                       "weights": "moe" if jcfg.n_experts else "dense"}
+                       "opt": opt, "weights": _weights_key(jcfg)}
     (d / "llama_mp.json").write_text(json.dumps(specs))
     np.savez(d / "batch.npz", toks=TOKS, tgts=TGTS)
     env = {"LLAMA_MP_DIR": str(d)}
@@ -141,11 +174,18 @@ def port(tmp_path_factory):
     return out
 
 
+class _Baselines(dict):
+    """The one-device JAX losses of a (config, optimizer), run on first
+    use."""
+
+    def __missing__(self, key):
+        self[key] = jax_run(key[0], {}, {}, key[1])
+        return self[key]
+
+
 @pytest.fixture(scope="module")
 def baselines():
-    return {(key, opt): jax_run(jcfg, {}, {}, opt)
-            for key, jcfg in (("dense", CFG), ("moe", MOE))
-            for opt in ("adamw", "sgd") if key == "dense" or opt == "sgd"}
+    return _Baselines()
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -157,21 +197,30 @@ def test_parallel_step_matches_jax(port, baselines, name):
         assert r["losses"] == losses, (name, [x["losses"] for x in ranks])
         assert r["round_trip"], name
     moe = jcfg.n_experts > 0
-    base = baselines[("moe" if moe else "dense", opt)]
-    np.testing.assert_allclose(losses, base, rtol=0,
-                               atol=MOE_ATOL if moe else ATOL,
-                               err_msg=f"{name} vs the one-device baseline")
+    if name not in NO_BASELINE:
+        np.testing.assert_allclose(
+            losses, baselines[(jcfg, opt)], rtol=0,
+            atol=MOE_ATOL if moe else ATOL,
+            err_msg=f"{name} vs the one-device baseline")
     same = jax_run(jcfg, mesh, kw, opt)
     np.testing.assert_allclose(losses, same, rtol=0, atol=ATOL,
                                err_msg=f"{name} vs JAX at {mesh}")
 
 
 def test_step_refuses_pipeline_and_overlap_as_jax(port):
-    """A pp axis names its ROADMAP item on every rank; overlap refuses
-    MoE with the JAX package's message, as it refuses model axes."""
+    """A pp mesh refuses a layer count it does not divide and a missing
+    n_microbatches with the JAX package's messages, on every rank;
+    overlap refuses MoE with the JAX package's message, as it refuses
+    model axes."""
     for world in (2, 4):
         for err in port[f"pp_error_{world}"]:
-            assert "ROADMAP.md A6 item 5, pipeline" in err
+            assert err == ["n_layers=3 must be divisible by pp=2",
+                           "pipeline parallelism needs n_microbatches > 0"]
+    with pytest.raises(ValueError, match="n_layers=3 must be divisible by "
+                                         "pp=2"):
+        jtraining.make_llama_train_step(
+            dataclasses.replace(CFG, n_layers=3),
+            JParallelMesh(JMeshConfig(pp=2), devices=jax.devices()[:2]))
     from horovod_tpu_torch import training
     with pytest.raises(ValueError, match="overlap=True currently composes "
                                          "with dp-only DENSE meshes"):
@@ -184,8 +233,17 @@ def test_step_refuses_pipeline_and_overlap_as_jax(port):
                                devices=jax.devices()[:2]), overlap=True)
 
 
+def test_moe_pipeline_aux_invariant_to_microbatch_count(port):
+    """tests/test_llama.py's regression: with aux_loss_coef 1 the first
+    loss of a MoE pipeline may not scale with n_microbatches (the aux is
+    a mean over microbatches, not a sum)."""
+    l2 = port["moe_aux1_pp2_mb2"][0]["losses"][0]
+    l4 = port["moe_aux1_pp2_mb4"][0]["losses"][0]
+    assert abs(l2 - l4) < 0.15, (l2, l4)
+
+
 def test_baselines_fall_and_meshes_cut_the_batch(port, baselines):
-    assert baselines[("dense", "sgd")][-1] < baselines[("dense", "sgd")][0]
+    assert baselines[(CFG, "sgd")][-1] < baselines[(CFG, "sgd")][0]
     # [B/(dp·ep), T/sp] of the global [8, 32] batch on every rank
     for name, (_, mesh, _, _) in CONFIGS.items():
         rows = mesh.get("dp", 1) * mesh.get("ep", 1)
@@ -197,23 +255,32 @@ def test_baselines_fall_and_meshes_cut_the_batch(port, baselines):
 @pytest.mark.parametrize("vp", [False, True])
 def test_param_specs_match_jax(moe, vp):
     """Leaf by leaf, the port's spec is JAX's PartitionSpec with the
-    stacked layer dim dropped, for tp and the experts over ep."""
+    stacked layer dim dropped, for tp and the experts over ep; JAX's pp
+    entry on that dim is the port's cut of the layer list
+    (``leaf_axes``)."""
     jcfg = dataclasses.replace(MOE if moe else CFG, vocab_parallel=vp)
     for par in (jl.ParallelSpec(tp_axis="tp", ep_axis="dp"),
                 jl.ParallelSpec(tp_axis="tp", ep_axis="ep"),
+                jl.ParallelSpec(tp_axis="tp", pp_axis="pp"),
+                jl.ParallelSpec(pp_axis="pp", ep_axis="dp"),
                 jl.ParallelSpec()):
         jspec = jl.param_specs(par, jcfg)
-        tspec = tl.param_specs(tl.ParallelSpec(tp_axis=par.tp_axis,
-                                               ep_axis=par.ep_axis),
-                               _port_cfg(jcfg))
+        tpar = tl.ParallelSpec(tp_axis=par.tp_axis, ep_axis=par.ep_axis,
+                               pp_axis=par.pp_axis)
+        tspec = tl.param_specs(tpar, _port_cfg(jcfg))
         assert tspec["embed"] == tuple(jspec["embed"])
         assert tspec["final_norm"] == tuple(jspec["final_norm"])
         assert len(tspec["layers"]) == jcfg.n_layers
-        for lp in tspec["layers"]:
+        for name in ("embed", "final_norm"):
+            assert tl.leaf_axes(tspec, name, tpar) == {
+                a for a in tuple(jspec[name]) if a is not None}
+        for i, lp in enumerate(tspec["layers"]):
             assert sorted(lp) == sorted(jspec["layers"])
             for n, s in jspec["layers"].items():
-                assert tuple(s)[0] is None          # pp off: not stacked
+                assert tuple(s)[0] == par.pp_axis   # the stacked dim
                 assert lp[n] == tuple(s)[1:], (n, lp[n], s)
+                assert tl.leaf_axes(tspec, f"layers.{i}.{n}", tpar) == {
+                    a for a in tuple(s) if a is not None}
 
 
 def _port_cfg(jcfg):

@@ -6,7 +6,9 @@ releases runs through both packages' allocators side by side.  The
 ``PagedDecodeForward`` cases run the port's paged serving forward at
 ``llama.tiny()`` (fp32) against its dense one and against the JAX
 package's, token for token.  Model-parallel serving
-(``test_paging.py:207``) is not ported (ROADMAP.md A6).
+(``test_paging.py:207``) runs as rank processes (tests/torch_ranks.py
+``mp_serve``) at worlds 2 and 4, bit for bit with the JAX package's
+dense and model-parallel decode, its per-chip bytes exactly JAX's.
 """
 
 import time
@@ -272,14 +274,109 @@ def test_paged_forward_sizing_guard_rejects_undersized_pool(params):
         paged_llama_decode_forward(params, TCFG, 60, b)
 
 
-def test_mp_serving_is_not_ported(params):
+def test_mp_serving_refusals_match_jax(params):
+    """What the refusals guard now: mp below 2 raises JAX's message, and
+    a seq bucket plus the new tokens beyond max_seq_len raises before
+    any rank is asked; without hvd.init() there is one rank."""
+    from horovod_tpu.serving.models import mp_llama_decode_forward as jmp
     from horovod_tpu_torch.serving.models import mp_llama_decode_forward
     from horovod_tpu_torch.serving.worker import MeshSlicedForward
     b = ShapeBuckets(batch_buckets=(1,), seq_buckets=(8,))
-    for call in (lambda: mp_llama_decode_forward(params, TCFG, 4, b),
-                 lambda: MeshSlicedForward(params, TCFG, 4, b)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            call()
+    with pytest.raises(ValueError) as je:
+        jmp(jax_params(JCFG, seed=3), JCFG, 4,
+            JShapeBuckets(batch_buckets=(1,), seq_buckets=(8,)), mp=1)
+    with pytest.raises(ValueError) as te:
+        MeshSlicedForward(params, TCFG, 4, b, mp=1)
+    assert str(te.value) == str(je.value)
+    with pytest.raises(ValueError, match="max_seq_len"):
+        mp_llama_decode_forward(params, TCFG, 60, b)
+    with pytest.raises(ValueError, match="mp=2 needs 2 ranks"):
+        mp_llama_decode_forward(params, TCFG, 4, b)
+
+
+# -- model-parallel serving over rank processes -------------------------------
+
+@pytest.fixture(scope="module")
+def mp_ranks(tmp_path_factory, np_params):
+    import os
+    import torch_ranks
+    d = tmp_path_factory.mktemp("mp_serve")
+    np.savez(d / "params.npz", embed=np_params["embed"],
+             final_norm=np_params["final_norm"],
+             **{f"layers.{k}": v for k, v in np_params["layers"].items()})
+    tokens, lengths = _mp_batch()
+    np.savez(d / "inputs.npz", tokens=tokens, lengths=lengths)
+    os.environ["MP_SERVE_DIR"] = str(d)
+    return torch_ranks.Worlds(tmp_path_factory, ["mp_serve"])
+
+
+def _mp_batch():
+    """tests/test_paging.py:207's two ragged rows."""
+    rng = np.random.RandomState(31)
+    tokens = np.zeros((2, 8), np.int32)
+    lens = [5, 8]
+    for i, L in enumerate(lens):
+        tokens[i, :L] = rng.randint(0, 64, (L,))
+    return tokens, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mp_forward_parity_and_per_chip_bytes(mp_ranks, np_params, world):
+    """tests/test_paging.py:207 over rank processes: the weights sharded
+    mp ways and gathered inside each call give JAX's dense and
+    model-parallel decode bit for bit, on every rank of the slice, and
+    the per-chip bytes are JAX's pricing exactly."""
+    import torch_ranks
+    from horovod_tpu.serving.models import (llama_decode_forward as jdense,
+                                            mp_llama_decode_forward as jmp)
+    from horovod_tpu.training import fsdp_param_specs
+    jb = JShapeBuckets(batch_buckets=(1, 2), seq_buckets=(8,))
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
+    tokens, lengths = _mp_batch()
+    dense = jdense(jparams, JCFG, 4, jb)
+    want_two = np.asarray(dense(tokens, lengths))
+    want_one = np.asarray(dense(tokens[1:], lengths[1:]))
+    np.testing.assert_array_equal(
+        np.asarray(jmp(jparams, JCFG, 4, jb, mp=2)(tokens, lengths)),
+        want_two)
+    shapes = jax.eval_shape(lambda: jparams)
+    for mp in torch_ranks.MP_SERVE_DEGREES[world]:
+        specs = fsdp_param_specs(shapes, mp, axis="hvd_serve_mp")
+        exp = 0
+        for sh, spec in zip(jax.tree_util.tree_leaves(shapes),
+                            jax.tree_util.tree_leaves(
+                                specs, is_leaf=lambda x: hasattr(x,
+                                                                 "index"))):
+            n = sh.size * sh.dtype.itemsize
+            exp += n // mp if any(a is not None for a in spec) else n
+        for rank, r in enumerate(mp_ranks[world]):
+            res = r["mp_serve"][f"mp{mp}"]
+            assert res["ranks"] == list(range(rank - rank % mp,
+                                              rank - rank % mp + mp))
+            np.testing.assert_array_equal(res["two"], want_two)
+            np.testing.assert_array_equal(res["one"], want_one)
+            st = res["stats"]
+            assert st["mp"] == mp
+            assert st["per_chip_param_nbytes"] == exp
+            assert st["per_chip_param_nbytes"] < st["replica_param_nbytes"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mp_forward_serves_through_the_plane(mp_ranks, world):
+    """The slice's leader answers the plane's requests through a
+    ServingWorker (warm-up included) while the other ranks follow: each
+    answer is the row's dense decode, and nothing is prepared twice."""
+    runs = [r["mp_serve"]["plane"] for r in mp_ranks[world]]
+    want = mp_ranks[world][0]["mp_serve"][f"mp{world}"]
+    for i in range(3):
+        got = runs[0]["answers"][f"r{i}"]
+        assert got is not None
+        row = i % 2
+        np.testing.assert_array_equal(np.asarray(got),
+                                      want["two"][row])
+    assert runs[0]["recompiles"] == 0
+    for r in runs[1:]:
+        assert r["followed"] >= 2     # the warm-up's buckets, then batches
 
 
 # -- the plane's KV ride-along ------------------------------------------------

@@ -2,7 +2,10 @@
 
 ``compression.py``: the format table, ``quantize_blocks`` and
 ``dequantize_blocks`` on the same numpy inputs in both packages, held bit
-for bit (payload bytes, scale bits, dequantized bits) for int8, fp8 e4m3
+for bit (payload bytes, scale bits, dequantized bits) against JAX's
+functions compiled by ``jax.jit``, as every JAX collective runs them (XLA
+turns the scale's ``amax / qmax`` into a multiply by the reciprocal, which
+an eager call does not), for int8, fp8 e4m3
 and fp8 e5m2, on fp32 and bf16 inputs over many decades, with subnormals,
 saturating values, round-half-to-even ties, all-zero blocks and ragged
 (zero-padded) buffers.
@@ -14,7 +17,8 @@ gloo (tests/torch_ranks.py ``case_wire``), against the JAX package's
 on as many virtual CPU devices, per rank.  Tolerance: the payloads and scales
 agree bit for bit (the quantizer test); XLA fuses the dequantizing
 multiply into the following add or subtract where PyTorch rounds the
-product first, so the residuals agree within four fp32 roundings of their
+product first; the port fuses them too (``compression.fma``), and the
+residuals are held within four fp32 roundings of their
 block's absmax, the scattered tile within 1e-6 relative, and the sum and
 average, which requantize that tile, within that plus one quantization
 step (``_close``).  The same launch runs an eager
@@ -73,14 +77,14 @@ def test_quantize_blocks_bit_exact_against_jax(name, block, dtype):
     jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16"
                                else jnp.float32)
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    jq, js = jc.quantize_blocks(jx, jf)
+    jq, js = jax.jit(lambda v: jc.quantize_blocks(v, jf))(jx)
     tq, ts = tc.quantize_blocks(tx, tf)
     assert tq.dtype == tf.wire_dtype and ts.dtype == torch.float32
     np.testing.assert_array_equal(tq.view(torch.uint8).numpy(), _bits(jq))
     np.testing.assert_array_equal(_bits(ts.numpy()), _bits(js))
     np.testing.assert_array_equal(
         _bits(tc.dequantize_blocks(tq, ts, tf).numpy()),
-        _bits(jc.dequantize_blocks(jq, js, jf)))
+        _bits(jax.jit(lambda q, sc: jc.dequantize_blocks(q, sc, jf))(jq, js)))
     # all-zero blocks: scale 1, exact round trip
     zero = slice(-(-300 // block) * block, -(-300 // block) * block + block)
     assert (ts.numpy()[zero.start // block] == 1.0)
@@ -108,6 +112,58 @@ def test_format_table_matches_jax():
             str(dt).removeprefix("torch."))
     for dt in (torch.float64, torch.int32, torch.int8):
         assert not tc.quantizable(dt)
+
+
+def test_scale_and_code_of_a_reciprocal_tie_match_compiled_jax():
+    """The first input where the port parted from the JAX package at
+    world 4 on the int8 wire: a block whose scale ``amax / 127`` and
+    ``amax * (1 / 127)`` differ in the last place, with an element that
+    lands on a half step under one and just below it under the other.
+    XLA compiles the division into the multiply, so the code is 2 (1.5
+    rounded to even), where an fp32 division gives 1."""
+    jf = jc.resolve_wire_format("int8", 16)
+    tf = tc.resolve_wire_format("int8", 16)
+    x = np.zeros(16, np.float32)
+    x[0], x[1] = np.float32(0.30671477), np.float32(0.0036226152)
+    assert np.round(x[1] / (x[0] / np.float32(127))) == 1
+    jq, js = jax.jit(lambda v: jc.quantize_blocks(v, jf))(jnp.asarray(x))
+    tq, ts = tc.quantize_blocks(torch.from_numpy(x), tf)
+    np.testing.assert_array_equal(_bits(ts.numpy()), _bits(js))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert int(tq[1]) == 2
+
+
+def test_dequantize_accumulate_rounds_once_as_compiled_jax():
+    """Four ranks' codes for one tile, summed as JAX's compiled
+    ``quantized_sum_scatter_p`` sums them (each dequantizing multiply
+    fused into the add), and the error-feedback residual as its fused
+    subtract: bit for bit, where rounding each product first does not."""
+    n, block = 4, 16
+    jf = jc.resolve_wire_format("int8", block)
+    tf = tc.resolve_wire_format("int8", block)
+    flats = np.random.RandomState(3).randn(n, n * block * 8).astype(
+        np.float32)
+    tile, res = jax.pmap(
+        lambda x: quantized_sum_scatter_p(x, AXIS, jf, error_feedback=True),
+        axis_name=AXIS, devices=jax.devices()[:n])(jnp.asarray(flats))
+    m = flats.shape[1] // n
+    coded = [tc.quantize_blocks(torch.from_numpy(f), tf) for f in flats]
+    rounded_first = False
+    for r in range(n):
+        qx = torch.cat([q[r * m:(r + 1) * m] for q, _ in coded])
+        sx = torch.cat([s[r * m // block:(r + 1) * m // block]
+                        for _, s in coded])
+        got = tc.dequantize_sum(qx, sx, tf, n)
+        np.testing.assert_array_equal(_bits(got.numpy()),
+                                      _bits(np.asarray(tile[r])))
+        plain = tc.dequantize_blocks(qx, sx, tf).reshape(n, -1).sum(0)
+        rounded_first |= not torch.equal(plain, got)
+        q, s = coded[r]
+        np.testing.assert_array_equal(
+            _bits(tc.quantization_error(torch.from_numpy(flats[r]), q, s,
+                                        tf).numpy()),
+            _bits(np.asarray(res[r])))
+    assert rounded_first
 
 
 def test_bf16_compressor_round_trips():

@@ -11,6 +11,7 @@ for the JAX package.  Run by hand::
     python tests/torch_ranks.py OUT_DIR CASE [CASE ...]   # with the env
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -799,6 +800,67 @@ def bert_batch(step):
             rng.randint(0, 2, BERT_BATCH).astype(np.int64))
 
 
+#: name -> mesh of each BERT model-parallel run, by world
+BERT_MP_MESHES = {2: {"tp2": {"tp": 2}, "sp2": {"sp": 2}},
+                  4: {"sp2_tp2": {"sp": 2, "tp": 2}}}
+
+
+def case_bert_mp(hvd, rank, world):
+    """BERT's encoder (and, without sp, its classifier) over each mesh of
+    :data:`BERT_MP_MESHES` at ``world``, from the JAX weights in
+    ``$BERT_MP_DIR`` cut by convert.bert_shard_params, on this rank's
+    sequence block: the hidden states, the logits, and the gradients of
+    sum(h · cotangent) over the block (plus sum(logits · cotangent)) by
+    leaf path; the gather round trip and the refusals."""
+    import torch
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models import bert
+    from horovod_tpu_torch.models.llama import ParallelSpec
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.tree import tree_leaves, tree_paths
+    d = pathlib.Path(os.environ["BERT_MP_DIR"])
+    spec = json.loads((d / "bert_mp.json").read_text())
+    cfg = bert.BertConfig(**dict(spec["cfg"], dtype=torch.float32,
+                                 param_dtype=torch.float32))
+    data = np.load(d / "weights.npz")
+    tree = {k: data[k] for k in data.files if not k.startswith("layers.")}
+    tree["layers"] = {k.split(".", 1)[1]: data[k] for k in data.files
+                      if k.startswith("layers.")}
+    full = convert.bert_params_from_numpy(tree, device="cpu")
+    io = np.load(d / "inputs.npz")
+    out = {}
+    for name, axes in BERT_MP_MESHES[world].items():
+        pmesh = ParallelMesh(MeshConfig(**axes))
+        par = ParallelSpec(tp_axis="tp" if "tp" in axes else None,
+                           sp_axis="sp" if "sp" in axes else None)
+        params = convert.bert_shard_params(full, cfg, pmesh, par)
+        back = convert.bert_gather_params(params, cfg, pmesh, par)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        sp, i = pmesh.axis_size("sp"), pmesh.axis_index("sp")
+        t = io["toks"].shape[1] // sp
+        block = slice(i * t, (i + 1) * t)
+        toks = torch.from_numpy(io["toks"][:, block]).long()
+        with pmesh:
+            h = bert.encode(params, toks, cfg, par)
+            loss = (h * torch.from_numpy(io["cot"][:, block])).sum()
+            logits = None
+            if par.sp_axis is None:
+                logits = bert.classify(params, toks, cfg, par)
+                loss = loss + (logits * torch.from_numpy(
+                    io["cot_logits"])).sum()
+            loss.backward()
+        out[name] = {
+            "h": _np(h), "logits": None if logits is None else _np(logits),
+            "grads": {p: _np(t.grad if t.grad is not None
+                             else torch.zeros_like(t))
+                      for p, t in zip(tree_paths(params),
+                                      tree_leaves(params))},
+            "round_trip": all(torch.equal(a, b) for a, b in
+                              zip(tree_leaves(back), tree_leaves(full)))}
+    return out
+
+
 def case_bert_overlap(hvd, rank, world):
     """BERT tiny at dp = world on this rank's rows of :func:`bert_batch`,
     BERT_STEPS steps from seed 0: make_dp_finetune_step(reduce_grads=True)
@@ -1511,6 +1573,205 @@ def case_p_forms(hvd, rank, world):
 # process writes llama_mp.json (name -> config fields, mesh, step options,
 # optimizer), the full weights and the global batch to $LLAMA_MP_DIR
 
+def pipeline_inputs(n_stages, seed=0):
+    """tests/test_parallel.py's pipeline: per-stage affine weights ``w
+    [S, 4, 4]``, ``b [S, 4]``, 6 microbatches ``x [6, 2, 4]``, and a
+    cotangent for the output."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    return ((rng.normal(size=(n_stages, 4, 4)) * 0.5).astype(f),
+            rng.normal(size=(n_stages, 4)).astype(f),
+            rng.normal(size=(6, 2, 4)).astype(f),
+            rng.normal(size=(6, 2, 4)).astype(f))
+
+
+def case_pipeline(hvd, rank, world):
+    """pipeline_apply over pp = world, each rank one stage of
+    tanh(x @ w + b), with and without an aux (each live tick's sum of
+    y): the output, the aux, and the gradients of the last stage's
+    sum(out · cotangent) (plus the aux) for this rank's stage weights and
+    the microbatches;
+    the hop bytes of one call, and the stage's calls."""
+    import torch
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.parallel.pipeline import pipeline_apply
+    w, b, x, cot = pipeline_inputs(world)
+    out = {}
+    for with_aux in (False, True):
+        calls = [0]
+
+        def stage_fn(p, xb):
+            calls[0] += 1
+            y = torch.tanh(xb @ p["w"] + p["b"])
+            return (y, y.sum()) if with_aux else y
+
+        p = {"w": torch.from_numpy(w[rank].copy()).requires_grad_(),
+             "b": torch.from_numpy(b[rank].copy()).requires_grad_()}
+        xs = torch.from_numpy(x.copy()).requires_grad_()
+        ax.reset_bytes()
+        with ParallelMesh(MeshConfig(pp=world)):
+            res = pipeline_apply(stage_fn, p, xs, "pp", with_aux=with_aux)
+            y, aux = res if with_aux else (res, None)
+            loss = (y * torch.from_numpy(cot)).sum()
+            if with_aux:
+                loss = loss + aux
+            # the training step's loss: the last stage's alone
+            (loss * float(rank == world - 1)).backward()
+        out[f"aux={with_aux}"] = {
+            "out": _np(y), "aux": None if aux is None else aux.item(),
+            "dw": _np(p["w"].grad), "db": _np(p["b"].grad),
+            "dx": _np(xs.grad), "calls": calls[0], "bytes": dict(ax.BYTES)}
+    return out
+
+
+def _llama_weights(path, device="cpu"):
+    """The port's params from a flat ``.npz`` of JAX-layout weights
+    (``embed``, ``final_norm``, ``layers.<name>`` stacked)."""
+    from horovod_tpu_torch import convert
+    data = np.load(path)
+    tree = {"embed": data["embed"], "final_norm": data["final_norm"],
+            "layers": {k.split(".", 1)[1]: data[k] for k in data.files
+                       if k.startswith("layers.")}}
+    return convert.llama_params_from_numpy(tree, device=device)
+
+
+#: name -> (overlap, optimizer) of each FSDP run
+FSDP_RUNS = {"sgd": (False, "sgd"), "sgd_overlap": (True, "sgd"),
+             "adamw": (False, "adamw"), "adamw_overlap": (True, "adamw")}
+
+
+def case_fsdp(hvd, rank, world):
+    """make_llama_fsdp_step at dp = world from the JAX weights in
+    ``$FSDP_DIR`` for 3 steps of each of :data:`FSDP_RUNS` on this rank's
+    rows of the batch: the losses, this rank's parameter and optimizer
+    state bytes, the full params gathered back after the steps, and the
+    per-dp collective bytes of a step (``parallel.axis.BYTES``)."""
+    import torch
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.tree import tree_leaves, tree_map, tree_paths
+    d = pathlib.Path(os.environ["FSDP_DIR"])
+    cfg = llama.tiny(vocab=64, seq=32)
+    batch = np.load(d / "batch.npz")
+    out = {}
+    for name, (overlap, opt) in FSDP_RUNS.items():
+        pmesh = ParallelMesh(MeshConfig(dp=world))
+        factory = (functools.partial(torch.optim.SGD, lr=0.05)
+                   if opt == "sgd" else None)
+        ts = training.make_llama_fsdp_step(cfg, pmesh, optimizer=factory,
+                                           overlap=overlap, device="cpu")
+        full = _llama_weights(d / "dense.npz")
+        with pmesh:
+            params = tree_map(lambda t: t.clone().contiguous(),
+                              training.spec_shard(full, ts.specs, "dp"))
+        opt_state = ts.opt_init(params)
+        toks, tgts = (ts.shard_batch(torch.from_numpy(batch[k]))
+                      for k in ("toks", "tgts"))
+        losses, step_bytes = [], None
+        for i in range(3):
+            ax.reset_bytes()
+            params, opt_state, loss = ts.step_fn(params, opt_state, toks,
+                                                 tgts)
+            losses.append(loss.item())
+            step_bytes = dict(ax.BYTES)
+        inner = opt_state.inner if overlap else opt_state
+        state_bytes = sum(t.numel() * t.element_size()
+                          for st in inner.state.values()
+                          for t in st.values()
+                          if torch.is_tensor(t) and t.dim() > 0)
+        tile_bytes = (sum(t.numel() * t.element_size()
+                          for t in opt_state.tiles) if overlap else 0)
+        with pmesh, torch.no_grad():
+            back = training.spec_all_gather(params, ts.specs, "dp")
+        out[name] = {
+            "losses": losses,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params)),
+            "state_bytes": state_bytes, "tile_bytes": tile_bytes,
+            "shapes": {p: list(t.shape) for p, t in
+                       zip(tree_paths(params), tree_leaves(params))},
+            "final": {p: _np(t) for p, t in
+                      zip(tree_paths(back), tree_leaves(back))},
+            "step_bytes": step_bytes}
+    return out
+
+
+#: world -> the mp degrees each launch serves at (mp = world, and at
+#: world 4 also two slices of mp 2)
+MP_SERVE_DEGREES = {2: (2,), 4: (4, 2)}
+
+
+def case_mp_serve(hvd, rank, world):
+    """mp_llama_decode_forward over ``mp`` ranks of each degree of
+    :data:`MP_SERVE_DEGREES` from the JAX weights in ``$MP_SERVE_DIR``
+    (``llama.tiny(vocab=64, seq=64)``): the leader's batch
+    (tests/test_paging.py's two ragged rows) and a batch of one, the
+    outputs on every rank, the forward's stats; at mp = world the same
+    model behind a ServingPlane, the leader's ServingWorker answering
+    requests while the followers follow."""
+    import torch
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.serving.models import mp_llama_decode_forward
+    from horovod_tpu_torch.serving.shapes import ShapeBuckets
+    d = pathlib.Path(os.environ["MP_SERVE_DIR"])
+    cfg = llama.tiny(vocab=64, seq=64)
+    params = _llama_weights(d / "params.npz")
+    io = np.load(d / "inputs.npz")
+    out = {}
+    b = ShapeBuckets(batch_buckets=(1, 2), seq_buckets=(8,))
+    for mp in MP_SERVE_DEGREES[world]:
+        fwd = mp_llama_decode_forward(params, cfg, 4, b, mp=mp)
+        lead = fwd.group.rank() == 0
+        two = fwd(io["tokens"], io["lengths"]) if lead else fwd()
+        one = (fwd(io["tokens"][1:], io["lengths"][1:]) if lead
+               else fwd())
+        if lead:
+            fwd.close()
+        else:
+            assert fwd.follow() == 0
+        out[f"mp{mp}"] = {"two": two, "one": one, "stats": fwd.stats(),
+                          "ranks": fwd.ranks}
+    # through the plane: the slice's leader serves, the others follow
+    fwd = mp_llama_decode_forward(params, cfg, 4, b, mp=world)
+    if fwd.group.rank() == 0:
+        from horovod_tpu_torch.runner.rpc import JsonRpcServer, json_request
+        from horovod_tpu_torch.serving.plane import ServingPlane
+        from horovod_tpu_torch.serving.worker import ServingWorker
+        plane = ServingPlane(tick_ms=1.0, max_batch=2, seq_buckets="8",
+                             batch_buckets="1,2", deadline_ms=0)
+        srv = JsonRpcServer(plane.rpc_handlers(), host="127.0.0.1",
+                            secret=None)
+        w = ServingWorker("127.0.0.1", srv.port, fwd, worker_id="mp",
+                          wait_s=1.0, secret=None, warmup=True)
+        answers = {}
+        try:
+            w.start()
+            for i in range(3):
+                row = io["tokens"][i % 2][:int(io["lengths"][i % 2])]
+                json_request("127.0.0.1", srv.port, "serve_submit",
+                             {"id": f"r{i}", "tokens": row.tolist()},
+                             secret=None, timeout=10.0)
+            for i in range(3):
+                res = json_request("127.0.0.1", srv.port, "serve_result",
+                                   {"id": f"r{i}", "wait_s": 30.0},
+                                   secret=None, timeout=40.0)
+                answers[f"r{i}"] = res.get("output")
+        finally:
+            plane.close()
+            w.stop()
+            w.join(30)
+            srv.close()
+            fwd.close()
+        out["plane"] = {"answers": answers,
+                        "recompiles": fwd.stats()["recompiles"]}
+    else:
+        out["plane"] = {"followed": fwd.follow()}
+    return out
+
+
 def case_llama_mp(hvd, rank, world):
     """3 steps of make_llama_train_step over each configuration of
     ``llama_mp.json`` whose mesh spans ``world`` ranks, from the full JAX
@@ -1557,14 +1818,22 @@ def case_llama_mp(hvd, rank, world):
             losses.append(loss.item())
         out[name] = {"losses": losses, "round_trip": round_trip,
                      "local_batch": list(toks.shape)}
-    # pipeline parallelism is A6 item 5: a pp axis refuses, naming it
-    try:
-        training.make_llama_train_step(
-            llama.tiny(), ParallelMesh(MeshConfig(pp=2, dp=world // 2)),
-            device="cpu")
-        out["pp_error"] = None
-    except NotImplementedError as e:
-        out["pp_error"] = str(e)
+    # a pp mesh refuses a layer count it does not divide, and a pipeline
+    # step without n_microbatches
+    errors = []
+    pm = ParallelMesh(MeshConfig(pp=2, dp=world // 2))
+    for n_layers in (3, 2):
+        try:
+            ts = training.make_llama_train_step(
+                dataclasses.replace(llama.tiny(), n_layers=n_layers), pm,
+                device="cpu")
+            params, _ = ts.init_fn(0)
+            ts.grads_fn(params, *(ts.shard_batch(torch.zeros(
+                (2 * world, 8), dtype=torch.int64)) for _ in range(2)))
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    out["pp_error"] = errors
     return out
 
 
