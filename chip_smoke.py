@@ -58,21 +58,30 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            the agreeing tokens' outputs and gradients meet parity's gates
   train_tp2_sp2  four gloo ranks on the card as MeshConfig(sp=2, tp=2)
            with vocab_parallel, the ring then Ulysses, against one process
+  train_tp2_dp2_spec  four gloo ranks as MeshConfig(dp=2, tp=2): the 1B
+           widths at 2 layers through DistributedGradientTransform(
+           param_specs=llama.param_specs(...)), sharded_update off (specs
+           passed) and on (specs from the mesh's context), against one
+           process: the reduced gradients, losses and updates, the inner
+           state's and the transform's bytes exactly the spec plan's
   train_moe_ep2  two gloo ranks with the experts over dp, against one
            process, at capacity factors 1.25 and 8
   train_pp2  two gloo ranks as MeshConfig(pp=2): the 1B at 16 layers, 8 a
            stage, batch 8 x 1024 in 4 microbatches, against train's losses;
            each stage's flash launches on the live-tick schedule, the hop
            and pp sum bytes a step
-  bert_tp2_sp2   four gloo ranks as MeshConfig(sp=2, tp=2): bert_base at
-           16 x 512, the non-causal ring's tiles through the flash
+  bert_tp2_sp2   four gloo ranks as MeshConfig(sp=2, tp=2): bert_base's
+           widths at 2 of its 12 layers, 16 x 512, the non-causal ring's
+           tiles through the flash
            kernels; the loss and every leaf's gradient against one process
   train_fsdp_dp2   two gloo ranks through make_llama_fsdp_step at the 1B
-           widths and 4 layers, without and with overlap, against one
+           widths and 2 layers (the first rematerialized), without and
+           with overlap, against one
            process; each rank's parameter and optimizer bytes exactly the
            shards fsdp_param_specs names
-  serve_mp2  two gloo ranks through mp_llama_decode_forward (the 1B in
-           bf16, 16 layers): 8 requests in batches of 1 and 4, each
+  serve_mp2  two gloo ranks through mp_llama_decode_forward (the 1B's
+           widths in bf16, 2 of its 16 layers): 8 requests in batches of 1
+           and 4, each
            call's tokens one process's bit for bit, the per-chip bytes
            exact
   collectives    hvd.init() at world 1 over NCCL: every op of the API on
@@ -106,6 +115,12 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            header and 2 sample rows; then stop_timeline()/start_timeline()
            around one more step, which the second file must hold whole;
            step ms and engine host ms beside train_dp's
+  trace_dp       train_dp's step (16 layers, world 1 over NCCL) with the
+           tracer off (HOROVOD_TRACE=0) and on: the losses train_dp's bit
+           for bit, a step's dispatch spans its buckets and its fuse and
+           cycle spans the engine's counts, step ms and engine host ms
+           both ways; then one step under hvd.start_profiler, whose trace
+           file holds a range a bucket and the flash kernels
   train_dp2      two processes (this script with --dp2-rank) share the card
            over gloo (HOROVOD_CONTROLLER=gloo): 2 layers at full width with
            fused_xent=True, batch 8 x 1024 split 4 + 4, rank 1 submitting
@@ -134,8 +149,13 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            step 1 bit for bit hier's, one tail round per hierarchical
            bucket, the late host's ranks scoring above the others, and
            Adasum's applied gradient within ADASUM_REL of the plain tree
-           in fp64
-  decode   the KV-cache decode at the 1B geometry in bf16 (max_new 32):
+           in fp64; a third step of bounded, host 1 starting it late,
+           pulled from
+           the four ranks' span buffers with their clock probes and merged
+           into one trace: a pid a host, every dcn span excluding host 1,
+           and host 1 the critical path's top gating host
+  decode   the KV-cache decode at the 1B widths in bf16, SERVE_LAYERS of
+           its 16 layers (max_new 32):
            batched_greedy_decode and paged_greedy_decode at batch 1 and 8,
            seq 128, each with its prefill ms, decode ms a token, tokens/s,
            one profiled call (device busy ms, idle share, top kernels), the
@@ -147,7 +167,8 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            CPU at 2 layers (CARD_CPU_LOGIT_TOL); none of the six kernels
            may launch
   serve    the serving plane on loopback with one ServingWorker thread on
-           the card (paged_llama_decode_forward, warmed up first; buckets
+           the card (decode's model; paged_llama_decode_forward, warmed up
+           first; buckets
            batch 1/2/4/8 x seq 128/512, KV block 16): 48 requests of 8-512
            tokens, every 6th opening with one 64-token head, in 3 bursts of
            16; completed/submitted, latency p50/p99, batches and fill,
@@ -189,7 +210,9 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            after every sync, the restore exact, steps 4-6 bit for bit (cuDNN
            deterministic), the sampler's indices each taken once; recover_s,
            reform_s, sync_ms, step ms at sizes 1 and 2, peak memory, gloo
-           bytes a step
+           bytes a step; one GET /trace/job from the driver while both
+           workers run: both merged, none unreachable, each worker's clock
+           offset and every span's error bound
   recover_resnet   checkpointless recovery: elastic_resnet's model,
            batch and SGD stepped by hand (forward, loss, backward,
            tx.update) through DistributedGradientTransform(sharded_update,
@@ -279,10 +302,14 @@ KERNEL_CASES = [
     # train_fsdp_dp2's attention (4 sequences a rank at full width)
     ("lse_bert", (16, 256, 6, 6, 64, False)),
     ("fsdp", (4, 1024, 16, 8, 128, True)),
+    # train_tp2_dp2_spec's attention: 2 sequences a dp rank, 16 / tp 2
+    # heads, 8 / 2 kv heads, causal
+    ("spec", (2, 1024, 8, 4, 128, True)),
 ]
 # the model-parallel paths' cases, carried into each flash row of the
 # summary
-MP_CASES = ("lse", "lse_noncausal", "ulysses", "ep", "lse_bert", "fsdp")
+MP_CASES = ("lse", "lse_noncausal", "ulysses", "ep", "lse_bert", "fsdp",
+            "spec")
 # out is bf16 (|out| <= ~2 with N(0,1) inputs): a few bf16 steps; lse is
 # fp32 from the kernels' fast exp/log and another summation order; the
 # gradients are bf16 sums over T = 1024 products in which the kernels round
@@ -391,6 +418,28 @@ MP_STEPS = 3
 MP_FIRST_REL = 1e-4
 MP_LATER_REL = 5e-3
 MP_TIMEOUT_S = 420
+# train_tp2_dp2_spec: four processes (--spec-rank) share the card over
+# gloo as MeshConfig(dp=2, tp=2), the 1B widths at 2 layers with
+# vocab_parallel off, SPEC_BATCH sequences of 1024 a dp rank, the weights
+# from convert.llama_shard_params; the gradients as the model gives them
+# into DistributedGradientTransform(adamw_lp(3e-4),
+# param_specs=llama.param_specs(par, cfg), model_axes=()) (the tp ranks
+# share one loss: tp is no batch axis, and every bucket sums over dp
+# alone), built with explicit specs (sharded_update off) and inside `with
+# pmesh.with_param_specs(specs):` (sharded_update on); 1 warm-up and 3
+# timed steps each.  Against one
+# process on the global batch of 4 from the same seed: the warm-up's
+# reduced gradients by the parity rule (a x2 slip shows in the norms,
+# where AdamW's normalized step would hide it), the global losses by
+# train_tp2_sp2's gates, the updates after the 4 steps by the parity
+# rule; the inner state's bytes exactly the spec plan's shards or tiles
+SPEC_MESH = {"dp": 2, "tp": 2}
+SPEC_BATCH = 2
+SPEC_SEED = 4
+SPEC_RUNS = (("explicit", False), ("context", True))
+SPEC_STEPS = 3
+EXPECTED_SPEC_LAUNCHES = {"fwd": 2, "dq": 2, "dkv": 2}
+SPEC_TIMEOUT_S = 420
 # train_moe_ep2: two processes (--ep-rank), MeshConfig(dp=2) with the 8
 # experts aliased onto dp (4 a rank), 2 layers, batch 2 a rank, 3 steps,
 # against one process on the batch of 4, at two capacity factors.  At
@@ -424,7 +473,8 @@ PP_FIRST_REL = 1e-5
 PP_LATER_REL = 4e-4
 PP_TIMEOUT_S = 420
 # bert_tp2_sp2: four processes (--bert-mp-rank) as MeshConfig(sp=2,
-# tp=2): bert_base (12 layers, D 768, 12 heads of 64, d_ff 3072) at batch
+# tp=2): bert_base's widths (D 768, 12 heads of 64, d_ff 3072) cut to
+# BERT_MP_LAYERS of its 12 layers (the script's time limit) at batch
 # 16 x 512 (BERT's max_seq_len: a rank's ring tile is T 256 with 6
 # heads), one forward and backward of the mean of h · c (a fixed
 # cotangent c), against one process in bf16 and one in fp32 (the
@@ -439,8 +489,10 @@ PP_TIMEOUT_S = 420
 # gradient must lie within BERT_MP_NOISE times the bf16 process's
 # distance from fp32, or within BERT_MP_LOSS_REL / PARITY_NORM_REL of the
 # fp32 value.  The second card run read the tp x sp gradients' distances
-# at 0.59-1.11 times the bf16 process's (median 1.006), the loss's 0.80
+# at 0.59-1.11 times the bf16 process's (median 1.006), the loss's 0.80,
+# at 12 layers
 BERT_MP_MESH = {"sp": 2, "tp": 2}
+BERT_MP_LAYERS = 2
 BERT_MP_BATCH = (16, 512)
 BERT_MP_LOSS_REL = 5e-3
 BERT_MP_NOISE = 2.0
@@ -450,23 +502,29 @@ BERT_MP_TIMEOUT_S = 420
 # gathered twice a step through host memory), FSDP_BATCH sequences a
 # rank, adamw_lp, FSDP_STEPS steps each without and with overlap, against
 # one process on the whole batch: the first card run (H100, 700 W) read
-# gaps of 8.8e-8, 1.2e-5, 1.2e-4, the same bits with and without overlap,
-# and the gates sit about 10x above them; 4 layers, the last 2 not
-# rematerialized, run the forward 6 times a step
+# gaps of 8.8e-8, 1.2e-5, 1.2e-4 at 4 layers, the same bits with and
+# without overlap, and the gates sit about 10x above them.  Cut to 2
+# layers (the script's time limit) with the last FSDP_REMAT_SKIP not
+# rematerialized, so the first still gathers its weights inside a
+# checkpointed block and again in its recompute: its forward runs twice
+# a step, the other's once
 FSDP_MESH = {"dp": 2}
-FSDP_LAYERS = 4
+FSDP_LAYERS = 2
+FSDP_REMAT_SKIP = 1
 FSDP_BATCH = 4
 FSDP_STEPS = 3
 FSDP_FIRST_REL = 1e-6
 FSDP_LATER_REL = 1e-3
-EXPECTED_FSDP_LAUNCHES = {"fwd": 6, "dq": 4, "dkv": 4}
+EXPECTED_FSDP_LAUNCHES = {"fwd": 3, "dq": 2, "dkv": 2}
 FSDP_TIMEOUT_S = 420
-# serve_mp2: two processes (--serve-mp-rank), the 1B Llama in bf16 at 16
-# layers sharded over mp 2 (mp_llama_decode_forward), prompts of 1-64
+# serve_mp2: two processes (--serve-mp-rank), the 1B Llama's widths in
+# bf16 cut to SERVE_MP_LAYERS of its 16 layers (the script's time limit),
+# sharded over mp 2 (mp_llama_decode_forward), prompts of 1-64
 # tokens in the seq-64 bucket, 16 new tokens; SERVE_MP_CALLS batches of
-# (batch, calls): 8 requests, no warm-up (a call gathers 1.07 GB through
-# host memory, ~3 s)
+# (batch, calls): 8 requests, no warm-up (at 16 layers a call gathered
+# 1.07 GB through host memory, ~3 s)
 SERVE_MP_DEGREE = 2
+SERVE_MP_LAYERS = 2
 SERVE_MP_BATCHES = (1, 4)
 SERVE_MP_SEQ = 64
 SERVE_MP_NEW = 16
@@ -479,7 +537,19 @@ SERVE_MP_TIMEOUT_S = 420
 # ranks host by host), 2 layers at full width with fused_xent=True, batch
 # 8 x 1024 split 2 a rank, 2 steps a variant; each variant's environment
 # (on top of the layout) for hvd.init().  bounded and stale delay host 1's
-# cross stage by HIER_DELAY_S on step 2's rounds, past the deadline
+# cross stage by HIER_DELAY_S on step 2's rounds, past the deadline.  The
+# ranks are named host0 and host1 (HOROVOD_HOSTNAME).  HIER_TRACED runs a
+# third step under the same delay, traced, in which host 1's ranks also
+# start late, by HIER_STRAGGLE times their step 1 (at least HIER_DELAY_S):
+# a straggler whose lateness outlasts the step's own reduction, whose
+# segment of the critical path goes to whichever host's last collective
+# ends last by a hair.  That step's spans, pulled from every rank with
+# their clock probes, merge into one job trace whose critical path the
+# phase reads; step 2's gates and the straggler scores (read after step
+# 2) see the delay alone.  The first card runs read host 1's share of
+# the gating time at 0.621 and 0.571 with a straggle of 1.5 step-times
+# (host 0 charged the dispatch phase, 3.71 and 4.92 s): 2.0 widens the
+# gate's margin, and read 0.657
 HIER_DEADLINE_MS = 50
 HIER_DELAY_S = 0.2
 HIER_VARIANTS = (
@@ -497,6 +567,8 @@ HIER_VARIANTS = (
 )
 # the variants whose cross stage a straggler policy bounds
 HIER_LATE = ("bounded", "stale")
+HIER_TRACED = "bounded"
+HIER_STRAGGLE = 2.0
 # the adasum variant: one step of DistributedOptimizer(SGD(lr), op=Adasum)
 ADASUM_LR = 1e-3
 # its gradient against the plain tree in fp64 on the four ranks' local
@@ -508,6 +580,17 @@ ADASUM_REL = 1e-4
 # the four processes: the dp-1 reference, the eager sub-check and six
 # variants, the kernels' build included
 HIER_TIMEOUT_S = 600
+
+# trace_dp: train_dp's step (the 1B at 16 layers, world 1 over NCCL, no
+# cut) under HOROVOD_TRACE=0 and then under the default (on), TRACE_STEPS
+# steps each from train's seed; then one step under hvd.start_profiler,
+# its trace file under build/
+TRACE_STEPS = 4
+TRACE_PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "build", "trace_dp_profile")
+# the flash kernels' names, as the profiler's CUDA events carry them
+FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_dq_kernel",
+                      "flash_dkv_kernel")
 
 # train_dp_tools: train_dp's step under HOROVOD_TIMELINE (cycle marks on)
 # and HOROVOD_AUTOTUNE, with a warm-up of 1 sample of 2 cycles: 6 steps
@@ -643,8 +726,10 @@ XENT_REPLACES = {
     "xent_dw": "horovod_tpu/ops/fused_xent.py:220",
 }
 
-# serving at the 1B geometry, weights in bf16: the buckets, new tokens and
-# KV block (HOROVOD_SERVE_KV_BLOCK's default) of the decode and serve phases
+# serving at the 1B widths, weights in bf16, SERVE_LAYERS of its 16 layers
+# (the script's time limit): the buckets, new tokens and KV block
+# (HOROVOD_SERVE_KV_BLOCK's default) of the decode and serve phases
+SERVE_LAYERS = 4
 SERVE_BATCHES = (1, 2, 4, 8)
 SERVE_SEQS = (128, 512)
 SERVE_NEW = 32
@@ -659,7 +744,7 @@ DECODE_RAGGED = (17, 64, 100, 128)
 # Batched against sequential decode on the card.  cuBLAS may pick other
 # kernels, with other summation orders, for one row and for B rows, so a
 # row's bf16 logits may differ in their last bits, and the differences
-# compound over 16 layers.  The logits of these random weights have unit
+# compound over the layers.  The logits of these random weights have unit
 # spread (|max| ~5), and a wrong position, mask or row moves them by that
 # much; bf16 rounding alone moves them by a few hundredths (decode_parity
 # prints how far a bf16 run on the CPU lies from an fp32 run of the same
@@ -1944,7 +2029,7 @@ def hier_child(rank: int, dev: torch.device) -> int:
     0 against plain_adasum in fp64 of the four ranks' local gradients.
     Rank 0 prints every run as JSON."""
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import chaos, training
+    from horovod_tpu_torch import chaos, tracing, training
     from horovod_tpu_torch.models import llama
     from horovod_tpu_torch.ops import collectives
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -1953,6 +2038,7 @@ def hier_child(rank: int, dev: torch.device) -> int:
     from horovod_tpu_torch.optim.precision import adamw_lp
     from horovod_tpu_torch.tree import tree_leaves, tree_paths
     t_phase = time.perf_counter()
+    os.environ["HOROVOD_HOSTNAME"] = f"host{rank // 2}"
     cfg = bench_config(llama, n_layers=2, fused_xent=True)
     rng = np.random.RandomState(2)
     batch = [torch.as_tensor(rng.randint(0, cfg.vocab_size,
@@ -2014,17 +2100,23 @@ def hier_child(rank: int, dev: torch.device) -> int:
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launches()
             fx.reset_launches()
-            steps = []
-            for step in range(2):
+            steps, scores = [], None
+            for step in range(3 if name == HIER_TRACED else 2):
                 n_rounds = len(collectives.TAIL_ROUNDS)
                 counted0 = _counter("hvd_tail_rounds_total", policy=policy)
                 wire0 = {f: _counter("hvd_wire_bytes_total", format=f)
                          for f in ("float32", "int8")}
                 s0, c0 = st.engine.stats(), counts()
-                if name in HIER_LATE and step == 1:
+                traced = name == HIER_TRACED and step == 2
+                if name in HIER_LATE and step >= 1:
                     chaos.install(chaos.FaultSchedule.parse(
                         f"collective.dcn group=1 action=delay:"
                         f"{HIER_DELAY_S}"))
+                if traced:
+                    tracing.buffer().clear()
+                    if rank // 2 == 1:   # host 1 runs late
+                        time.sleep(max(HIER_DELAY_S, HIER_STRAGGLE
+                                       * steps[0]["ms"] / 1e3))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 try:
@@ -2035,6 +2127,7 @@ def hier_child(rank: int, dev: torch.device) -> int:
                     chaos.uninstall()
                 ms = 1e3 * (time.perf_counter() - t0)
                 s1, c1 = st.engine.stats(), counts()
+                workers = _pull_step_trace(hvd, rank) if traced else None
                 mine = flat(params)
                 rec = {
                     "loss": loss.item(), "ms": ms,
@@ -2051,7 +2144,11 @@ def hier_child(rank: int, dev: torch.device) -> int:
                                for r in list(collectives.TAIL_ROUNDS)
                                [n_rounds:]],
                     "identical": identical(mine, f"{name}{step}")}
-                if rank == 0:
+                if workers is not None:
+                    rec["trace_workers"] = workers
+                if step == 1:
+                    scores = st.stall_inspector.straggler_scores()
+                if rank == 0 and step < 2:
                     rec.update(parity(mine, step))
                     if step == 0 and name == "hier":
                         hier_step1 = {p: t.detach().clone()
@@ -2063,7 +2160,7 @@ def hier_child(rank: int, dev: torch.device) -> int:
                 steps.append(rec)
             out[name] = {
                 "steps": steps,
-                "straggler_scores": st.stall_inspector.straggler_scores(),
+                "straggler_scores": scores,
                 "peak_bytes": hvd.allgather_object(
                     torch.cuda.max_memory_allocated())}
             del params, opt_state, ts
@@ -2136,6 +2233,90 @@ def hier_child(rank: int, dev: torch.device) -> int:
     out["seconds_rank0"] = time.perf_counter() - t_phase
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _pull_step_trace(hvd, rank):
+    """Every rank's span buffer as it stands, pulled by rank 0 as the
+    driver pulls a job trace: each rank serves a ``trace_pull`` handler
+    (a probe answers its clock now; the pull, the snapshot taken here),
+    and rank 0 probes each one's clock and pulls its spans
+    (``tracing.merge.pull_worker``).  Returns ``{rank: (snapshot,
+    offset_s, err_s)}`` on rank 0, else None."""
+    from horovod_tpu_torch import tracing
+    from horovod_tpu_torch.runner.rpc import JsonRpcServer
+    snap = tracing.buffer().snapshot()
+
+    def handle(payload):
+        if payload.get("probe"):
+            return {"now": tracing.now(), "host": snap["host"],
+                    "process": snap["process"]}
+        return dict(snap, now=tracing.now())
+
+    srv = JsonRpcServer({"trace_pull": handle}, secret=None,
+                        host="127.0.0.1")
+    try:
+        ports = hvd.allgather_object(srv.port)
+        workers = None
+        if rank == 0:
+            workers = {str(r): tracing.merge.pull_worker(
+                "127.0.0.1", port, probes=tracing.probes(), timeout=10.0,
+                secret=None) for r, port in enumerate(ports)}
+        hvd.allgather_object(True)   # every server lives until the pull
+    finally:
+        srv.close()
+    return workers
+
+
+def hier_trace(res):
+    """Merge each traced step's pulled buffers (``trace_workers``) into one
+    job trace and read its critical path; the pulled spans leave ``res``
+    and the summary takes their place."""
+    from horovod_tpu_torch import tracing
+    for name in (HIER_TRACED,):
+        for st in res.get(name, {}).get("steps", ()):
+            workers = st.pop("trace_workers", None)
+            if workers is None:
+                continue
+            trace = tracing.merge.chrome_trace(
+                {w: tuple(v) for w, v in workers.items()})
+            report = tracing.critical.analyze(trace)
+            events = trace["traceEvents"]
+            dcn = [e["args"] for e in events if e.get("cat") == "dcn"
+                   and e.get("ph") == "X"]
+            st["trace"] = {
+                "hosts": trace["otherData"]["hosts"],
+                "pids": sorted({e["pid"] for e in events
+                                if e.get("name") == "process_name"}),
+                "clock": trace["otherData"]["clock"],
+                "spans": sum(1 for e in events if e.get("ph") == "X"),
+                "dcn_spans": len(dcn),
+                "dcn_excluded": sorted({tuple(a["excluded"]) for a in dcn}),
+                "rounds": report["rounds"], "top": report["top"],
+                "gating": {h: {"fraction": v["fraction"],
+                               "phases": v["phases"]}
+                           for h, v in report["hosts"].items()}}
+
+
+def hier_trace_problems(res):
+    """train_hier_dp4's trace gates, on HIER_TRACED's step 3: one pid a
+    host (two hosts), every dcn span with host 1 excluded, and host 1
+    (which the phase delays) the top gating host of the step's rounds."""
+    bad = []
+    for name in (HIER_TRACED,):
+        traced = [st["trace"] for st in res[name]["steps"] if "trace" in st]
+        if not traced:
+            bad.append(f"{name}: step 3 was not traced")
+        for tr_ in traced:
+            if tr_["hosts"] != ["host0", "host1"] or len(tr_["pids"]) != 2:
+                bad.append(f"{name}: hosts {tr_['hosts']}, pids "
+                           f"{tr_['pids']}")
+            if not tr_["dcn_spans"] or tr_["dcn_excluded"] != [(1,)]:
+                bad.append(f"{name}: {tr_['dcn_spans']} dcn spans, "
+                           f"excluded {tr_['dcn_excluded']}")
+            if not tr_["top"] or tr_["top"][0] != "host1":
+                bad.append(f"{name}: top gating host {tr_['top']}, not "
+                           f"host1")
+    return bad
 
 
 def hier_problems(res):
@@ -2221,10 +2402,11 @@ def train_hier_dp4_phase():
               "reserved": torch.cuda.memory_reserved()}
     res, seconds = _run_pair("--hier-rank", HIER_TIMEOUT_S, world=4,
                              local_size=2)
+    hier_trace(res)
     emit("train_hier_dp4", layers=2, batch=[2, 2, 2, 2], seq=1024,
          fused_xent=True, backend="gloo", hosts=[[0, 1], [2, 3]],
          seconds=seconds, parent_bytes=parent, **res)
-    bad = hier_problems(res)
+    bad = hier_problems(res) + hier_trace_problems(res)
     require(not bad, f"train_hier_dp4: {bad}")
 
 
@@ -2237,6 +2419,132 @@ def _lanes(events):
         if e.get("ph") in ("B", "i") and e["tid"] in lanes:
             out[lanes[e["tid"]]].append(e["name"])
     return out
+
+
+def trace_dp_phase(hvd, llama, training, adamw_lp, dev):
+    """``trace_dp``: train_dp's step with the tracer off, then on; each
+    step's spans by category, the engine's cycles, plans and buckets,
+    the step ms and engine host ms, the ring's drop count; then, with the
+    tracer on, one step under ``hvd.start_profiler``, whose trace file's
+    ``hvd.allreduce[...]`` ranges and flash kernels are counted.  Returns
+    the emitted line."""
+    from horovod_tpu_torch import tracing
+    cfg = bench_config(llama)
+    rng = np.random.RandomState(0)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, 1024)),
+                           dtype=torch.long, device=dev)
+    tgts = torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, 1024)),
+                           dtype=torch.long, device=dev)
+    row = {}
+    for mode, env in (("off", {"HOROVOD_TRACE": "0"}), ("on", {})):
+        os.environ.update(env)
+        hvd.init(device=dev)
+        try:
+            engine = hvd.runtime._state().engine
+            ts = training.make_llama_train_step(
+                cfg, optimizer=adamw_lp(3e-4), device=dev)
+            params, opt_state = ts.init_fn(0)
+            run = {"active": tracing.ACTIVE, "losses": [], "step_ms": [],
+                   "engine_host_ms": [], "spans": [], "engine": []}
+            for _ in range(TRACE_STEPS):
+                tracing.buffer().clear()
+                s0 = engine.stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt_state, loss = ts.step_fn(params, opt_state,
+                                                     toks, tgts)
+                torch.cuda.synchronize()
+                run["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                run["losses"].append(loss.item())
+                s1 = engine.stats()
+                counts = {k: s1[k] - s0[k]
+                          for k in ("cycles", "executes", "buckets")}
+                # the cycle span closes as its cycle returns, just after
+                # the handles resolve
+                deadline = time.monotonic() + 5
+                while tracing.ACTIVE and time.monotonic() < deadline and \
+                        _span_counts(tracing)["cycle"] < counts["cycles"]:
+                    time.sleep(0.005)
+                run["engine_host_ms"].append(s1["dispatch_ms"]
+                                             - s0["dispatch_ms"])
+                run["spans"].append(_span_counts(tracing))
+                run["engine"].append(counts)
+            run["dropped"] = tracing.buffer().snapshot()["dropped"]
+            if tracing.ACTIVE:
+                b0 = engine.stats()["buckets"]
+                hvd.start_profiler(TRACE_PROFILE_DIR)
+                ts.step_fn(params, opt_state, toks, tgts)
+                torch.cuda.synchronize()
+                path = hvd.stop_profiler()
+                run["profile"] = _profile_counts(path)
+                run["profile"]["buckets"] = engine.stats()["buckets"] - b0
+            del params, opt_state, ts
+        finally:
+            hvd.shutdown()
+            for k in env:
+                os.environ.pop(k)
+        torch.cuda.empty_cache()
+        row[mode] = run
+    emit("trace_dp", layers=cfg.n_layers, batch=8, seq=1024, **row)
+    return row
+
+
+def _span_counts(tracing) -> dict:
+    """The default buffer's spans by category."""
+    out = {c: 0 for c in ("cycle", "submit", "negotiate", "fuse",
+                          "dispatch", "dcn", "overlap")}
+    for sp in tracing.buffer().snapshot()["spans"]:
+        out[sp["cat"]] = out.get(sp["cat"], 0) + 1
+    return out
+
+
+def _profile_counts(path) -> dict:
+    """A ``stop_profiler`` trace file's host ranges of the engine's
+    dispatches and its flash kernels, counted."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = sum(1 for e in events if e.get("ph") == "X"
+                 and e.get("cat") == "user_annotation"
+                 and str(e.get("name", "")).startswith("hvd.allreduce["))
+    kernels = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                      and k in str(e.get("name", "")))
+               for k in FLASH_KERNEL_NAMES}
+    return {"file": path, "bytes": os.path.getsize(path),
+            "dispatch_ranges": ranges, "flash_kernels": kernels}
+
+
+def trace_problems(row, ref_losses):
+    """trace_dp's gates: both runs' losses ``ref_losses`` (train_dp's) bit
+    for bit; off, no span; on, a step's dispatch spans the buckets it
+    dispatched, its fuse and cycle spans the engine's plans and cycles,
+    nothing dropped; the profiled step's file one dispatch range a bucket
+    and the three flash kernels among its CUDA events."""
+    bad = []
+    for mode, run in row.items():
+        if run["losses"] != ref_losses:
+            bad.append(f"{mode}: losses {run['losses']} are not train_dp's "
+                       f"{ref_losses}")
+    off, on = row["off"], row["on"]
+    if off["active"] or any(sum(st.values()) for st in off["spans"]):
+        bad.append(f"off: spans recorded under HOROVOD_TRACE=0: "
+                   f"{off['spans']}")
+    if not on["active"]:
+        bad.append("on: the tracer is off by default")
+    for i, (st, n) in enumerate(zip(on["spans"], on["engine"])):
+        want = {"dispatch": n["buckets"], "fuse": n["executes"],
+                "cycle": n["cycles"], "submit": n["executes"]}
+        if any(st[k] != v for k, v in want.items()) or not n["buckets"]:
+            bad.append(f"on: step {i + 1} spans {st}, the engine's {n}")
+    if on["dropped"]:
+        bad.append(f"on: {on['dropped']} spans dropped")
+    prof = on.get("profile") or {}
+    if not prof or prof["dispatch_ranges"] != prof["buckets"] or \
+            not prof["buckets"]:
+        bad.append(f"profile: {prof.get('dispatch_ranges')} dispatch ranges "
+                   f"for {prof.get('buckets')} buckets")
+    if prof and not all(prof["flash_kernels"].values()):
+        bad.append(f"profile: flash kernels {prof['flash_kernels']}")
+    return bad
 
 
 def tools_phase(hvd, fa, fx, llama, training, adamw_lp, dev):
@@ -2472,6 +2780,277 @@ def train_tp2_sp2_phase(script=None):
          loss_gaps=gaps, **res)
     bad = mp_problems(res)
     require(not bad, f"train_tp2_sp2: {bad}")
+    return res
+
+
+def spec_problems(res):
+    """train_tp2_dp2_spec's gates, for each run: the tp ranks of a dp
+    index report the same loss bits, the global loss (the mean over dp)
+    within MP_FIRST_REL of one process's first and MP_LATER_REL of the
+    later; every rank's reduced warm-up gradient and the updates after
+    the steps by the parity rule (norms within PARITY_NORM_REL, cosine
+    above PARITY_COS) against one process's; the inner state's bytes and
+    the transform's bytes a step by axis exactly the plan's; the flash
+    launches of each timed step."""
+    bad = []
+    ref = res["losses_world1"]
+    for name, run in res["runs"].items():
+        by_rank = run["losses_by_rank"]
+        coords = res["coords"]
+        for r, c in enumerate(coords):
+            mate = [q for q, d in enumerate(coords)
+                    if d["dp"] == c["dp"] and q != r]
+            if any(by_rank[q] != by_rank[r] for q in mate):
+                bad.append(f"{name}: tp ranks of dp {c['dp']} differ: "
+                           f"{[by_rank[q] for q in [r] + mate]}")
+        losses = run["global_losses"]
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"{name}: non-finite loss {losses}")
+        gaps = loss_gaps(losses, ref)
+        if gaps[0] > MP_FIRST_REL or any(g > MP_LATER_REL for g in gaps[1:]):
+            bad.append(f"{name}: losses {losses} against one process's "
+                       f"{ref} (gaps {gaps})")
+        for rank, leaves in enumerate(run["grad_parity_by_rank"]):
+            for path, g in leaves.items():
+                a, b = g["norms"]
+                if not abs(a - b) <= PARITY_NORM_REL * b or \
+                        not g["cos"] > PARITY_COS:
+                    bad.append(f"{name} rank {rank}: reduced gradient "
+                               f"{path}: norms {a} vs {b}, cos {g['cos']}")
+        for path, g in run["update_parity"].items():
+            a, b = g["norms"]
+            if not abs(a - b) <= PARITY_NORM_REL * b or \
+                    not g["cos"] > PARITY_COS:
+                bad.append(f"{name}: update {path}: norms {a} vs {b}, cos "
+                           f"{g['cos']}")
+        for rank, (got, want) in enumerate(zip(
+                run["state_bytes_by_rank"], run["state_bytes_expected"])):
+            if got != want:
+                bad.append(f"{name} rank {rank}: inner state {got} bytes, "
+                           f"the plan's {want}")
+        for rank, (got, want) in enumerate(zip(
+                run["transform_bytes_by_rank"],
+                run["transform_bytes_expected"])):
+            if got != want:
+                bad.append(f"{name} rank {rank}: the transform's bytes a "
+                           f"step {got}, the plan's {want}")
+        for rank, steps in enumerate(run["launches_per_step_by_rank"]):
+            bad += [f"{name} rank {rank}: launches {st}, expected "
+                    f"{EXPECTED_SPEC_LAUNCHES}" for st in steps
+                    if st != EXPECTED_SPEC_LAUNCHES]
+    return bad
+
+
+def _reduced_by_path(reduced, state, params, sharded, dp_group):
+    """The transform's reduced gradients as ``{path: tensor}`` of this
+    rank's shapes: the leaves, or under sharded_update every bucket's
+    tiles gathered over the data axis and cut back into leaves."""
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.optim import distributed as tdist
+    from horovod_tpu_torch.tree import tree_paths
+    if not sharded:
+        return dict(zip(tree_paths(params), reduced))
+    _, names, _ = tdist._tree_leaves_sorted(params)
+    layout = state.layout
+    out = {}
+    for bl, tile in zip(layout.buckets, reduced):
+        full = collectives.all_gather_flat(tile, dp_group)
+        off = 0
+        for i, sz in zip(bl.indices, bl.sizes):
+            out[names[i]] = full[off:off + sz].view(layout.shapes[i])
+            off += sz
+    return out
+
+
+def spec_child(rank: int, dev: torch.device) -> int:
+    """One rank of ``train_tp2_dp2_spec`` (``--spec-rank``): see
+    SPEC_MESH.  Each rank first takes one process's gradient of the
+    global batch from the full weights (its shard kept for the gate),
+    then for each of SPEC_RUNS the warm-up step through ``tx.reduce`` and
+    ``tx.apply`` (the reduced gradients held to that shard) and
+    SPEC_STEPS timed steps through ``tx.update``, the transform's bytes by
+    axis counted around it; the weights gathered over tp after each run.
+    Rank 0 then runs one process's train step on the global batch from
+    the same seed and prints every number as JSON."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import convert, training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optim import distributed as tdist
+    from horovod_tpu_torch.optim.precision import adamw_lp, tree_nbytes
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.tree import tree_leaves, tree_map, tree_paths
+    cfg = bench_config(llama, n_layers=2)
+    rng = np.random.RandomState(SPEC_SEED)
+    toks, tgts = (torch.as_tensor(
+        rng.randint(0, cfg.vocab_size,
+                    (SPEC_BATCH * SPEC_MESH["dp"], cfg.max_seq_len)),
+        dtype=torch.long, device=dev) for _ in range(2))
+    hvd.init(device=dev)
+    pmesh = ParallelMesh(MeshConfig(**SPEC_MESH))
+    ts = training.make_llama_train_step(cfg, pmesh, device=dev)
+    par = ts.par
+    specs = llama.param_specs(par, cfg)
+    tk, tg = ts.shard_batch(toks), ts.shard_batch(tgts)
+    dp_group = pmesh.group("dp")
+
+    # one process's gradient of the global batch, this rank's shard of it
+    full = llama.init_params(cfg, SPEC_SEED, device=dev)
+    init_full = {p: t.detach().clone() if rank == 0 else None
+                 for p, t in zip(tree_paths(full), tree_leaves(full))}
+    leaves = training.trainable_leaves(full)
+    g = iter(torch.autograd.grad(llama.loss_fn(full, toks, tgts, cfg),
+                                 leaves))
+    ref_grads = convert.llama_shard_params(
+        tree_map(lambda _: next(g).detach(), full), cfg, pmesh, par)
+    ref_grads = dict(zip(tree_paths(ref_grads), tree_leaves(ref_grads)))
+    del full, leaves, g
+    torch.cuda.empty_cache()
+
+    def expected_bytes(params, state, sharded, sp):
+        """(inner-state bytes, the transform's bytes a step by axis) the
+        plan gives: 2 bf16 moments an element of the shards or tiles;
+        every bucket over dp alone, padded when sharded."""
+        if sharded:
+            lay = tdist.sharded_tile_layout(params, SPEC_MESH["dp"],
+                                            spec_plan=sp)
+            return (2 * 2 * sum(bl.shard_numel for bl in lay.buckets),
+                    {"dp.psum_scatter": 4 * sum(bl.padded_numel
+                                                for bl in lay.buckets)})
+        n_all = sum(t.numel() for t in tree_leaves(params))
+        return 2 * 2 * n_all, {"dp.all_reduce": 4 * n_all}
+
+    runs, gathered = {}, {}
+    for name, sharded in SPEC_RUNS:
+        params, _ = ts.init_fn(SPEC_SEED)
+        leaves = training.trainable_leaves(params)
+        kw = dict(sharded_update=sharded, wire_format="none",
+                  model_axes=())
+        if name == "context":
+            with pmesh.with_param_specs(specs):
+                tx = hvd.DistributedGradientTransform(adamw_lp(3e-4), **kw)
+        else:
+            tx = hvd.DistributedGradientTransform(
+                adamw_lp(3e-4), param_specs=specs, mesh=pmesh, **kw)
+        state = tx.init(params)
+        sp = tdist.make_spec_plan(specs, "dp", model_axes=(), mesh=pmesh)
+
+        def grads_of():
+            with pmesh:
+                loss = llama.loss_fn(params, tk, tg, cfg, par)
+                g = iter(torch.autograd.grad(loss, leaves))
+            return loss.detach(), tree_map(lambda _: next(g), params)
+
+        loss, grads = grads_of()
+        reduced = tx.reduce(grads, state)
+        by_path = _reduced_by_path(reduced, state, params, sharded,
+                                   dp_group)
+        grad_parity = {p: {"norms": [by_path[p].double().norm().item(),
+                                     ref_grads[p].double().norm().item()],
+                           "cos": cosine(by_path[p], ref_grads[p])}
+                       for p in ref_grads}
+        tx.apply(reduced, state)
+        del reduced, by_path, grads
+        losses = [loss.item()]
+        fa.reset_launches()
+        ax.reset_bytes()
+        t_bytes = {}
+
+        def step():
+            loss, grads = grads_of()
+            b0 = dict(ax.BYTES)
+            tx.update(grads, state, params)
+            for k, v in ax.BYTES.items():
+                t_bytes[k] = t_bytes.get(k, 0) + v - b0.get(k, 0)
+            return loss
+
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, more, per_step = run_steps(step, SPEC_STEPS,
+                                            lambda: dict(fa.LAUNCHES))
+        losses += more
+        state_want, bytes_want = expected_bytes(params, state, sharded, sp)
+        row = {"losses": losses, "step_ms": step_ms,
+               "launches_per_step": per_step, "grad_parity": grad_parity,
+               "state_bytes": tree_nbytes(list(state.inner.state.values())),
+               "state_bytes_expected": state_want,
+               "transform_bytes": {k: v // SPEC_STEPS
+                                   for k, v in sorted(t_bytes.items())
+                                   if v},
+               "transform_bytes_expected": bytes_want,
+               "bytes_per_step": {k: v // SPEC_STEPS
+                                  for k, v in sorted(ax.BYTES.items())},
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        rows = hvd.allgather_object(row)
+        back = convert.llama_gather_params(params, cfg, pmesh, par)
+        if rank == 0:
+            gathered[name] = {p: t.detach().clone() for p, t in
+                              zip(tree_paths(back), tree_leaves(back))}
+        runs[name] = {
+            "sharded_update": sharded,
+            "losses_by_rank": [r["losses"] for r in rows],
+            "step_ms_by_rank": [r["step_ms"] for r in rows],
+            "launches_per_step_by_rank": [r["launches_per_step"]
+                                          for r in rows],
+            "launches_by_rank": [{k: sum(st[k] for st in r[
+                "launches_per_step"]) for k in ("fwd", "dq", "dkv")}
+                for r in rows],
+            "grad_parity_by_rank": [r["grad_parity"] for r in rows],
+            "state_bytes_by_rank": [r["state_bytes"] for r in rows],
+            "state_bytes_expected": [r["state_bytes_expected"]
+                                     for r in rows],
+            "transform_bytes_by_rank": [r["transform_bytes"] for r in rows],
+            "transform_bytes_expected": [r["transform_bytes_expected"]
+                                         for r in rows],
+            "bytes_per_step_by_rank": [r["bytes_per_step"] for r in rows],
+            "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                             for r in rows]}
+        del params, state, tx, back, leaves
+        torch.cuda.empty_cache()
+    coords = hvd.allgather_object(pmesh.coords)
+    hvd.shutdown()
+    if rank:
+        return 0
+    del ref_grads
+    ts1 = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
+                                         device=dev)
+    params, opt = ts1.init_fn(SPEC_SEED)
+    world1 = []
+    for _ in range(1 + SPEC_STEPS):
+        params, opt, loss = ts1.step_fn(params, opt, toks, tgts)
+        world1.append(loss.item())
+    after1 = dict(zip(tree_paths(params), tree_leaves(params)))
+    for name, got in gathered.items():
+        run = runs[name]
+        dp_of = [c["dp"] for c in coords]
+        run["global_losses"] = [
+            sum(run["losses_by_rank"][dp_of.index(d)][i]
+                for d in range(SPEC_MESH["dp"])) / SPEC_MESH["dp"]
+            for i in range(1 + SPEC_STEPS)]
+        run["update_parity"] = {
+            p: {"norms": [(got[p] - init_full[p]).double().norm().item(),
+                          (after1[p] - init_full[p]).double().norm()
+                          .item()],
+                "cos": cosine(got[p] - init_full[p],
+                              after1[p] - init_full[p])}
+            for p in after1}
+    print(json.dumps({"coords": coords, "local_batch": list(tk.shape),
+                      "losses_world1": world1, "runs": runs}), flush=True)
+    return 0
+
+
+def train_tp2_dp2_spec_phase(script=None):
+    """Four ranks of :func:`spec_child` on the card over gloo (``script``:
+    another program that runs them); the gates."""
+    res, seconds = _run_pair("--spec-rank", SPEC_TIMEOUT_S, world=4,
+                             script=script)
+    gaps = {name: loss_gaps(run["global_losses"], res["losses_world1"])
+            for name, run in res["runs"].items()}
+    emit("train_tp2_dp2_spec", mesh=SPEC_MESH, layers=2,
+         batch=[SPEC_BATCH, 1024], vocab_parallel=False, backend="gloo",
+         seconds=seconds, loss_gaps=gaps, **res)
+    bad = spec_problems(res)
+    require(not bad, f"train_tp2_dp2_spec: {bad}")
     return res
 
 
@@ -2786,7 +3365,7 @@ def bert_mp_child(rank: int, dev: torch.device) -> int:
     from horovod_tpu_torch.parallel import axis as ax
     from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
     from horovod_tpu_torch.tree import tree_leaves, tree_map, tree_paths
-    cfg = bert_config(bert)
+    cfg = bert_config(bert, n_layers=BERT_MP_LAYERS)
     B, T = BERT_MP_BATCH
     rng = np.random.RandomState(5)
     toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (B, T)),
@@ -2909,7 +3488,8 @@ def fsdp_problems(res):
     """train_fsdp_dp2's gates, for each variant: the ranks' losses the
     same bits, finite and falling, the first within FSDP_FIRST_REL of one
     process on the whole batch and the later within FSDP_LATER_REL; the
-    launches of FSDP_LAYERS layers (the last 2 not rematerialized) at
+    launches of FSDP_LAYERS layers (the last FSDP_REMAT_SKIP not
+    rematerialized) at
     every step; each rank's parameter bytes exactly the specs' shards and
     its optimizer state (AdamWLP's bf16 moments, 4 bytes an element: on
     the shards without overlap, on the plane's 1/dp tiles with it) under
@@ -2950,7 +3530,8 @@ def fsdp_problems(res):
 
 def fsdp_child(rank: int, dev: torch.device) -> int:
     """One rank of ``train_fsdp_dp2`` (``--fsdp-rank``): bench.py's 1B
-    widths at FSDP_LAYERS layers, make_llama_fsdp_step over dp 2 on gloo,
+    widths at FSDP_LAYERS layers (the last FSDP_REMAT_SKIP not
+    rematerialized), make_llama_fsdp_step over dp 2 on gloo,
     FSDP_BATCH sequences a rank of 1024, adamw_lp, 3 steps each of
     overlap=False and overlap=True; then rank 0 the same steps in one
     process on the whole batch, and every number as JSON."""
@@ -2962,7 +3543,8 @@ def fsdp_child(rank: int, dev: torch.device) -> int:
     from horovod_tpu_torch.parallel import axis as ax
     from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
     from horovod_tpu_torch.tree import tree_leaves
-    cfg = bench_config(llama, n_layers=FSDP_LAYERS)
+    cfg = bench_config(llama, n_layers=FSDP_LAYERS,
+                       remat_skip_layers=FSDP_REMAT_SKIP)
     dp = FSDP_MESH["dp"]
     rng = np.random.RandomState(4)
     toks, tgts = (torch.as_tensor(
@@ -3040,6 +3622,7 @@ def train_fsdp_dp2_phase(script=None):
     gaps = {name: loss_gaps(run["losses_by_rank"][0], res["losses_world1"])
             for name, run in res["variants"].items()}
     emit("train_fsdp_dp2", mesh=FSDP_MESH, layers=FSDP_LAYERS,
+         remat_skip_layers=FSDP_REMAT_SKIP,
          batch=[FSDP_BATCH] * FSDP_MESH["dp"], seq=1024, backend="gloo",
          seconds=seconds, loss_gaps=gaps, **res)
     bad = fsdp_problems(res)
@@ -3076,7 +3659,8 @@ def serve_mp_problems(res):
 
 def serve_mp_child(rank: int, dev: torch.device) -> int:
     """One rank of ``serve_mp2`` (``--serve-mp-rank``): the 1B Llama in
-    bf16 at 16 layers through mp_llama_decode_forward over 2 ranks on
+    bf16 at SERVE_MP_LAYERS layers through mp_llama_decode_forward over 2
+    ranks on
     gloo, buckets batch SERVE_MP_BATCHES x seq SERVE_MP_SEQ,
     SERVE_MP_NEW new tokens; rank 0 takes SERVE_MP_CALLS
     batches of ragged prompts while rank 1 follows; then rank 0 holds
@@ -3091,7 +3675,7 @@ def serve_mp_child(rank: int, dev: torch.device) -> int:
                                                   mp_llama_decode_forward)
     from horovod_tpu_torch.serving.shapes import ShapeBuckets
     from horovod_tpu_torch.tree import tree_leaves, tree_paths
-    cfg = bench_config(llama)
+    cfg = bench_config(llama, n_layers=SERVE_MP_LAYERS)
     params = serve_params(llama, gen, cfg, dev)
     buckets = ShapeBuckets(batch_buckets=SERVE_MP_BATCHES,
                            seq_buckets=(SERVE_MP_SEQ,))
@@ -3153,7 +3737,8 @@ def serve_mp2_phase(script=None):
     gates."""
     res, seconds = _run_pair("--serve-mp-rank", SERVE_MP_TIMEOUT_S,
                              script=script)
-    emit("serve_mp2", mp=SERVE_MP_DEGREE, layers=16, seq=SERVE_MP_SEQ,
+    emit("serve_mp2", mp=SERVE_MP_DEGREE, layers=SERVE_MP_LAYERS,
+         seq=SERVE_MP_SEQ,
          new_tokens=SERVE_MP_NEW, backend="gloo", seconds=seconds, **res)
     bad = serve_mp_problems(res)
     require(not bad, f"serve_mp2: {bad}")
@@ -3659,9 +4244,10 @@ def decode_bound(cfg, count_params, lengths, new: int):
 
 def decode_phase(llama, gen, paging, fa, fx, convert, dev):
     """``batched_greedy_decode`` and ``paged_greedy_decode`` at the 1B
-    geometry, then the ragged bucket against sequential decode, then card
+    widths (SERVE_LAYERS layers), then the ragged bucket against
+    sequential decode, then card
     against CPU at 2 layers; none of the six kernels may launch."""
-    cfg = bench_config(llama)
+    cfg = bench_config(llama, n_layers=SERVE_LAYERS)
     params = serve_params(llama, gen, cfg, dev)
     rng = np.random.RandomState(0)
     new, bs, seq = SERVE_NEW, SERVE_BLOCK, DECODE_SEQ
@@ -3794,7 +4380,7 @@ def decode_parity(llama, gen, convert, dev):
 def serve_phase(llama, gen, paging, fa, fx, dev):
     """48 requests through the serving plane, one worker thread on the
     card with the paged KV pool; the gates of :func:`serve_problems`."""
-    cfg = bench_config(llama)
+    cfg = bench_config(llama, n_layers=SERVE_LAYERS)
     params = serve_params(llama, gen, cfg, dev)
     prompts = serve_prompts(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
@@ -4401,6 +4987,9 @@ def elastic_resnet_phase(worker_script=None):
             marker = run / "kill.marker"
             wait_for(lambda _: marker.exists(), "worker 1 never reached "
                      f"the backward pass of step {ELASTIC_KILL_STEP}")
+            # the job trace, both workers alive: the driver pulls their
+            # span buffers and probes their clocks
+            trace_job = elastic_trace_job(driver.port)
             with driver._lock:
                 victim = driver._workers[json.loads(marker.read_text())[
                     "wid"]]
@@ -4490,13 +5079,39 @@ def elastic_resnet_phase(worker_script=None):
         losses={s: rank0[s]["loss"] for s in sorted(rank0)},
         losses_vs_reference=losses,
         exits=[info for name, info in events if name == "worker_exit"],
+        trace_job=trace_job,
         reference_s=reference_s, elastic_s=elastic_s,
         seconds=time.monotonic() - t_phase)
     emit("elastic_resnet", **row)
+    if len(trace_job["clock"]) != 2 or trace_job["unreachable"] or \
+            not trace_job["spans"]:
+        bad.append(f"GET /trace/job: {trace_job['clock']}, unreachable "
+                   f"{trace_job['unreachable']}, {trace_job['spans']} spans")
     if row["seconds"] > ELASTIC_TIMEOUT_S:
         bad.append(f"the phase took {row['seconds']:.1f} s")
     require(not bad, f"elastic_resnet: {bad}")
     return row
+
+
+def elastic_trace_job(port: int) -> dict:
+    """One ``GET /trace/job`` from the elastic driver on ``port``: its
+    seconds, each worker's clock offset and error bound, the spans'
+    count and their clock-error bounds (µs), the hosts and any
+    unreachable worker."""
+    import urllib.request
+    t0 = time.monotonic()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/trace/job",
+                                timeout=30.0) as resp:
+        trace = json.loads(resp.read().decode())
+    seconds = time.monotonic() - t0
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    other = trace["otherData"]
+    return {"seconds": seconds, "hosts": other["hosts"],
+            "clock": other["clock"],
+            "unreachable": other.get("unreachable", {}),
+            "spans": len(spans),
+            "clock_err_us": sorted({e["args"]["clock_err_us"]
+                                    for e in spans})}
 
 
 def tile_digest(dist_state):
@@ -5198,7 +5813,8 @@ def main() -> int:
         return mp_child(int(sys.argv[sys.argv.index("--mp-rank") + 1]), dev)
     if "--ep-rank" in sys.argv:
         return ep_child(int(sys.argv[sys.argv.index("--ep-rank") + 1]), dev)
-    for flag, child in (("--pp-rank", pp_child),
+    for flag, child in (("--spec-rank", spec_child),
+                        ("--pp-rank", pp_child),
                         ("--bert-mp-rank", bert_mp_child),
                         ("--fsdp-rank", fsdp_child),
                         ("--serve-mp-rank", serve_mp_child)):
@@ -5347,6 +5963,11 @@ def main() -> int:
         os.environ.pop("HOROVOD_COMPRESSION")
     bad = wire_problems(train_wire, train, expected)
     require(not bad, f"train_wire: {bad}")
+    # train_dp's step with the tracer off and on, then under the profiler
+    trace = timed("trace_dp", trace_dp_phase, hvd, llama, training,
+                  adamw_lp, dev)
+    bad = trace_problems(trace, train_dp["losses"])
+    require(not bad, f"trace_dp: {bad}")
     torch.cuda.empty_cache()
     timed("train_dp2", train_dp2_phase)
     timed("train_a5_dp2", train_a5_dp2_phase)
@@ -5354,6 +5975,8 @@ def main() -> int:
     # the model-parallel Llama: tp x sp (ring, then Ulysses) and experts
     # over dp, gloo ranks sharing the card
     mp = timed("train_tp2_sp2", train_tp2_sp2_phase)
+    # the spec-aware gradient transform over dp x tp
+    spec = timed("train_tp2_dp2_spec", train_tp2_dp2_spec_phase)
     ep = timed("train_moe_ep2", train_moe_ep2_phase)
     # the pipeline, BERT's tp x sp, FSDP and model-parallel serving, gloo
     # ranks sharing the card
@@ -5436,7 +6059,10 @@ def main() -> int:
                      "train_fsdp_dp2": [
                          sum(st[k] for st in steps)
                          for run in fsdp["variants"].values()
-                         for steps in run["launches_per_step_by_rank"]]}
+                         for steps in run["launches_per_step_by_rank"]],
+                     "train_tp2_dp2_spec": [
+                         n[k] for run in spec["runs"].values()
+                         for n in run["launches_by_rank"]]}
             summary[-1]["launches_by_path"] = paths
             for path, counts in paths.items():
                 require(all(n > 0 for n in counts),

@@ -11,7 +11,8 @@ rank and size, the eager collectives with async handles over
 quantized wire formats) and the broadcast helpers
 (``optim/distributed.py``), ``overlapped_backprop``
 (``optim/overlap.py``), ``start_timeline``/``stop_timeline``
-(``timeline.py``), ``SyncBatchNorm`` (``sync_batch_norm.py``) and
+(``timeline.py``), ``start_profiler``/``stop_profiler`` (a
+``torch.profiler`` capture) and ``hvd.tracing`` (the job-wide tracer), ``SyncBatchNorm`` (``sync_batch_norm.py``) and
 ``hvd.elastic`` (``elastic/``: ``run``, ``TensorState``, ``TorchState``,
 ``ElasticSampler``).  ``horovod_tpu_torch.checkpoint`` and
 ``horovod_tpu_torch.data`` are imported on their own, and
@@ -77,10 +78,12 @@ from .runtime import (  # noqa: E402
     ddl_built, get_process_set_ids_and_ranks, gloo_built, gloo_enabled,
     init, is_homogeneous, is_initialized, local_rank, local_size,
     mpi_built, mpi_enabled, mpi_threads_supported, nccl_built, rank,
-    remove_process_set, rocm_built, shutdown, size, start_timeline,
-    stop_timeline, tpu_built, xla_built)
+    remove_process_set, rocm_built, shutdown, size, start_profiler,
+    start_timeline, stop_profiler, stop_timeline, tpu_built, xla_built)
 
 from .sync_batch_norm import SyncBatchNorm  # noqa: E402
+# the job-wide tracer (spans, the merge, the critical path)
+from . import tracing  # noqa: E402
 
 
 def __getattr__(name):
@@ -118,6 +121,7 @@ __all__ = [
     "HostsUpdatedInterrupt", "NotInitializedError", "elastic",
     "ProcessSet", "add_process_set", "remove_process_set",
     "get_process_set_ids_and_ranks", "start_timeline", "stop_timeline",
+    "start_profiler", "stop_profiler", "tracing",
     "mpi_threads_supported", "mpi_built", "mpi_enabled", "gloo_built",
     "gloo_enabled", "nccl_built", "ddl_built", "ccl_built", "cuda_built",
     "rocm_built", "xla_built", "tpu_built",

@@ -17,8 +17,10 @@ The port's rendezvous: each epoch forms afresh around a new
 epoch assignment via ``fetch_assignment``).  The driver only has to hand
 out consistent assignments and bump the epoch.  A store per epoch needs
 no driver-hosted KV store and no sweep of dead epochs' keys (the JAX
-package's ``runner/kv.py`` and ``_prune_dead_epoch_keys``).  Not ported
-yet: the job scraper (``metrics/jobscrape.py``, ROADMAP.md A9).
+package's ``runner/kv.py`` and ``_prune_dead_epoch_keys``).  Every
+job-level GET view delegates to the job scraper
+(``metrics/jobscrape.py``): ``metrics/job``, ``trace/job``,
+``recovery/stats`` and, once a serving plane attaches, ``serve/stats``.
 
 Checkpointless recovery (``elastic/recovery.py``): the driver serves the
 ``recovery_plan`` RPC (each rank's notification endpoint, where its
@@ -26,8 +28,7 @@ agent takes pushes and pulls) and ``recovery_note`` (a delivered push or
 a finished rebuild, the latter emitted as ``worker_rebuilt``), holds the
 :class:`~horovod_tpu_torch.elastic.recovery.RecoveryDirectory` they feed,
 prunes it on a worker's death and at every re-form, and serves it at GET
-``recovery/stats`` (the JAX driver serves that view through its job
-scraper).
+``recovery/stats`` through the job scraper.
 
 Two additions beyond the reference (the JAX package's, kept):
 
@@ -60,6 +61,7 @@ from typing import Dict, List, Optional
 
 from .. import chaos as _chaos
 from .. import metrics as _metrics
+from ..metrics import jobscrape as _jobscrape
 from ..runner import spawn
 from ..runner import secret as _secret
 from ..runner.hosts import HostInfo, assign_slots
@@ -222,6 +224,12 @@ class ElasticDriver:
         # directions is HMAC-verified (upstream runner request signing)
         os.environ.setdefault(_secret.SECRET_ENV, _secret.make_secret_key())
         self._epoch_t0 = time.monotonic()
+        # every job-level GET view delegates to the job scraper: the
+        # per-plane merge and degrade rules stay in their planes; the
+        # driver supplies the live endpoints and the recovery view
+        self._scraper = _jobscrape.JobScraper(
+            self._scrape_endpoints,
+            recovery_stats=lambda: self._recovery.stats())
         self._server = JsonRpcServer({
             "assignment": self._handle_assignment,
             "result": self._handle_result,
@@ -231,8 +239,13 @@ class ElasticDriver:
             "straggler": self._handle_straggler,
             "recovery_plan": self._handle_recovery_plan,
             "recovery_note": self._handle_recovery_note,
-        }, port=self.port)
-        self._server.add_get_routes({"recovery/stats": self._recovery_stats})
+        }, port=self.port, get_routes=self._scraper.routes())
+
+    def _scrape_endpoints(self):
+        # re-snapshotted under the lock on EVERY scrape: a re-form
+        # mid-scrape must see the new fleet, not a stale copy
+        with self._lock:
+            return {str(wid): ep for wid, ep in self._notif.items()}
 
     # --- serving plane -----------------------------------------------------
 
@@ -247,16 +260,9 @@ class ElasticDriver:
         requests instead of dropping them."""
         self._serving = plane
         self._server.add_handlers(plane.rpc_handlers())
-        self._server.add_get_routes({"serve/stats": self._serve_stats})
+        self._server.add_get_routes(
+            self._scraper.serving_routes(lambda: self._serving.stats()))
         self._emit("serving_attached")
-
-    def _serve_stats(self):
-        return (200, "application/json",
-                json.dumps(self._serving.stats(), separators=(",", ":")))
-
-    def _recovery_stats(self):
-        return (200, "application/json",
-                json.dumps(self._recovery.stats(), separators=(",", ":")))
 
     # --- lifecycle events --------------------------------------------------
 

@@ -213,13 +213,18 @@ class WorkerNotificationManager:
     """In-worker listener the driver pushes host updates to."""
 
     def __init__(self):
+        from .. import tracing as _tracing
         from . import recovery as _recovery
         self._listeners = []
-        # recovery_push / recovery_pull: the checkpointless-recovery plane
-        # — peers land redundancy frames here and a rejoining worker
-        # pulls its lost tiles back (elastic/recovery.py)
+        # trace_pull: the driver's GET /trace/job pulls this worker's span
+        # buffer (and its clock-offset probes) over the RPC transport
+        # every other control-plane call rides.  recovery_push /
+        # recovery_pull: the checkpointless-recovery plane — peers land
+        # redundancy frames here and a rejoining worker pulls its lost
+        # tiles back (elastic/recovery.py)
         self._server = JsonRpcServer(
             {"hosts_updated": self._on_update,
+             "trace_pull": _tracing.pull_handler,
              "recovery_push": _recovery.push_handler,
              "recovery_pull": _recovery.pull_handler})
         self._registered = False

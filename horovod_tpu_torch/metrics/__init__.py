@@ -30,8 +30,8 @@ guards on the module flags —
 docs/env.md; metric families and dump formats: docs/metrics.md.
 
 Counterpart: ``horovod_tpu/metrics/__init__.py``, copied, without what
-the port does not have yet (ROADMAP.md A9): the ``/trace``, ``/health``
-and ``/timeseries`` routes and the time-series sampler.  A per-rank dump
+the port does not have yet (ROADMAP.md A9): the ``/health`` and
+``/timeseries`` routes and the time-series sampler.  A per-rank dump
 file takes the port runtime's rank when it is initialized, else
 ``HOROVOD_RANK``.
 """
@@ -229,8 +229,10 @@ def healthz() -> dict:
 
 def get_routes() -> Dict[str, "callable"]:
     """Default GET routes every JsonRpcServer serves: ``/metrics``
-    (Prometheus text format) and ``/healthz`` (JSON liveness).  Each
-    route returns ``(status, content_type, body)``."""
+    (Prometheus text format), ``/healthz`` (JSON liveness) and ``/trace``
+    (this process's span buffer as a Chrome trace, the one-worker slice
+    of the driver's ``/trace/job``).  Each route returns ``(status,
+    content_type, body)``."""
     def _metrics_route():
         return (200, "text/plain; version=0.0.4; charset=utf-8",
                 render_prometheus())
@@ -238,7 +240,13 @@ def get_routes() -> Dict[str, "callable"]:
     def _healthz_route():
         return (200, "application/json", json.dumps(healthz()))
 
-    return {"metrics": _metrics_route, "healthz": _healthz_route}
+    def _trace_route():
+        from .. import tracing  # lazy: tracing pulls no metrics state
+        return (200, "application/json",
+                json.dumps(tracing.local_trace(), separators=(",", ":")))
+
+    return {"metrics": _metrics_route, "healthz": _healthz_route,
+            "trace": _trace_route}
 
 
 def _rank_and_size(environ) -> Tuple[int, int]:

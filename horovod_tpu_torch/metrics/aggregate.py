@@ -27,9 +27,6 @@ JAX package imports jax.
 from __future__ import annotations
 
 import re
-import threading
-import time
-import urllib.request
 from typing import Dict, List, Optional, Tuple
 
 from .registry import _escape, _fmt
@@ -195,9 +192,9 @@ def render(families: Dict[str, dict],
 
 def scrape(addr: str, port: int, route: str = "metrics",
            timeout: float = 2.0) -> str:
-    with urllib.request.urlopen(
-            f"http://{addr}:{port}/{route}", timeout=timeout) as resp:
-        return resp.read().decode("utf-8", errors="replace")
+    """One worker's exposition route (``jobscrape.http_get``)."""
+    from .jobscrape import http_get
+    return http_get(addr, port, route, timeout)
 
 
 def scrape_and_merge(endpoints: Dict[str, Tuple[str, int]],
@@ -208,49 +205,13 @@ def scrape_and_merge(endpoints: Dict[str, Tuple[str, int]],
     the route's latency is one timeout, not timeouts × dead workers —
     mid-churn (when half the endpoints are corpses) is exactly when
     this view matters, and a serial scrape would blow the caller's own
-    scrape deadline then.  The fan-out is :func:`_fan_out`."""
+    scrape deadline then.  The fan-out is ``jobscrape.fan_out``."""
     def _fetch(worker, addr, port):
         return parse_prometheus(scrape(addr, port, timeout=timeout))
 
-    per_worker, failed = _fan_out(endpoints, _fetch, budget=timeout + 1.0)
+    from .jobscrape import fan_out
+    per_worker, failed = fan_out(endpoints, _fetch, budget=timeout + 1.0)
     comments: List[str] = [f"worker {w} unreachable: {e}"
                            for w, e in failed.items()]
     comments.insert(0, f"aggregated over {len(per_worker)} worker(s)")
     return render(merge(per_worker), comments=tuple(comments))
-
-
-def _fan_out(endpoints: Dict[str, Tuple[str, int]], fetch, budget: float):
-    """Call ``fetch(worker, addr, port)`` for every endpoint on a daemon
-    thread each, under ONE shared deadline of ``budget`` seconds (a
-    per-thread join would degrade to N x timeout with several wedged
-    workers); a thread still running at the deadline reports
-    ``TimeoutError``.  Returns ``(ok, failed)`` keyed by worker, sorted.
-    The JAX package's ``metrics/jobscrape.py fan_out``, which the port
-    has no other caller for."""
-    results: Dict[str, object] = {}
-
-    def one(worker, addr, port):
-        try:
-            results[worker] = fetch(worker, addr, port)
-        except Exception as e:  # noqa: BLE001 - partial view is useful
-            results[worker] = e
-
-    threads = [threading.Thread(target=one, args=(str(w), a, p),
-                                name=f"hvd-scrape-{w}", daemon=True)
-               for w, (a, p) in endpoints.items()]
-    for t in threads:
-        t.start()
-    deadline = time.monotonic() + budget
-    for t in threads:
-        t.join(max(deadline - time.monotonic(), 0.0))
-    for w in endpoints:   # a wedged thread still reports as unreachable
-        results.setdefault(str(w), TimeoutError("scrape timed out"))
-    ok: Dict[str, object] = {}
-    failed: Dict[str, Exception] = {}
-    for w in sorted(results):
-        got = results[w]
-        if isinstance(got, Exception):
-            failed[w] = got
-        else:
-            ok[w] = got
-    return ok, failed

@@ -58,6 +58,7 @@ import torch.distributed as dist
 
 from .. import chaos as _chaos
 from .. import metrics as _metrics
+from .. import tracing as _tracing
 from ..compression import (WireFormat, dequantize_blocks, dequantize_sum,
                            quantization_error, quantize_blocks)
 from ..config import TAIL_POLICIES
@@ -321,6 +322,8 @@ def reduce_scatter_flat(buf: torch.Tensor, ps) -> torch.Tensor:
     the set's size; rank ``i`` gets the ``i``-th slice (JAX
     ``psum_scatter(..., tiled=True)``)."""
     n = ps.size()
+    if n == 1:
+        return buf.clone()
     out = buf.new_empty(buf.numel() // n)
     _run_flat(lambda o, i, group: dist.reduce_scatter_tensor(
         o, i, op=dist.ReduceOp.SUM, group=group),
@@ -331,6 +334,8 @@ def reduce_scatter_flat(buf: torch.Tensor, ps) -> torch.Tensor:
 def all_gather_flat(tile: torch.Tensor, ps) -> torch.Tensor:
     """Every rank's 1-D ``tile`` concatenated in rank order (JAX
     ``all_gather(..., tiled=True)``)."""
+    if ps.size() == 1:
+        return tile.clone()
     out = tile.new_empty(tile.numel() * ps.size())
     _run_flat(lambda o, i, group: dist.all_gather_into_tensor(
         _on_wire(o), _on_wire(i), group=group),
@@ -524,9 +529,13 @@ def tail_round(name: str, tail_policy: str, n_groups: int,
                staleness=None, stall=None, group_ranks=None):
     """One cross-host tail round: plan it (:func:`plan_tail_round`), wait
     the planned time, count it (``hvd_tail_rounds_total{policy}``),
-    record it in :data:`TAIL_ROUNDS`, and return the mask."""
+    record it in :data:`TAIL_ROUNDS` and, under ``HOROVOD_TRACE``, as a
+    ``dcn`` span (the phase the critical path pivots on: the policy, the
+    deadline, the excluded host groups and each group's lateness), and
+    return the mask."""
     t0 = time.monotonic()
-    present, wait_s, _ = plan_tail_round(
+    t_span = _tracing.now() if _tracing.ACTIVE else 0.0
+    present, wait_s, lateness = plan_tail_round(
         name, tail_policy, n_groups, deadline_s,
         max_staleness=max_staleness, staleness=staleness, stall=stall,
         group_ranks=group_ranks)
@@ -534,10 +543,16 @@ def tail_round(name: str, tail_policy: str, n_groups: int,
         _m_tail_rounds.inc(policy=tail_policy)
     if wait_s > 0:
         time.sleep(wait_s)
+    excluded = [g for g in range(n_groups) if present[g] == 0.0]
     TAIL_ROUNDS.append({
-        "name": name, "policy": tail_policy,
-        "excluded": [g for g in range(n_groups) if present[g] == 0.0],
+        "name": name, "policy": tail_policy, "excluded": excluded,
         "wait_s": float(wait_s), "seconds": time.monotonic() - t0})
+    if _tracing.ACTIVE:
+        _tracing.span(
+            "dcn", name, t_span, _tracing.now(), policy=tail_policy,
+            deadline_s=float(deadline_s), wait_s=round(float(wait_s), 6),
+            excluded=excluded,
+            lateness=[round(float(v), 6) for v in lateness])
     return present
 
 

@@ -47,7 +47,10 @@ active member's published point is the round's, on every member.  The
 stall inspector (``stall.py``) hears which ranks a round finds missing,
 and the rounds are counted in the JAX controller's metric families
 (``hvd_negotiation_rounds_total{kind}``, its duration histogram, and
-``hvd_kv_ops_total{op}`` for the store operations).
+``hvd_kv_ops_total{op}`` for the store operations).  Under
+``HOROVOD_TRACE`` each round is a ``negotiate`` span tagged with its
+round id and group key (``NegotiationResult.seq``, ``.group``): the key
+that lines the ranks' spans up in the merged job trace.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from collections import Counter, OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 from .. import metrics as _metrics
+from .. import tracing as _tracing
 from ..exceptions import HorovodInternalError, StallError
 
 logger = logging.getLogger("horovod_tpu_torch")
@@ -94,6 +98,10 @@ class NegotiationResult:
     aux: Dict[int, dict] = dataclasses.field(default_factory=dict)
     # the tuned parameters the round agreed (the lowest active publisher's)
     params: Optional[dict] = None
+    # the round's id in its member group and the group's key: the trace's
+    # cross-rank correlation key (seq advances in lockstep on every member)
+    seq: int = -1
+    group: str = ""
 
 
 def entry_token(entry) -> str:
@@ -282,28 +290,48 @@ class Controller:
         rank's view of the tuned parameters; the round returns the lowest
         active publisher's as ``NegotiationResult.params``.
         """
-        if not _metrics.ACTIVE:
+        if not _metrics.ACTIVE and not _tracing.ACTIVE:
             return self._negotiate(tokens, procs, aux, stalled, params)
         t0 = time.monotonic()
+        span_t0 = _tracing.now() if _tracing.ACTIVE else 0.0
         kind = "error"
+        res = None
         try:
             res = self._negotiate(tokens, procs, aux, stalled, params)
             kind = ("joined" if res.all_joined
                     else "fast" if res.fast else "full")
             return res
         finally:
-            _m_neg_rounds.inc(kind=kind)
-            _m_neg_dur.observe(time.monotonic() - t0, kind=kind)
+            if _metrics.ACTIVE:
+                _m_neg_rounds.inc(kind=kind)
+                _m_neg_dur.observe(time.monotonic() - t0, kind=kind)
+            if _tracing.ACTIVE:
+                # the round id is the cross-rank correlation key: seq
+                # advances in lockstep on every member of the group, so the
+                # driver's merge lines this span up with the peers' without
+                # a shared clock
+                seq = res.seq if res is not None else -1
+                _tracing.span(
+                    "negotiate", f"round{seq}", span_t0, _tracing.now(),
+                    round=seq, kind=kind,
+                    group=res.group if res is not None else "",
+                    tokens=len(tokens))
 
     def _negotiate(self, tokens, procs, aux, stalled, params
                    ) -> NegotiationResult:
+        gk = "g" + hashlib.sha1(
+            ",".join(map(str, procs)).encode()).hexdigest()[:12]
+        res = self._negotiate_round(gk, tokens, procs, aux, stalled, params)
+        res.group = gk
+        return res
+
+    def _negotiate_round(self, gk, tokens, procs, aux, stalled, params
+                         ) -> NegotiationResult:
         me = self.rank
         if me not in procs:
             raise HorovodInternalError(
                 f"rank {me} negotiating for a group it is not a member of: "
                 f"{procs}")
-        gk = "g" + hashlib.sha1(
-            ",".join(map(str, procs)).encode()).hexdigest()[:12]
         my_sorted = sorted(tokens)
         h = hashlib.sha1("\n".join(my_sorted).encode()).hexdigest()
 
@@ -350,7 +378,8 @@ class Controller:
             if not active:
                 # every rank has joined: resolve join() everywhere
                 last = max((vals[q].get("js", 0), q) for q in joined_ps)[1]
-                return NegotiationResult(all_joined=True, last_joiner=last)
+                return NegotiationResult(all_joined=True, last_joiner=last,
+                                         seq=seq)
 
             hashes = {vals[q]["h"] for q in active}
             if len(hashes) == 1 and not joined_ps:
@@ -363,7 +392,8 @@ class Controller:
                     else:
                         self.full_rounds += 1
                 return NegotiationResult(counts=Counter(tokens), fast=fast,
-                                         aux=aux_by_proc, params=agreed)
+                                         aux=aux_by_proc, params=agreed,
+                                         seq=seq)
 
             # mismatch (or join in progress): full request lists needed
             with self._lock:
@@ -386,6 +416,7 @@ class Controller:
             result = self._decide(gk, full, active, joined_ps, vals, me)
             result.aux = aux_by_proc
             result.params = agreed
+            result.seq = seq
             return result
 
     # -- decision function (identical on every member) -----------------------

@@ -41,7 +41,14 @@ quantized wire (``HOROVOD_COMPRESSION``) on its cross stage only unless
 (``HOROVOD_TAIL_POLICY``) on that stage; an allgather of equal sizes takes
 the hierarchical path under ``HOROVOD_HIERARCHICAL_ALLGATHER``.
 
-Left out until ROADMAP.md A9's rest: tracing (the engine's spans).
+Under ``HOROVOD_TRACE`` (``tracing/``) the engine records the JAX engine's
+spans: a ``cycle`` envelope for each drained batch, the ``submit`` phase
+(the earliest entry's enqueue to the drain), ``fuse`` (the plan) and one
+``dispatch`` a bucket, each tagged with the cycle's negotiation round and
+group.  While ``hvd.start_profiler`` runs, each dispatch is also a
+``torch.profiler.record_function`` range named after its bucket
+(``hvd.<op>[<tensors>]``, JAX's ``TraceAnnotation``), so the ranges and
+the collectives' CUDA kernels land in one trace.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from .. import metrics as _metrics
+from .. import tracing as _tracing
 from ..exceptions import HorovodInternalError, HorovodTpuError
 from ..runtime import ReduceOp
 from . import collectives
@@ -252,6 +260,10 @@ class CollectiveEngine:
         self._buckets = 0
         self._bytes = 0
         self._dispatch_s = 0.0    # host time planning and issuing buckets
+        self._executes = 0        # cycles that planned a dispatch set
+        # set by hvd.start_profiler/stop_profiler: each dispatch is then a
+        # torch.profiler range
+        self.profiling = False
         # device timing of allreduce phases (pack / reduce / unpack): off
         # unless a caller sets ``time_device``; read by device_ms()
         self.time_device = False
@@ -485,17 +497,37 @@ class CollectiveEngine:
             if _metrics.ACTIVE:
                 _m_cycles.inc()
                 _m_cycle_dur.observe(time.monotonic() - t_cycle)
+            if _tracing.ACTIVE:
+                # the envelope span (not on a round's critical path): one a
+                # drained batch; t_cycle is on time.monotonic, so its age
+                # is carried onto the buffer's clock
+                t1 = _tracing.now()
+                _tracing.span("cycle", f"cycle{self._cycle_count}",
+                              t1 - (time.monotonic() - t_cycle), t1,
+                              entries=len(entries))
             with self._cv:
                 self._cycle_active = False
                 self._cv.notify_all()
 
     def _run_cycle(self, entries: List[TensorTableEntry]):
         self._cycle_count += 1
+        t_drain = t_drain_mono = 0.0
+        ctl_on = self._controller is not None and self._controller.enabled
+        if _tracing.ACTIVE:
+            t_drain, t_drain_mono = _tracing.now(), time.monotonic()
+            # without negotiation every rank drains in lockstep, so the
+            # cycle count correlates across ranks (group ""); with it a
+            # cycle stays off the round path until its round is agreed
+            _tracing.set_context(round=-1 if ctl_on else self._cycle_count,
+                                 cycle=self._cycle_count, group="")
         self.timeline.cycle_mark(self._cycle_count)
-        if self._controller is not None and self._controller.enabled:
+        if ctl_on:
             with self._lock:
                 gen0 = self._submit_gen
-            entries = self._negotiate(entries)
+            entries, res = self._negotiate(entries)
+            if _tracing.ACTIVE and res is not None and res.seq >= 0:
+                # the agreed (group, round) tags this cycle's later spans
+                _tracing.set_context(round=res.seq, group=res.group)
             if not entries:
                 self.stall.check()
                 # nothing common this round: pace the retry, but wake at
@@ -504,18 +536,25 @@ class CollectiveEngine:
                     if self._submit_gen == gen0 and not self._stop:
                         self._cv.wait(timeout=self._pace_s)
                 return
+        if _tracing.ACTIVE and entries:
+            # the submit phase: the earliest agreed entry's enqueue to the
+            # drain, its age carried onto the buffer's clock
+            age = t_drain_mono - min(e.enqueue_time for e in entries)
+            _tracing.span("submit", f"cycle{self._cycle_count}",
+                          t_drain - age, t_drain, entries=len(entries))
         self._execute(entries)
 
     # -- cross-process negotiation (reference: ComputeResponseList) ---------
-    def _negotiate(self, entries: List[TensorTableEntry]
-                   ) -> List[TensorTableEntry]:
+    def _negotiate(self, entries: List[TensorTableEntry]):
         """Agree with the peer ranks on this cycle's dispatch set, per
         process set's member group.  Returns the entries every member is
-        ready for, plus zero contributions synthesized while joined;
-        requeues the rest."""
+        ready for, plus zero contributions synthesized while joined
+        (requeuing the rest), and the round that tags the cycle's spans:
+        the global group's, else the last group's (None without one)."""
         ctl = self._controller
         dispatch: List[TensorTableEntry] = []
         requeued: List[TensorTableEntry] = []
+        tag = None
         groups: Dict[Tuple[int, ...], List[TensorTableEntry]] = {}
         for e in entries:
             procs = tuple(e.process_set.ranks)
@@ -549,6 +588,8 @@ class CollectiveEngine:
             res = ctl.negotiate(tokens, procs,
                                 aux={"rw": rows} if rows else None,
                                 stalled=stalled, params=params)
+            if tag is None or procs == world:
+                tag = res
             if res.params is not None:
                 self._negotiated_params = res.params
             if rows:
@@ -567,7 +608,7 @@ class CollectiveEngine:
             with self._cv:
                 self._queue[:0] = requeued
                 self._cv.notify_all()
-        return dispatch
+        return dispatch, tag
 
     @staticmethod
     def _agree_rows(grp, tokens, procs, res: NegotiationResult):
@@ -678,13 +719,18 @@ class CollectiveEngine:
             # cached plans were built at the previous threshold
             self._cache.clear()
             self._last_threshold = threshold
+        t_fuse = _tracing.now() if _tracing.ACTIVE else 0.0
         plan = self._cache.get(sigs) if use_cache else None
+        cached = plan is not None
         if _metrics.ACTIVE and use_cache:
-            _m_plan_cache.inc(result="hit" if plan is not None else "miss")
+            _m_plan_cache.inc(result="hit" if cached else "miss")
         if plan is None:
             plan = self._plan_fn(sigs, threshold)
             if use_cache:
                 self._cache.put(sigs, plan)
+        if _tracing.ACTIVE:
+            _tracing.span("fuse", f"plan[{len(sigs)}]", t_fuse,
+                          _tracing.now(), buckets=len(plan), cached=cached)
         # the tuner's clock: from the cycle's start, batching window
         # included, when the background loop set it
         t_tune, self._cycle_started = (
@@ -725,6 +771,7 @@ class CollectiveEngine:
                 e.handle._resolve(outs, done)
         nbytes = sum(s.nbytes for s in sigs)
         with self._lock:
+            self._executes += 1
             self._tensors += len(sigs)
             self._buckets += len(plan)
             self._bytes += nbytes
@@ -806,8 +853,20 @@ class CollectiveEngine:
             names, op_type.upper(), args={"wire_format": eff,
                                           "tail_policy": tail,
                                           "hierarchical": hier})
-        self._dispatch_inner(entries, sigs, owner, base, bucket, results,
-                             ps, e0, eff, hier, tail)
+        t_disp = _tracing.now() if _tracing.ACTIVE else 0.0
+        # under hvd.start_profiler the dispatch is a profiler range (JAX's
+        # TraceAnnotation), beside the CUDA kernels it launches
+        rng = (torch.profiler.record_function(f"hvd.{op_type}[{len(bucket)}]")
+               if self.profiling else contextlib.nullcontext())
+        with rng:
+            self._dispatch_inner(entries, sigs, owner, base, bucket,
+                                 results, ps, e0, eff, hier, tail)
+        if _tracing.ACTIVE:
+            _tracing.span("dispatch", first.name, t_disp, _tracing.now(),
+                          op=op_type, tensors=len(bucket),
+                          bytes=sum(sigs[si].nbytes for si in bucket),
+                          wire_format=eff, tail_policy=tail,
+                          hierarchical=hier)
         self.timeline.activity_end(names)
 
     def _dispatch_inner(self, entries, sigs, owner, base, bucket, results,
@@ -876,7 +935,8 @@ class CollectiveEngine:
 
     def stats(self) -> dict:
         with self._lock:
-            out = {"cycles": self._cycle_count, "tensors": self._tensors,
+            out = {"cycles": self._cycle_count, "executes": self._executes,
+                   "tensors": self._tensors,
                    "buckets": self._buckets, "bytes": self._bytes,
                    "dispatch_ms": 1e3 * self._dispatch_s,
                    "cache": self._cache.stats(),

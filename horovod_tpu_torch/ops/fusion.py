@@ -3,11 +3,13 @@
 Counterpart: ``horovod_tpu/ops/fusion.py``, copied: ``EntrySig`` (the
 negotiation Request), ``plan_fusion`` (deterministic buckets up to
 ``HOROVOD_FUSION_THRESHOLD`` bytes, grouped entries atomic),
-``ResponseCache``, and the distributed optimizer's bucket layouts
-(``pad_to_multiple``, ``BucketLayout``, ``plan_bucket_layouts``) and
-overlapped dispatch order (``DispatchSchedule``, ``plan_dispatch``) give
-the same plans for the same signatures, which tests/test_torch_controller.py
-and tests/test_torch_overlap.py hold against the JAX package.  Torch dtypes
+``ResponseCache``, the sharding-spec fingerprints (``canonicalize_spec``,
+``spec_axes``, ``spec_shift``: what ``EntrySig.spec`` holds), and the
+distributed optimizer's bucket layouts (``pad_to_multiple``,
+``BucketLayout``, ``plan_bucket_layouts``) and overlapped dispatch order
+(``DispatchSchedule``, ``plan_dispatch``) give the same plans for the same
+signatures, which tests/test_torch_controller.py and
+tests/test_torch_overlap.py hold against the JAX package.  Torch dtypes
 enter by their names without the ``torch.`` prefix (:func:`dtype_name`),
 which are the JAX package's names for the same element widths.  The JAX
 package's native ``_hvd_core`` is not ported: this pure-Python planner is
@@ -131,6 +133,71 @@ class EntrySig:
                 1.0 if self.postscale is None else self.postscale,
                 self.wire_format, self.layer, self.tail_policy,
                 self.spec)
+
+
+def canonicalize_spec(spec) -> str:
+    """Canonical string fingerprint of one leaf's sharding spec (JAX
+    ``ops.fusion.canonicalize_spec``).
+
+    A spec is the port's per-dim form (a tuple, one entry a dim: an axis
+    name, a tuple of axis names, or None; ``()`` for a replicated leaf,
+    as ``models.llama.param_specs`` writes them), None, or a string.
+    ``"replicated"`` for None, an empty spec or an all-None one; else
+    ``"<dim>:<axis>[+<axis>],<dim>:<axis>"`` over the sharded dims in
+    order, e.g. ``(None, "tp")`` → ``"1:tp"`` and ``(("dp", "tp"),)`` →
+    ``"0:dp+tp"``: JAX's string for the matching ``PartitionSpec``, the
+    string the negotiation token's field 12 carries.  Canonical strings
+    pass through; a bare axis name shards dim 0."""
+    if spec is None:
+        return "replicated"
+    if isinstance(spec, str):
+        if spec == "replicated" or ":" in spec:
+            return spec
+        return f"0:{spec}"
+    parts = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+        axes = tuple(str(a) for a in axes if a is not None)
+        if axes:
+            parts.append(f"{dim}:{'+'.join(axes)}")
+    return ",".join(parts) if parts else "replicated"
+
+
+def spec_axes(canonical: str) -> Tuple[str, ...]:
+    """The mesh axes a canonical spec shards over, in spec order, each
+    once; ``()`` for ``"replicated"``."""
+    if canonical == "replicated":
+        return ()
+    axes: List[str] = []
+    for part in canonical.split(","):
+        for a in part.split(":", 1)[1].split("+"):
+            if a and a not in axes:
+                axes.append(a)
+    return tuple(axes)
+
+
+def spec_shift(canonical: str) -> str:
+    """The canonical spec of a leading-dim slice of a leaf with
+    ``canonical`` (a stacked ``[L, ...]`` leaf's layer): every dim index
+    one lower.  A spec sharding dim 0 raises: its slice has no dim to
+    carry the sharding.  (The port's layers are separate leaves, so its
+    own plans never shift: the function is kept for parity with the JAX
+    package, for specs written for a stacked tree.)"""
+    if canonical == "replicated":
+        return canonical
+    parts = []
+    for part in canonical.split(","):
+        dim, names = part.split(":", 1)
+        if int(dim) == 0:
+            raise ValueError(
+                f"spec {canonical!r} shards the leading (scan) dimension: "
+                f"a per-layer slice of this leaf has no dim to carry the "
+                f"sharding, so the stacked leaf cannot be layer-sliced "
+                f"under this spec")
+        parts.append(f"{int(dim) - 1}:{names}")
+    return ",".join(parts)
 
 
 def plan_fusion(entries: Sequence[EntrySig],

@@ -54,8 +54,22 @@ error-feedback residual and ``count``) to
 ``elastic.recovery.deliver_boundary`` (JAX: an in-jit tap through
 ``jax.debug.callback``); off-cadence boundaries copy nothing to the host.
 A replacement worker installs the pulled frame into a fresh ``init``
-with :func:`restore_dist_state`.  ``param_specs`` is ROADMAP.md A6 item 8;
-health taps A9.
+with :func:`restore_dist_state`.
+
+``param_specs`` (the spec plan, :class:`SpecPlan`; JAX's mesh-axis-aware
+plane): over a ``parallel.mesh.ParallelMesh`` the gradient plane factors
+into the data axis (the mesh's ``dp``) times the model axes
+(``model_axes``; default: the axes the specs name plus
+``HOROVOD_MODEL_AXES``).  Each leaf's canonical spec rides its
+``EntrySig``, so differently sharded leaves never share a bucket, and a
+bucket sums over each axis of (data + model axes) minus its spec's axes,
+one collective over that axis's group of the mesh; ``op=Average`` divides
+by the product of all those axes' sizes (the batch is taken to be sharded
+over all of them).  The contract, JAX's: a leaf's gradient arrives summed
+over its spec's axes and partial over the rest.  Under ``sharded_update``
+the ZeRO tiles run over the data axis within each model-shard group; with
+a wire format only the data-axis hop quantizes.  The health taps wait for
+ROADMAP.md A9.
 """
 
 from __future__ import annotations
@@ -73,8 +87,9 @@ import torch.distributed as dist
 from .. import api, runtime
 from ..compression import Compression, quantizable, resolve_wire_format
 from ..ops import collectives
-from ..ops.fusion import (BucketLayout, EntrySig, dtype_name,
-                          plan_bucket_layouts, plan_fusion)
+from ..ops.fusion import (BucketLayout, EntrySig, canonicalize_spec,
+                          dtype_name, plan_bucket_layouts, plan_fusion,
+                          spec_axes)
 from ..runtime import Average, ReduceOp
 from ..tree import tree_leaves, tree_map, tree_paths
 
@@ -114,17 +129,18 @@ def _resolve_threshold(threshold_bytes: Optional[int]) -> int:
 
 
 def _plan_buckets(leaves, names, op, prescale_factor, postscale_factor,
-                  threshold_bytes, wire_format: str = "none"):
-    """Leaves become EntrySigs named by their sorted paths, and the
-    engine's ``plan_fusion`` decides the buckets: the plan every rank
-    computes."""
+                  threshold_bytes, wire_format: str = "none", specs=None):
+    """Leaves become EntrySigs named by their sorted paths (with their
+    canonical ``specs`` under a spec plan), and the engine's
+    ``plan_fusion`` decides the buckets: the plan every rank computes."""
     sigs = [EntrySig(name=names[i], op_type="allreduce", reduce_op=str(op),
                      dtype=dtype_name(leaves[i].dtype),
                      shape=tuple(leaves[i].shape), process_set_id=0,
                      stacked=False, prescale=prescale_factor,
                      postscale=postscale_factor,
                      wire_format=(wire_format if quantizable(leaves[i].dtype)
-                                  else "none"))
+                                  else "none"),
+                     spec=specs[i] if specs is not None else "replicated")
             for i in range(len(leaves))]
     return plan_fusion(sigs, threshold_bytes), sigs
 
@@ -274,6 +290,172 @@ def _residual_leaves(residual, leaves):
 
 
 # ---------------------------------------------------------------------------
+# the spec plan: buckets over the axes of a ParallelMesh
+# ---------------------------------------------------------------------------
+
+def _axis_group(mesh, axis: str):
+    """``axis``'s group of ``mesh`` (a ``runtime.SubGroup``); for an axis
+    of size 1, this rank alone, over which the flat collectives are the
+    identity."""
+    g = mesh.group(axis)
+    return (g if g is not None
+            else runtime.SubGroup([runtime._state().rank], None))
+
+
+class SpecPlan(NamedTuple):
+    """The mesh-axis plan of one spec-aware transform (JAX ``SpecPlan``).
+
+    ``by_name`` maps a leaf's dotted path (``tree.tree_paths``) to its
+    canonical spec (``ops.fusion.canonicalize_spec``); ``model_axes`` are
+    the parameter-sharding axes beside ``data_axis``; ``mesh`` is the
+    ``ParallelMesh`` whose groups the buckets reduce over.  The contract:
+    a leaf's gradient arrives summed over every axis its spec shards over
+    and partial over the rest, so a bucket sums over ``(data_axis,) +
+    model_axes`` minus its spec's axes, and an ``op=Average`` divides by
+    the product of all their sizes (:meth:`global_size`)."""
+    by_name: Any
+    model_axes: Tuple[str, ...]
+    data_axis: str
+    mesh: Any = None
+
+    def specs_for(self, names):
+        """The canonical spec of each (path-sorted) gradient leaf."""
+        out = []
+        for n in names:
+            spec = self.by_name.get(n)
+            if spec is None:
+                raise ValueError(
+                    f"param_specs has no entry for gradient leaf {n}: the "
+                    f"spec tree must be congruent with the gradient and "
+                    f"parameter tree (every leaf needs a spec, () for a "
+                    f"replicated one)")
+            out.append(spec)
+        return out
+
+    def _resolve(self, axis: str) -> str:
+        """The mesh axis ``axis`` names (``ep`` aliased onto dp names
+        dp)."""
+        return self.mesh._resolve(axis) if self.mesh is not None else axis
+
+    def shard_axes(self, spec: str) -> set:
+        """The mesh axes a leaf with canonical ``spec`` is sharded over."""
+        return {self._resolve(a) for a in spec_axes(spec)}
+
+    def reduce_axes(self, spec: str) -> Tuple[str, ...]:
+        """The axes a bucket with canonical ``spec`` sums over."""
+        shard = self.shard_axes(spec)
+        return tuple(a for a in (self.data_axis,) + self.model_axes
+                     if a not in shard)
+
+    def check(self, sharded: bool, fmt) -> None:
+        """Refuse what the plan cannot run: under ``sharded`` (ZeRO) a
+        leaf sharded over the data axis, whose gradient arrives reduced
+        and sharded, leaving no axis to tile over; with a wire format
+        ``fmt``, a data axis of size 1 (only the data hop quantizes)."""
+        if sharded:
+            for nm, spec in sorted(self.by_name.items()):
+                if self.data_axis in self.shard_axes(spec):
+                    raise ValueError(
+                        f"sharded_update with param_specs: leaf {nm} is "
+                        f"sharded over the data axis {self.data_axis!r} "
+                        f"itself; its gradient arrives fully reduced and "
+                        f"sharded, leaving no axis to ZeRO-tile over; use "
+                        f"sharded_update=False for spec trees naming the "
+                        f"data axis")
+        if fmt is not None and self.mesh is not None \
+                and self.mesh.axis_size(self.data_axis) == 1:
+            raise ValueError(
+                f"wire_format with param_specs quantizes the data axis "
+                f"{self.data_axis!r}, which has size 1 on this mesh")
+
+    def global_size(self) -> int:
+        """The global batch degree: the product of the mesh's sizes of
+        the data axis and the model axes."""
+        if self.mesh is None:
+            raise ValueError("SpecPlan.global_size needs the ParallelMesh "
+                             "(make_spec_plan(..., mesh=pmesh))")
+        n = 1
+        for a in (self.data_axis,) + self.model_axes:
+            n *= self.mesh.axis_size(a)
+        return n
+
+    def sum_over(self, buf: torch.Tensor, axes) -> torch.Tensor:
+        """``buf`` summed over each of ``axes`` in turn, one all-reduce
+        over the axis's group of the mesh (counted in
+        ``parallel.axis.BYTES``); an axis of size 1 is the identity."""
+        from ..parallel import axis as ax
+        for a in axes:
+            g = self.mesh.group(a)
+            if g is not None:
+                buf = ax._all_reduce(buf, g, a)
+        return buf
+
+
+def _spec_items(tree, prefix: str = ""):
+    """``(dotted path, spec)`` of every leaf of a spec tree, in
+    ``tree.tree_paths`` order: dicts and lists are nodes, and a spec (a
+    tuple of per-dim entries, None or a string) is a leaf."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [x for k, v in items
+            for x in _spec_items(v, f"{prefix}.{k}" if prefix else str(k))]
+
+
+def make_spec_plan(param_specs, data_axis: str = "dp", model_axes=None,
+                   mesh=None) -> SpecPlan:
+    """A :class:`SpecPlan` from a spec tree congruent with the parameters
+    (``models.llama.param_specs``' per-dim tuples; JAX
+    ``make_spec_plan``).
+
+    ``model_axes`` defaults to the axes the specs name plus the validated
+    ``HOROVOD_MODEL_AXES`` (the runtime's config, else the environment),
+    sorted by name, without the data axis.  A spec may name the data axis
+    (an FSDP leaf arrives fully reduced, its bucket runs no collective);
+    ``model_axes`` may not.  ``mesh`` resolves the axes to groups and
+    sizes, and an alias of the data axis (``ep`` on a mesh without one)
+    to the data axis.
+
+    The contract counts every rank of the model axes as a batch shard.
+    A tp axis is not one (its ranks share one loss, and every leaf's
+    gradient arrives complete): pass ``model_axes=()`` for the Llama, so
+    that every bucket sums over the data axis alone."""
+    resolve = mesh._resolve if mesh is not None else (lambda a: a)
+    by_name = {path: canonicalize_spec(spec)
+               for path, spec in _spec_items(param_specs)}
+    if model_axes is None:
+        axes = set()
+        for spec in by_name.values():
+            axes.update(spec_axes(spec))
+        cfg = _config()
+        cfg_axes = (cfg.model_axes if cfg is not None
+                    else os.environ.get("HOROVOD_MODEL_AXES", ""))
+        axes.update(a.strip() for a in cfg_axes.split(",") if a.strip())
+        model_axes = tuple(sorted(a for a in axes
+                                  if resolve(a) != resolve(data_axis)))
+    else:
+        model_axes = tuple(model_axes)
+        if any(resolve(a) == resolve(data_axis) for a in model_axes):
+            raise ValueError(
+                f"model_axes {model_axes} must not contain the data axis "
+                f"{data_axis!r}: the data axis is the one the transform "
+                f"itself reduces over")
+    if mesh is not None:
+        unknown = [a for a in (data_axis,) + model_axes
+                   if resolve(a) not in mesh.axis_names]
+        if unknown:
+            raise ValueError(
+                f"axes {unknown} are not axes of the mesh "
+                f"{mesh.axis_names}: the spec plan reduces over the "
+                f"mesh's groups")
+    return SpecPlan(by_name=by_name, model_axes=model_axes,
+                    data_axis=data_axis, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
 # replicated buckets
 # ---------------------------------------------------------------------------
 
@@ -282,7 +464,7 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
                       compression=Compression.none,
                       prescale_factor: float = 1.0,
                       postscale_factor: float = 1.0,
-                      wire_format=None, residual=None):
+                      wire_format=None, residual=None, spec_plan=None):
     """Reduce a gradient tree over the process set, one collective a
     planned bucket, in place: returns ``grads`` with every leaf reduced.
 
@@ -294,11 +476,29 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
     unchanged.  ``op=Adasum`` combines the whole vector, refusing a wire
     format or a compressor; the full-width buckets of a Sum or Average
     take the hierarchical path under HOROVOD_HIERARCHICAL_ALLREDUCE.
+
+    ``spec_plan`` (a :class:`SpecPlan`) reduces over its mesh's axis
+    groups instead of ``process_set``: each bucket sums over the data and
+    model axes its spec does not shard over, and Average divides by the
+    global batch degree; with a wire format only the data-axis hop
+    quantizes, a replicated bucket's model hops running full-width first.
     """
     fmt = resolve_wire_format(wire_format)
     leaves, names, order = _tree_leaves_sorted(grads)
     if not leaves:
         return grads if fmt is None else (grads, residual)
+    if spec_plan is not None:
+        if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+            raise ValueError(
+                f"spec-aware reduction (param_specs) supports op=Average/"
+                f"Sum, got {op!r}: the per-bucket axis-set factoring relies "
+                f"on sum linearity")
+        _check_wire(fmt, compression, op)
+        spec_plan.check(False, fmt)
+        return _spec_reduce_tree(grads, leaves, names, order, spec_plan, op,
+                                 _resolve_threshold(threshold_bytes),
+                                 compression, prescale_factor,
+                                 postscale_factor, fmt, residual)
     ps = api._ps(process_set)
     if op == ReduceOp.ADASUM:
         _check_adasum(fmt, compression)
@@ -348,6 +548,55 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
     return grads, tree_map(lambda _: next(it), grads)
 
 
+@torch.no_grad()
+def _spec_reduce_tree(grads, leaves, names, order, sp: SpecPlan, op,
+                      threshold, compression, prescale, postscale, fmt,
+                      residual):
+    """:func:`fused_reduce_tree` under a spec plan (JAX's spec branch)."""
+    buckets, sigs = _plan_buckets(leaves, names, op, prescale, postscale,
+                                  threshold,
+                                  wire_format=fmt.name if fmt else "none",
+                                  specs=sp.specs_for(names))
+    global_n = sp.global_size()
+    data = sp.data_axis
+    res = _residual_leaves(residual, leaves) if fmt is not None else None
+    for bucket in buckets:
+        parts = [leaves[i] for i in bucket]
+        numel = sum(p.numel() for p in parts)
+        buf = _bucket_flat(parts, numel)
+        if prescale != 1.0:
+            buf = buf * torch.tensor(prescale).to(buf.dtype)
+        r_axes = sp.reduce_axes(sigs[bucket[0]].spec)
+        if fmt is not None and sigs[bucket[0]].wire_format != "none" \
+                and data in r_axes:
+            # the model hops run full-width (the replicated buckets hold
+            # the small leaves); only the data hop quantizes
+            buf = sp.sum_over(buf, [a for a in r_axes if a != data])
+            from ..parallel import axis as ax
+            ax._count(data, "all_reduce", buf)
+            red, nres = collectives.quantized_allreduce(
+                buf, sp.mesh.group(data), fmt, op=op, error_feedback=True,
+                residual=_bucket_flat([res[i] for i in bucket], numel),
+                denom=global_n)
+            for i, piece in zip(bucket, nres.split(
+                    [leaves[i].numel() for i in bucket])):
+                res[i] = piece.view(leaves[i].shape)
+        else:
+            wire, ctx = compression.compress(buf)
+            red = compression.decompress(sp.sum_over(wire, r_axes), ctx)
+            if op == ReduceOp.AVERAGE:
+                # a bucket sharded over every axis (an FSDP leaf over the
+                # data axis) ran no collective: only the division applies
+                red = red / global_n
+        if postscale != 1.0:
+            collectives._scale_(red, postscale)
+        _split_into(red, parts)
+    if fmt is None:
+        return grads
+    it = iter(_restore_order(res, order))
+    return grads, tree_map(lambda _: next(it), grads)
+
+
 # ---------------------------------------------------------------------------
 # ZeRO: reduce-scattered buckets and tiles
 # ---------------------------------------------------------------------------
@@ -366,13 +615,18 @@ class ShardedLayout(NamedTuple):
 
 
 def _sharded_layout(tree, shards: int, op, prescale_factor,
-                    postscale_factor, threshold_bytes, align: int = 1):
+                    postscale_factor, threshold_bytes, align: int = 1,
+                    spec_plan=None):
     """The ``plan_fusion`` buckets of ``tree``, each padded to a multiple
     of ``shards`` (times ``align``: a quantized wire needs block-aligned
-    tiles).  Returns ``(sorted_leaves, sorted_names, layout)``."""
+    tiles); under a ``spec_plan`` keyed by spec too, each bucket the local
+    model shard's, tiled over the data axis.  Returns ``(sorted_leaves,
+    sorted_names, layout)``."""
     leaves, names, order = _tree_leaves_sorted(tree)
-    buckets, sigs = _plan_buckets(leaves, names, op, prescale_factor,
-                                  postscale_factor, threshold_bytes)
+    buckets, sigs = _plan_buckets(
+        leaves, names, op, prescale_factor, postscale_factor,
+        threshold_bytes,
+        specs=spec_plan.specs_for(names) if spec_plan is not None else None)
     return leaves, names, ShardedLayout(
         skeleton=tree_map(lambda _: None, tree), order=tuple(order),
         shapes=tuple(tuple(x.shape) for x in leaves),
@@ -382,9 +636,12 @@ def _sharded_layout(tree, shards: int, op, prescale_factor,
 
 def shard_tree_like(tree, layout: ShardedLayout, process_set=None):
     """This rank's flat tile of each bucket of ``tree`` (e.g. the
-    parameters) under ``layout``: the tensors the sharded state lives on."""
+    parameters) under ``layout``: the tensors the sharded state lives on.
+    ``process_set`` may also be an axis group of a mesh."""
     leaves = _tree_leaves_sorted(tree)[0]
-    rank = api._ps(process_set).rank()
+    ps = (process_set if isinstance(process_set, runtime.SubGroup)
+          else api._ps(process_set))
+    rank = ps.rank()
     return tuple(_tile_of([leaves[i] for i in bl.indices], bl, rank)
                  for bl in layout.buckets)
 
@@ -395,13 +652,22 @@ def fused_reduce_scatter_tree(grads, process_set=None,
                               compression=Compression.none,
                               prescale_factor: float = 1.0,
                               postscale_factor: float = 1.0,
-                              wire_format=None, residual=None):
+                              wire_format=None, residual=None,
+                              spec_plan=None):
     """Reduce-scatter a gradient tree: each rank keeps its 1/N tile of
     every planned bucket.  Returns ``(tiles, layout)``, the tiles fully
     scaled and averaged; with a ``wire_format`` the scatter is quantized
     with error feedback (``residual`` as in :func:`fused_reduce_tree`) and
     the return is ``(tiles, layout, new_residual)``, the buckets padded to
-    a multiple of ``size × block_size``."""
+    a multiple of ``size × block_size``.
+
+    Under a ``spec_plan`` each bucket is the local model shard's, tiled
+    over the data axis's group (per-rank state total/(model × data) plus
+    padding): a replicated bucket first sums over the model axes, a
+    model-sharded one scatters over the data axis alone, and Average
+    divides by the global batch degree.  A spec naming the data axis is
+    refused: such a gradient arrives reduced and sharded, leaving no axis
+    to scatter over."""
     if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
         raise ValueError(
             f"fused_reduce_scatter_tree supports op=Average/Sum, got "
@@ -409,12 +675,18 @@ def fused_reduce_scatter_tree(grads, process_set=None,
             f"as a reduce-scatter of bucket tiles")
     fmt = resolve_wire_format(wire_format)
     _check_wire(fmt, compression, op)
-    ps = api._ps(process_set)
+    sp = spec_plan
+    if sp is not None:
+        sp.check(True, fmt)
+    ps = (_axis_group(sp.mesh, sp.data_axis) if sp is not None
+          else api._ps(process_set))
     n = ps.size()
-    leaves, _, layout = _sharded_layout(
+    leaves, names, layout = _sharded_layout(
         grads, n, op, prescale_factor, postscale_factor,
         _resolve_threshold(threshold_bytes),
-        align=fmt.block_size if fmt else 1)
+        align=fmt.block_size if fmt else 1, spec_plan=sp)
+    specs = sp.specs_for(names) if sp is not None else None
+    global_n = sp.global_size() if sp is not None else n
     res = _residual_leaves(residual, leaves) if fmt is not None else None
     tiles = []
     for bl in layout.buckets:
@@ -422,6 +694,14 @@ def fused_reduce_scatter_tree(grads, process_set=None,
         buf = _bucket_flat(parts, bl.padded_numel)
         if prescale_factor != 1.0:
             buf = buf * torch.tensor(prescale_factor).to(buf.dtype)
+        if sp is not None:
+            # a replicated bucket's model hops first; a model-sharded one
+            # arrives summed over its spec's axes
+            buf = sp.sum_over(buf, [a for a in sp.reduce_axes(
+                specs[bl.indices[0]]) if a != sp.data_axis])
+            if n > 1:
+                from ..parallel import axis as ax
+                ax._count(sp.data_axis, "psum_scatter", buf)
         if fmt is not None:
             rbuf = _bucket_flat([res[i] for i in bl.indices],
                                 bl.padded_numel).float()
@@ -436,8 +716,8 @@ def fused_reduce_scatter_tree(grads, process_set=None,
             wire, ctx = compression.compress(buf)
             tile = compression.decompress(
                 collectives.reduce_scatter_flat(wire, ps), ctx)
-        if op == ReduceOp.AVERAGE and n > 1:
-            tile = tile / n
+        if op == ReduceOp.AVERAGE and (sp is not None or n > 1):
+            tile = tile / global_n
         if postscale_factor != 1.0:
             collectives._scale_(tile, postscale_factor)
         tiles.append(tile)
@@ -448,13 +728,15 @@ def fused_reduce_scatter_tree(grads, process_set=None,
 
 def sharded_tile_layout(tree, shards: int, op: str = ReduceOp.AVERAGE,
                         threshold_bytes: Optional[int] = None,
-                        align: int = 1) -> ShardedLayout:
+                        align: int = 1, spec_plan=None) -> ShardedLayout:
     """The ZeRO bucket and tile layout of ``tree`` over ``shards`` ranks,
     from shapes and dtypes alone (``meta`` tensors will do): per-rank
-    sharded state is priced exactly from ``buckets[i].shard_numel``."""
+    sharded state is priced exactly from ``buckets[i].shard_numel``.
+    Under a ``spec_plan`` ``tree`` holds the local model shards and the
+    buckets are keyed by spec (the spec-aware transform's layout)."""
     return _sharded_layout(tree, shards, op, 1.0, 1.0,
                            _resolve_threshold(threshold_bytes),
-                           align=align)[2]
+                           align=align, spec_plan=spec_plan)[2]
 
 
 def all_gather_sharded_tree(tiles, layout: ShardedLayout, process_set=None,
@@ -727,6 +1009,41 @@ def _restore_dist(state: _DistState, snap: dict) -> None:
             a.copy_(b)
 
 
+def _varying(t, axis: str):
+    """The per-dim spec of a leaf varying over ``axis``: dim 0 over it
+    (``()`` for a scalar, which has no dim to carry it)."""
+    nd = t.dim() if torch.is_tensor(t) else 0
+    return (axis,) + (None,) * (nd - 1) if nd else ()
+
+
+def state_partition_specs(state: _DistState, axis_name: str = "dp",
+                          sharded_update: bool = False) -> _DistState:
+    """Per-dim specs (``models.llama.param_specs``' form) of a
+    :class:`_DistState`'s per-rank values (JAX ``state_partition_specs``):
+    a ``_DistState`` whose fields hold specs.
+
+    The accumulator of ``backward_passes_per_step`` and the error-feedback
+    residual hold this rank's own values, so they vary over ``axis_name``;
+    under ``sharded_update`` the inner optimizer's non-scalar state lives
+    on this rank's tiles and varies over it too (as do the tiles); the
+    rest (the inner state otherwise, scalars, ``count``) is replicated.
+    ``inner`` maps the inner optimizer's state as the recovery frame names
+    it (``"inner/<parameter index>/<key>"``), as it holds it now (a
+    ``torch.optim`` optimizer makes its state at the first step)."""
+    inner = {name: (_varying(v, axis_name) if sharded_update else ())
+             for name, v in _inner_state(state.inner).items()}
+
+    def varying(tree):
+        return (None if tree is None else
+                tree_map(lambda t: _varying(t, axis_name), tree))
+
+    return _DistState(
+        inner=inner, acc=varying(state.acc), count=(),
+        residual=varying(state.residual),
+        tiles=(None if state.tiles is None else
+               tuple(_varying(t, axis_name) for t in state.tiles)))
+
+
 class GradientTransformation(NamedTuple):
     """``init(params) -> state``; ``update(grads, state, params=None) ->
     state``, the parameters updated in place.  ``update`` is ``reduce``
@@ -758,7 +1075,8 @@ def DistributedGradientTransform(
         health_check_every: Optional[int] = None,
         param_specs=None,
         model_axes: Optional[Tuple[str, ...]] = None,
-        recovery=None) -> GradientTransformation:
+        recovery=None,
+        mesh=None) -> GradientTransformation:
     """Reduce gradients over the process set, then run ``inner``.
 
     ``inner`` is called with the tensors to update: the parameter leaves,
@@ -773,19 +1091,59 @@ def DistributedGradientTransform(
     arms the boundary snapshot; it refuses ``overlap``.
     Under ``overlap`` a wire format quantizes without error feedback and
     the residual stays None, as in the JAX package.
+
+    ``param_specs`` (a spec tree congruent with the parameters, per-dim
+    tuples as ``models.llama.param_specs`` gives them; default: the
+    ``param_specs`` of ``mesh``, else of the innermost entered
+    ``ParallelMesh``, as ``with pmesh.with_param_specs(specs):`` sets
+    them) makes the plane spec-aware over ``mesh`` (default: the entered
+    mesh): its ``dp`` axis is the data axis, ``model_axes`` are axes of
+    it too, and the buckets reduce over their groups (the module
+    docstring); the ``process_set`` does not apply.  It composes with ``sharded_update``
+    (which refuses a spec naming the data axis), ``wire_format`` and
+    ``overlap``; it needs op Average or Sum and refuses ``health``.
     """
-    for arg, on, what, item in (
-            ("health", bool(health), "the in-step health taps", "A9"),
+    if param_specs is None:
+        # the mesh context is the no-plumbing path: a transform built
+        # inside `with pmesh.with_param_specs(specs):` gets the spec tree
+        from ..parallel.mesh import current_mesh
+        m = mesh if mesh is not None else current_mesh()
+        if m is not None and m.param_specs is not None:
+            param_specs, mesh = m.param_specs, m
+    sp = None
+    if param_specs is not None:
+        if mesh is None:
+            from ..parallel.mesh import current_mesh
+            mesh = current_mesh()
+        if mesh is None:
+            raise ValueError(
+                "param_specs requires a ParallelMesh (mesh=, or a transform "
+                "built inside `with pmesh:`): the spec-aware reduction "
+                "factors the mesh into data x model axes and reduces over "
+                "their groups; a process set's tensors are full-width "
+                "(spec 'replicated') by construction")
+        if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+            raise ValueError(
+                f"param_specs supports op=Average/Sum, got {op!r}")
+        if health:
+            raise ValueError(
+                "health=True is not supported with param_specs yet: the "
+                "divergence sentinel's checksum gather assumes ONE "
+                "replication group, but a model-sharded leaf's checksums "
+                "legitimately differ across model shards")
+        if process_set is not None:
+            raise ValueError(
+                "param_specs reduces over the mesh's axis groups: pass "
+                "mesh=, not process_set")
+        sp = make_spec_plan(param_specs, "dp", model_axes, mesh=mesh)
+    for arg, on, what in (
+            ("health", bool(health), "the in-step health taps"),
             ("health_check_every", health_check_every is not None,
-             "the divergence sentinel", "A9"),
-            ("param_specs", param_specs is not None, "spec-aware reduction",
-             "A6 item 8, the spec plan"),
-            ("model_axes", model_axes is not None, "spec-aware reduction",
-             "A6 item 8, the spec plan")):
+             "the divergence sentinel")):
         if on:
             raise NotImplementedError(
                 f"DistributedGradientTransform({arg}=...): {what} is not "
-                f"ported yet (ROADMAP.md {item})")
+                f"ported yet (ROADMAP.md A9)")
     if inner is None:
         raise ValueError(
             "DistributedGradientTransform needs the inner optimizer's "
@@ -805,6 +1163,8 @@ def DistributedGradientTransform(
     else:
         fmt = resolve_wire_format(wire_format, wire_block_size)
     _check_wire(fmt, compression, op)
+    if sp is not None:
+        sp.check(sharded, fmt)
     ov = bool(overlap) if overlap is not None else _overlap_default()
     ov_plan = None
     if ov:
@@ -822,7 +1182,8 @@ def DistributedGradientTransform(
         ov_plan = _ov.OverlapPlan(
             process_set=None, op=op, threshold_bytes=threshold_bytes,
             prescale=prescale_factor, postscale=postscale_factor,
-            sharded=sharded, fmt=fmt, k=k, layers_key=overlap_layers)
+            sharded=sharded, fmt=fmt, k=k, layers_key=overlap_layers,
+            spec_plan=sp)
     if recovery is not None and ov_plan is not None:
         raise ValueError(
             "recovery is not supported with overlap=True: overlapped "
@@ -835,6 +1196,12 @@ def DistributedGradientTransform(
               prescale_factor=prescale_factor,
               postscale_factor=postscale_factor)
 
+    def _data_ps():
+        """The group the tiles and the data hop run over: the data axis's
+        of the mesh under a spec plan, else the process set."""
+        return (_axis_group(sp.mesh, sp.data_axis) if sp is not None
+                else api._ps(process_set))
+
     def _emit_recovery(boundary_ord: int, state: _DistState) -> None:
         """The cadence-gated boundary snapshot: the host copy happens only
         on the cadence."""
@@ -846,7 +1213,7 @@ def DistributedGradientTransform(
                                    recovery_payload(state))
 
     def init_fn(params) -> _DistState:
-        ps = api._ps(process_set)
+        ps = _data_ps()
         leaves = tree_leaves(params)
         acc = tree_map(torch.zeros_like, params) if k > 1 else None
         residual = (tree_map(lambda p: torch.zeros(
@@ -866,7 +1233,7 @@ def DistributedGradientTransform(
             _, _, layout = _sharded_layout(
                 params, ps.size(), op, prescale_factor, postscale_factor,
                 _resolve_threshold(threshold_bytes),
-                align=fmt.block_size if fmt else 1)
+                align=fmt.block_size if fmt else 1, spec_plan=sp)
             tiles = shard_tree_like(params, layout, ps)
         opt = inner(list(tiles) if sharded else leaves)
         return _DistState(inner=opt, acc=acc, count=0, residual=residual,
@@ -875,7 +1242,7 @@ def DistributedGradientTransform(
     def apply_fn(reduced, state: _DistState, keep_grads: bool = False):
         if sharded:
             _step_tiles(state.inner, state.tiles, reduced, state.layout,
-                        state.params, api._ps(process_set))
+                        state.params, _data_ps())
             return
         params = tree_leaves(state.params)
         for p, g in zip(params, reduced):
@@ -894,7 +1261,7 @@ def DistributedGradientTransform(
                 "param tree)")
 
     def _reduce(grads, state: _DistState):
-        red_kw = dict(kw, process_set=process_set)
+        red_kw = dict(kw, process_set=process_set, spec_plan=sp)
         if sharded:
             if fmt is not None:
                 tiles, layout, state.residual = fused_reduce_scatter_tree(

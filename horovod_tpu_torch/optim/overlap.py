@@ -37,6 +37,13 @@ cannot thread).  With ``backward_passes_per_step > 1`` pass
 ``count=state.count``: the taps dispatch only on the accumulation
 boundary.
 
+Under a spec plan (``param_specs``) each bucket carries its leaves' spec
+and reduces over the mesh's axes as ``optim.distributed`` describes; the
+port's layers are separate leaves, so a layer leaf's spec is the layer
+dict's own, with no dim to shift.  Under ``HOROVOD_TRACE`` the boundary
+staging (:func:`reduce_full`, :func:`scatter_tiles`) records an
+``overlap`` span off every round's path (``round=-1``).
+
 Streams: a tap records an event on the stream autograd runs it on; the
 plan's stream waits for it before reading the cotangents, which then
 carry ``record_stream`` so the caching allocator does not reuse them
@@ -56,6 +63,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import tracing as _tracing
 from ..compression import quantizable
 from ..ops import collectives
 from ..ops.fusion import (EntrySig, dtype_name, plan_bucket_layouts,
@@ -95,6 +103,35 @@ class OverlapPlan:
     # through ``last.stats()`` after the step
     time_device: bool = False
     last: Any = None
+    # the transform's optim.distributed.SpecPlan (None: the replicated
+    # plan over process_set, which is then the data axis's group)
+    spec_plan: Any = None
+
+    def tap_specs(self):
+        """The canonical spec of each tap-level leaf name (None without a
+        spec plan): a layer leaf's name within its layer dict (its
+        ``layers.<i>.`` prefix dropped) and a root leaf's path.  The
+        port's layers are separate leaves, so a layer leaf's spec is used
+        as it is (the JAX package shifts a stacked leaf's down a dim).  A
+        name that a root leaf and a layer leaf, or two layers, share with
+        different specs is ambiguous and raises."""
+        if self.spec_plan is None:
+            return None
+        merged: Dict[str, str] = {}
+        for name, spec in self.spec_plan.by_name.items():
+            parts = name.split(".")
+            key = (".".join(parts[2:]) if len(parts) > 2
+                   and parts[0] == self.layers_key and parts[1].isdigit()
+                   else name)
+            if key in merged and merged[key] != spec:
+                raise ValueError(
+                    f"overlap + param_specs: tap-level leaf name {key} is "
+                    f"ambiguous: leaves of the root and of the "
+                    f"{self.layers_key!r} stack share it with different "
+                    f"specs ({merged[key]} vs {spec}); rename one of the "
+                    f"leaves")
+            merged[key] = spec
+        return merged
 
     def consume(self):
         """The committed dispatch since the last consume, or None."""
@@ -149,6 +186,7 @@ class OverlapLayout(NamedTuple):
     buckets: Tuple[Any, ...]               # ops.fusion.BucketLayout
     dispatch: Any                          # ops.fusion.DispatchSchedule
     bucket_wire: Tuple[str, ...]           # wire format name per bucket
+    bucket_spec: Tuple[str, ...]           # canonical spec per bucket
 
     def fingerprint(self) -> Tuple:
         return (self.shapes, self.layers, self.buckets)
@@ -170,6 +208,8 @@ def build_layout(tree, plan: OverlapPlan,
     from .distributed import _resolve_threshold, _tree_leaves_sorted
     leaves, names, order = _tree_leaves_sorted(tree)
     layers = [_layer_of(n, plan.layers_key) for n in names]
+    specs = (plan.spec_plan.specs_for(names) if plan.spec_plan is not None
+             else ["replicated"] * len(names))
     sigs = [EntrySig(
         name=names[i], op_type="allreduce", reduce_op=str(plan.op),
         dtype=dtype_name(leaf.dtype), shape=tuple(leaf.shape),
@@ -177,7 +217,7 @@ def build_layout(tree, plan: OverlapPlan,
         postscale=plan.postscale,
         wire_format=(plan.fmt.name if plan.fmt is not None
                      and quantizable(leaf.dtype) else "none"),
-        layer=layers[i]) for i, leaf in enumerate(leaves)]
+        layer=layers[i], spec=specs[i]) for i, leaf in enumerate(leaves)]
     buckets = plan_fusion(sigs, _resolve_threshold(plan.threshold_bytes))
     align = plan.fmt.block_size if plan.fmt is not None else 1
     return leaves, OverlapLayout(
@@ -187,7 +227,8 @@ def build_layout(tree, plan: OverlapPlan,
         buckets=tuple(plan_bucket_layouts(sigs, buckets, max(shards, 1),
                                           align=align)),
         dispatch=plan_dispatch(sigs, buckets),
-        bucket_wire=tuple(sigs[b[0]].wire_format for b in buckets))
+        bucket_wire=tuple(sigs[b[0]].wire_format for b in buckets),
+        bucket_spec=tuple(sigs[b[0]].spec for b in buckets))
 
 
 def _shards(plan: OverlapPlan) -> int:
@@ -205,8 +246,17 @@ def _leaves_for(tree, layout: Optional[OverlapLayout], plan: OverlapPlan):
 # one bucket (shared by the taps and the boundary path)
 # ---------------------------------------------------------------------------
 
+def _spec_hops(plan: OverlapPlan, spec: str):
+    """(data-axis hop?, model axes to sum over first) of a bucket with
+    ``spec`` under the plan's spec plan."""
+    sp = plan.spec_plan
+    r_axes = sp.reduce_axes(spec)
+    return sp.data_axis in r_axes, [a for a in r_axes if a != sp.data_axis]
+
+
 def _reduce_bucket_(parts: List[torch.Tensor], bl, wire: str,
-                    plan: OverlapPlan, errors: Optional[list] = None) -> None:
+                    plan: OverlapPlan, errors: Optional[list] = None,
+                    spec: str = "replicated") -> None:
     """Full-width (or feedback-free quantized) reduction of one bucket,
     written back into ``parts``.  With ``errors`` (a list), a quantized
     bucket appends the squared norms of its quantization error and of its
@@ -216,6 +266,28 @@ def _reduce_bucket_(parts: List[torch.Tensor], bl, wire: str,
     buf = _bucket_flat(parts, bl.numel, pad=False)
     if plan.prescale != 1.0:
         buf = buf * torch.tensor(plan.prescale).to(buf.dtype)
+    sp = plan.spec_plan
+    if sp is not None:
+        data, m_axes = _spec_hops(plan, spec)
+        global_n = sp.global_size()
+        if plan.fmt is not None and wire != "none" and data:
+            # only the data hop quantizes
+            buf = sp.sum_over(buf, m_axes)
+            red, res = collectives.quantized_allreduce(
+                buf, ps, plan.fmt, op=plan.op,
+                error_feedback=errors is not None, denom=global_n)
+            if errors is not None:
+                errors.append((res.float().square().sum(),
+                               buf.float().square().sum()))
+        else:
+            red = sp.sum_over(buf, ([sp.data_axis] if data else [])
+                              + m_axes)
+            if plan.op == ReduceOp.AVERAGE:
+                red = red / global_n
+        if plan.postscale != 1.0:
+            collectives._scale_(red, plan.postscale)
+        _split_into(red, parts)
+        return
     if plan.fmt is not None and wire != "none":
         red, res = collectives.quantized_allreduce(
             buf, ps, plan.fmt, op=plan.op, error_feedback=errors is not None)
@@ -231,8 +303,8 @@ def _reduce_bucket_(parts: List[torch.Tensor], bl, wire: str,
 
 
 def _scatter_bucket(parts: List[torch.Tensor], bl, wire: str,
-                    plan: OverlapPlan,
-                    errors: Optional[list] = None) -> torch.Tensor:
+                    plan: OverlapPlan, errors: Optional[list] = None,
+                    spec: str = "replicated") -> torch.Tensor:
     """This rank's reduced tile of one bucket (``errors`` as in
     :func:`_reduce_bucket_`)."""
     from .distributed import _bucket_flat
@@ -240,6 +312,11 @@ def _scatter_bucket(parts: List[torch.Tensor], bl, wire: str,
     buf = _bucket_flat(parts, bl.padded_numel)
     if plan.prescale != 1.0:
         buf = buf * torch.tensor(plan.prescale).to(buf.dtype)
+    sp = plan.spec_plan
+    if sp is not None:
+        # a replicated bucket's model hops first; a model-sharded one
+        # arrives summed over its spec's axes
+        buf = sp.sum_over(buf, _spec_hops(plan, spec)[1])
     if plan.fmt is not None and wire != "none":
         tile, res = collectives.quantized_sum_scatter(
             buf.float(), ps, plan.fmt, error_feedback=errors is not None)
@@ -248,7 +325,9 @@ def _scatter_bucket(parts: List[torch.Tensor], bl, wire: str,
         tile = tile.to(buf.dtype)
     else:
         tile = collectives.reduce_scatter_flat(buf, ps)
-    if plan.op == ReduceOp.AVERAGE and ps.size() > 1:   # x / 1 is x
+    if plan.op == ReduceOp.AVERAGE and sp is not None:
+        tile = tile / sp.global_size()
+    elif plan.op == ReduceOp.AVERAGE and ps.size() > 1:   # x / 1 is x
         tile = tile / ps.size()
     if plan.postscale != 1.0:
         collectives._scale_(tile, plan.postscale)
@@ -268,23 +347,38 @@ def reduce_full(tree, plan: OverlapPlan,
     """Full-width reduction of ``tree`` under the layer-aware plan, in
     dispatch order, in place; returns ``tree``.  The same buckets and
     staging as the taps' dispatch."""
+    t_stage = _tracing.now() if _tracing.ACTIVE else 0.0
     leaves, layout = _leaves_for(tree, layout, plan)
     for b in layout.dispatch.order:
         bl = layout.buckets[b]
-        _reduce_bucket_(_parts(leaves, bl), bl, layout.bucket_wire[b], plan)
+        _reduce_bucket_(_parts(leaves, bl), bl, layout.bucket_wire[b], plan,
+                        spec=layout.bucket_spec[b])
+    if _tracing.ACTIVE:
+        # off every round's path (round=-1): when and how the overlap
+        # plan staged its buckets at the boundary
+        _tracing.span("overlap", "reduce_full", t_stage, _tracing.now(),
+                      round=-1, phase="bwd" if active() else "boundary",
+                      buckets=len(layout.buckets))
     return tree
+
 
 
 def scatter_tiles(tree, plan: OverlapPlan,
                   layout: Optional[OverlapLayout] = None):
     """Reduce-scatter ``tree`` under the layer-aware plan: this rank's tile
     of each bucket (plan order), and the layout."""
+    t_stage = _tracing.now() if _tracing.ACTIVE else 0.0
     leaves, layout = _leaves_for(tree, layout, plan)
     tiles: List[Optional[torch.Tensor]] = [None] * len(layout.buckets)
     for b in layout.dispatch.order:
         bl = layout.buckets[b]
         tiles[b] = _scatter_bucket(_parts(leaves, bl), bl,
-                                   layout.bucket_wire[b], plan)
+                                   layout.bucket_wire[b], plan,
+                                   spec=layout.bucket_spec[b])
+    if _tracing.ACTIVE:
+        _tracing.span("overlap", "scatter_tiles", t_stage, _tracing.now(),
+                      round=-1, phase="bwd" if active() else "boundary",
+                      buckets=len(layout.buckets))
     return tuple(tiles), layout
 
 
@@ -425,13 +519,15 @@ class _Dispatch:
                     iev.record(stream)
                     self.issue_events.append((b, iev))
             wire = self.layout.bucket_wire[b]
+            spec = self.layout.bucket_spec[b]
             if self.plan.sharded:
                 self.tiles[b] = _scatter_bucket(parts, bl, wire, self.plan,
-                                                self.errors)
+                                                self.errors, spec=spec)
                 for i in bl.indices:      # the tile is all this rank keeps
                     self.bufs[i] = None
             else:
-                _reduce_bucket_(parts, bl, wire, self.plan, self.errors)
+                _reduce_bucket_(parts, bl, wire, self.plan, self.errors,
+                                spec=spec)
             if stream is not None:
                 self.done = torch.cuda.Event(enable_timing=
                                              self.plan.time_device)

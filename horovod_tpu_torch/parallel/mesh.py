@@ -18,7 +18,10 @@ group: the engine shares it, so collectives over it must not run while
 the engine reduces.  ``ep=None`` aliases dp.
 
 A mesh entered as a context (``with pmesh:``) is :func:`current_mesh`,
-where the axis collectives of ``parallel/axis.py`` find their groups.
+where the axis collectives of ``parallel/axis.py`` find their groups, and
+where ``DistributedGradientTransform`` finds the parameters' specs
+(``param_specs``, set for one ``with`` block by :meth:`with_param_specs`)
+when it is built without a spec tree.
 """
 
 from __future__ import annotations
@@ -89,6 +92,13 @@ class ParallelMesh:
     def __init__(self, config: MeshConfig,
                  devices: Optional[Sequence[DeviceLike]] = None):
         self.config = config
+        # the parameters' specs over this mesh's axes (per-dim tuples, as
+        # models.llama.param_specs gives them): the spec-aware gradient
+        # plane (DistributedGradientTransform(param_specs=None)) reads them
+        # from current_mesh().  Assigned, they persist; with_param_specs
+        # scopes them to the next `with` block
+        self.param_specs = None
+        self._specs_scoped = False
         #: the global process set when the runtime is initialized
         self.process_set = None
         n = config.n_devices
@@ -171,6 +181,15 @@ class ParallelMesh:
                              f"again after hvd.init()")
         return g
 
+    def with_param_specs(self, param_specs) -> "ParallelMesh":
+        """Attach a spec tree for the NEXT ``with`` block (returns self, so
+        ``with pmesh.with_param_specs(specs):`` reads naturally).  Its
+        ``__exit__`` clears it, so a later ``with pmesh:`` does not inherit
+        stale specs; assign ``param_specs`` for a lasting attachment."""
+        self.param_specs = param_specs
+        self._specs_scoped = True
+        return self
+
     def __enter__(self):
         _ACTIVE_MESHES.append(self)
         return self
@@ -178,6 +197,9 @@ class ParallelMesh:
     def __exit__(self, *a):
         if _ACTIVE_MESHES and _ACTIVE_MESHES[-1] is self:
             _ACTIVE_MESHES.pop()
+        if self._specs_scoped:
+            self.param_specs = None
+            self._specs_scoped = False
         return False
 
 

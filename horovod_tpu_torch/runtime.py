@@ -453,6 +453,14 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
         metrics.init_from_env()
         if metrics.RECORDING:
             metrics.event("runtime.init", rank=rank, size=size)
+        # the tracing identity: spans carry this rank, its host and the
+        # elastic epoch, so the driver's /trace/job gives one pid a host
+        # and lines rounds up across incarnations
+        from . import tracing
+        tracing.init_from_env()
+        tracing.set_identity(process=rank,
+                             host=os.environ.get("HOROVOD_HOSTNAME") or None,
+                             epoch=epoch if epoch is not None else 0)
         _make_tools(st, cfg)
         from .ops.controller import Controller
         from .ops.engine import CollectiveEngine
@@ -648,6 +656,8 @@ def shutdown():
             if metrics.RECORDING:
                 metrics.event("runtime.shutdown")
             metrics.stop_exposition()
+            if _PROFILER:
+                stop_profiler()
             if st.engine is not None:
                 st.engine.stop()
             if st.timeline is not None:
@@ -725,6 +735,56 @@ def start_timeline(file_path: str, mark_cycles: bool = False):
 def stop_timeline():
     """Close the timeline's file (reference: hvd.stop_timeline)."""
     _require_init().timeline.close()
+
+
+#: the running ``start_profiler`` capture: ``[profile, logdir]``
+_PROFILER: list = []
+
+
+def start_profiler(logdir: str):
+    """Start a ``torch.profiler`` capture of the host and, on a CUDA
+    device, the card (JAX ``hvd.start_profiler`` over ``jax.profiler``).
+    Until :func:`stop_profiler` each engine dispatch is a
+    ``record_function`` range named after its bucket
+    (``hvd.<op>[<tensors>]``), so the collectives' ranges and the
+    kernels land in one trace, ranges from the engine's thread included
+    (the profiler is asked to record every thread)."""
+    st = _require_init()
+    if _PROFILER:
+        raise RuntimeError("start_profiler: a capture is already running; "
+                           "call stop_profiler() first")
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if st.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    try:
+        cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        cfg = None   # a torch without it records the caller's thread only
+    prof = profile(activities=acts, experimental_config=cfg)
+    prof.start()
+    _PROFILER[:] = [prof, logdir]
+    st.engine.profiling = True
+
+
+def stop_profiler() -> str:
+    """Stop the capture and write it to
+    ``<logdir>/hvd_profile.rank<r>.<pid>.json`` (a Chrome trace that
+    Perfetto and ``chrome://tracing`` load); returns the path."""
+    st = _require_init()
+    if not _PROFILER:
+        raise RuntimeError("stop_profiler: no capture is running; call "
+                           "start_profiler(logdir) first")
+    prof, logdir = _PROFILER
+    del _PROFILER[:]
+    if st.engine is not None:
+        st.engine.profiling = False
+    prof.stop()
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir,
+                        f"hvd_profile.rank{st.rank}.{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 # --- topology accessors (reference: horovod/common/basics.py) ---------------

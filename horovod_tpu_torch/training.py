@@ -48,6 +48,11 @@ tied embedding, the final norm) have their gradients summed over pp.
 classifiers (ResNet, MNIST): batch norm synchronized over dp through the
 model's forward, then the gradients, the loss and the accuracy averaged
 through the engine in one submission.
+
+The spec-aware gradient transform (``DistributedGradientTransform(
+param_specs=llama.param_specs(par, cfg), model_axes=())`` over the mesh)
+takes the model's gradients as they are: the tp ranks share one loss, so
+tp is no batch axis and every bucket sums over dp alone.
 """
 
 from __future__ import annotations

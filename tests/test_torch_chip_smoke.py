@@ -1453,3 +1453,178 @@ def test_chip_smoke_a6_phases_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert all(b["dp.all_gather"] > 0 and b["dp.psum_scatter"] > 0
                for b in run["bytes_per_step_by_rank"])
     assert serve["requests"] == 8 and all(serve["equal_world1"])
+
+
+# ---------------------------------------------------------------------------
+# the spec plan's and the tracer's phases
+# ---------------------------------------------------------------------------
+
+_SPEC_REHEARSAL = '''
+import dataclasses
+import sys
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+from horovod_tpu_torch.ops import flash_attention as fa
+_bench = chip_smoke.bench_config
+chip_smoke.bench_config = lambda llama, **over: dataclasses.replace(
+    _bench(llama, **over), vocab_size=512, d_model=256, n_heads=4,
+    n_kv_heads=2, d_ff=512, max_seq_len=128)
+for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+    setattr(torch.cuda, name, lambda *a, **k: None)
+torch.cuda.max_memory_allocated = lambda *a, **k: 0
+# the plain versions' calls stand for the kernels' launches
+for kernel, name in (("fwd", "_flash_fwd_bhtd"), ("dq", "_dq"),
+                     ("dkv", "_dkv")):
+    def counted(*a, _f=getattr(fa, name), _k=kernel, **k):
+        fa.LAUNCHES[_k] += 1
+        return _f(*a, **k)
+    setattr(fa, name, counted)
+child = {{"--spec-rank": chip_smoke.spec_child,
+          "--hier-rank": chip_smoke.hier_child}}[sys.argv[1]]
+sys.exit(child(int(sys.argv[2]), torch.device("cpu")))
+'''
+
+
+def _rehearsal(tmp_path):
+    wrapper = tmp_path / "ranks.py"
+    wrapper.write_text(_SPEC_REHEARSAL.format(
+        root=str(pathlib.Path(__file__).resolve().parents[1])))
+    return wrapper
+
+
+def test_chip_smoke_spec_phase_on_the_cpu(tmp_path, capsys, monkeypatch):
+    """train_tp2_dp2_spec whole at small widths on the CPU (four ranks of
+    dp 2 x tp 2, then one process), through every gate of the phase: the
+    reduced gradients and the updates against one process, the global
+    losses, the inner state's and the transform's bytes exactly the
+    plan's, the launches of each timed step."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # four ranks on few cores
+    res = chip_smoke.train_tp2_dp2_spec_phase(script=_rehearsal(tmp_path))
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [x["phase"] for x in lines] == ["train_tp2_dp2_spec"]
+    assert res["local_batch"] == [chip_smoke.SPEC_BATCH, 128]
+    plain, ctx = res["runs"]["explicit"], res["runs"]["context"]
+    assert not plain["sharded_update"] and ctx["sharded_update"]
+    # ZeRO's tiles hold about half of the shards' state, 1/dp
+    assert ctx["state_bytes_by_rank"][0] < plain["state_bytes_by_rank"][0]
+    # tp is no batch axis (model_axes=()): every bucket crosses dp only
+    for run, dp_key in ((plain, "dp.all_reduce"),
+                        (ctx, "dp.psum_scatter")):
+        assert set(run["transform_bytes_by_rank"][0]) == {dp_key}
+
+
+def _spec_res(**edit):
+    leaf = {"norms": [1.0, 1.001], "cos": 0.9999}
+    run = {"losses_by_rank": [[6.6, 5.9, 5.2, 4.6]] * 2
+           + [[6.7, 6.0, 5.3, 4.7]] * 2,
+           "global_losses": [6.65, 5.95, 5.25, 4.65],
+           "grad_parity_by_rank": [{"embed": dict(leaf)}] * 4,
+           "update_parity": {"embed": dict(leaf)},
+           "state_bytes_by_rank": [100] * 4,
+           "state_bytes_expected": [100] * 4,
+           "transform_bytes_by_rank": [{"dp.all_reduce": 8}] * 4,
+           "transform_bytes_expected": [{"dp.all_reduce": 8}] * 4,
+           "launches_per_step_by_rank": [
+               [chip_smoke.EXPECTED_SPEC_LAUNCHES] * 3] * 4}
+    run.update(edit)
+    return {"coords": [{"dp": r // 2, "tp": r % 2} for r in range(4)],
+            "losses_world1": [6.65, 5.95, 5.25, 4.65],
+            "runs": {"explicit": run}}
+
+
+def test_spec_gates_pass_and_fail():
+    assert chip_smoke.spec_problems(_spec_res()) == []
+    for edit, word in (
+            ({"losses_by_rank": [[6.6, 5.9, 5.2, 4.6], [6.6, 5.9, 5.2, 4.5]]
+              + [[6.7, 6.0, 5.3, 4.7]] * 2}, "tp ranks"),
+            ({"global_losses": [6.65, 5.95, 5.25, 4.8]}, "gaps"),
+            # a x2 slip in a reduced gradient
+            ({"grad_parity_by_rank": [{"embed": {"norms": [2.0, 1.0],
+                                                 "cos": 1.0}}] * 4},
+             "reduced gradient"),
+            ({"update_parity": {"embed": {"norms": [1.0, 1.0],
+                                          "cos": 0.9}}}, "update"),
+            ({"state_bytes_by_rank": [104] * 4}, "inner state"),
+            ({"transform_bytes_by_rank": [{"tp.all_reduce": 8,
+                                           "dp.all_reduce": 8}] * 4},
+             "bytes a step"),
+            ({"launches_per_step_by_rank": [[{"fwd": 4, "dq": 2,
+                                              "dkv": 2}] * 3] * 4},
+             "launches")):
+        bad = chip_smoke.spec_problems(_spec_res(**edit))
+        assert any(word in b for b in bad), (word, bad)
+
+
+def test_kernel_cases_hold_the_spec_paths_shape():
+    """train_tp2_dp2_spec's attention: SPEC_BATCH sequences a dp rank at
+    the 1B widths, the heads cut over tp, causal; in the summary's
+    cases."""
+    from horovod_tpu_torch.models import llama
+    c = chip_smoke.bench_config(llama)
+    tp = chip_smoke.SPEC_MESH["tp"]
+    assert dict(chip_smoke.KERNEL_CASES)["spec"] == (
+        chip_smoke.SPEC_BATCH, c.max_seq_len, c.n_heads // tp,
+        c.n_kv_heads // tp, c.head_dim, True)
+    assert "spec" in chip_smoke.MP_CASES
+
+
+def test_chip_smoke_hier_trace_on_the_cpu(tmp_path, monkeypatch):
+    """train_hier_dp4's four ranks at small widths on the CPU as two hosts
+    of two: the traced step's buffers pulled from every rank, merged into
+    one trace with a pid a host, every dcn span excluding host 1, and
+    host 1, which starts the step late, the top gating host.  (The
+    rehearsal counts no cross-entropy launch, so only the trace's gates
+    and the variants' weights are held here.)"""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    res, _ = chip_smoke._run_pair("--hier-rank", chip_smoke.HIER_TIMEOUT_S,
+                                  world=4, local_size=2,
+                                  script=_rehearsal(tmp_path))
+    chip_smoke.hier_trace(res)
+    assert chip_smoke.hier_trace_problems(res) == []
+    assert len(res[chip_smoke.HIER_TRACED]["steps"]) == 3
+    assert "trace" not in res[chip_smoke.HIER_TRACED]["steps"][1]
+    traced = res[chip_smoke.HIER_TRACED]["steps"][2]["trace"]
+    assert traced["hosts"] == ["host0", "host1"]
+    assert traced["top"][0] == "host1" and traced["rounds"] >= 1
+    assert all(st["identical"] for name, _ in chip_smoke.HIER_VARIANTS
+               for st in res[name]["steps"])
+
+
+def _trace_row(**on):
+    step = {"cycle": 1, "submit": 1, "negotiate": 0, "fuse": 1,
+            "dispatch": 66, "dcn": 0, "overlap": 0}
+    engine = {"cycles": 1, "executes": 1, "buckets": 66}
+    off = {"active": False, "losses": [10.9, 9.9], "dropped": 0,
+           "spans": [{k: 0 for k in step}] * 2, "engine": [engine] * 2}
+    run = {"active": True, "losses": [10.9, 9.9], "dropped": 0,
+           "spans": [dict(step)] * 2, "engine": [dict(engine)] * 2,
+           "profile": {"dispatch_ranges": 66, "buckets": 66,
+                       "flash_kernels": {k: 2 for k in
+                                         chip_smoke.FLASH_KERNEL_NAMES}}}
+    run.update(on)
+    return {"off": off, "on": run}
+
+
+def test_trace_gates_pass_and_fail():
+    ref = [10.9, 9.9]
+    assert chip_smoke.trace_problems(_trace_row(), ref) == []
+    bad_step = {"cycle": 1, "submit": 1, "negotiate": 0, "fuse": 1,
+                "dispatch": 65, "dcn": 0, "overlap": 0}
+    for edit, word in (
+            ({"losses": [10.9, 9.90001]}, "losses"),
+            ({"spans": [bad_step] * 2}, "spans"),
+            ({"dropped": 3}, "dropped"),
+            ({"profile": {"dispatch_ranges": 0, "buckets": 66,
+                          "flash_kernels": {"flash_fwd_kernel": 1}}},
+             "dispatch ranges"),
+            ({"profile": {"dispatch_ranges": 66, "buckets": 66,
+                          "flash_kernels": {"flash_fwd_kernel": 0}}},
+             "flash kernels")):
+        bad = chip_smoke.trace_problems(_trace_row(**edit), ref)
+        assert any(word in b for b in bad), (word, bad)
+    row = _trace_row()
+    row["off"]["spans"] = row["on"]["spans"]
+    assert any("HOROVOD_TRACE=0" in b
+               for b in chip_smoke.trace_problems(row, ref))

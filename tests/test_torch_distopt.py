@@ -145,11 +145,31 @@ def test_transform_options_and_refusals():
     hvd.init(device="cpu")
     try:
         make = tr._fp32_adamw_lp(1e-2)
-        for kw, item in (({"health": True}, "A9"),
-                         ({"param_specs": {}}, "A6")):
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP.md {item}"):
-                hvd.DistributedGradientTransform(make, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+            hvd.DistributedGradientTransform(make, health=True)
+        # the spec plan at world 1 (a mesh of one rank): every axis has
+        # size 1, so the spec-aware transform steps the parameters as the
+        # plain one does, bit for bit
+        from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+        pmesh = ParallelMesh(MeshConfig())
+        specs = {k: ("tp",) + (None,) * (np.asarray(v).ndim - 1)
+                 if np.asarray(v).ndim else ()
+                 for k, v in tr.zparams().items()}
+        got = {}
+        for name, kw in (("plain", {}), ("spec", {"param_specs": specs,
+                                                  "mesh": pmesh})):
+            tx = hvd.DistributedGradientTransform(
+                make, wire_format="none", threshold_bytes=64, **kw)
+            params = {k: tr._t(v) for k, v in tr.zparams().items()}
+            state = tx.init(params)
+            for step in range(2):
+                tx.update({k: tr._t(v) for k, v in
+                           tr.zgrads(0, step).items()}, state, params)
+            got[name] = params
+        assert all(torch.equal(got["plain"][k], got["spec"][k])
+                   for k in got["plain"])
+        with pytest.raises(ValueError, match="requires a ParallelMesh"):
+            hvd.DistributedGradientTransform(make, param_specs=specs)
         # recovery is ported (tests/test_torch_recovery.py): any object
         # with an ``every`` arms the tap, and overlap refuses it as in JAX
         hvd.DistributedGradientTransform(make, recovery=object())

@@ -335,8 +335,7 @@ def test_driver_exposes_no_recovery_or_kv_plane(nospawn):
     sweep.  The checkpointless-recovery RPCs are ported since: the plan
     answers with the epoch's peers, a note lands in the directory, a
     rebuild note emits ``worker_rebuilt`` and GET ``recovery/stats``
-    serves the directory (the JAX driver serves it through its job
-    scraper, A9)."""
+    serves the directory (through the job scraper, as in JAX)."""
     from horovod_tpu_torch.metrics import aggregate
     assert not hasattr(nospawn, "_kv_server")
     assert not hasattr(nospawn, "_prune_dead_epoch_keys")

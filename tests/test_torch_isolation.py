@@ -109,8 +109,7 @@ def test_elastic_surface_imports_without_jax():
 DELIBERATE = {"mesh", "worker_axis", "process_count", "process_index",
               "stack_on_workers", "worker_values", "compat", "version"}
 #: top-level names not ported yet, by ROADMAP.md item
-STILL_MISSING = {"start_profiler": "A9", "stop_profiler": "A9",
-                 "health": "A9", "tracing": "A9"}
+STILL_MISSING = {"health": "A9"}
 
 
 def test_top_level_names_resolve_as_in_jax():
@@ -129,7 +128,8 @@ def test_top_level_names_resolve_as_in_jax():
     assert missing - DELIBERATE == set(STILL_MISSING)
     import horovod_tpu_torch as hvd
     for name in ("NotInitializedError", "get_process_set_ids_and_ranks",
-                 "start_timeline", "stop_timeline"):
+                 "start_timeline", "stop_timeline", "start_profiler",
+                 "stop_profiler", "tracing"):
         assert name in hvd.__all__ and hasattr(hvd, name), name
     with pytest.raises(hvd.NotInitializedError):
         hvd.get_process_set_ids_and_ranks()
@@ -168,12 +168,11 @@ def test_subpackage_names_resolve_as_in_jax(sub):
 #: ``fused_tail_reduce_tree``: the port's ``fused_reduce_tree`` takes the
 #: hierarchical path itself; ``scale_by_adam_lp``: an optax
 #: transformation, where the port has the optimizer ``AdamWLP``) or by
-#: ROADMAP.md item (``state_partition_specs``: A6)
+#: ROADMAP.md item (none now)
 SUB_MISSING = {
     "runner": set(), "data": set(),
     "elastic": {"ArrayState", "TpuState"},
-    "optim": {"fused_tail_reduce_tree", "state_partition_specs",
-              "scale_by_adam_lp"},
+    "optim": {"fused_tail_reduce_tree", "scale_by_adam_lp"},
 }
 
 

@@ -482,6 +482,179 @@ def case_distopt(hvd, rank, world):
     return out
 
 
+# the spec plan at world 4 (data 2 x model 2): tests/test_fsdp_compose.py's
+# awkward leaves, ``w`` sharded over the model axis on dim 0
+SPEC_FULL = {"w": (8, 5), "b": (3,), "n": (6,)}
+SPEC_SPECS = {"w": ("tp",), "b": (), "n": ()}
+SPEC_STEPS, SPEC_K, SPEC_LR, SPEC_THRESHOLD = 4, 2, 1e-2, 64
+SPEC_CONFIGS = {
+    "plain": {},
+    "sharded": {"sharded_update": True},
+    # the same transforms with their specs from the mesh's context
+    "context": {},
+    "context_sharded": {"sharded_update": True},
+    # the layer-aware plan of overlap=True, run at the step boundary
+    "overlap": {"overlap": True},
+    "overlap_sharded": {"overlap": True, "sharded_update": True},
+}
+
+
+def spec_params():
+    """tests/test_fsdp_compose.py ``_full_params``."""
+    rng = np.random.default_rng(7)
+    return {k: np.asarray(rng.standard_normal(s) * 0.1, np.float32)
+            for k, s in SPEC_FULL.items()}
+
+
+def spec_grads():
+    """tests/test_fsdp_compose.py ``_full_grads(4, 4)``: per step, every
+    device's gradients ``[4, ...]`` (device ``d * 2 + m``)."""
+    rng = np.random.default_rng(11)
+    return [{k: (rng.standard_normal((4,) + s, dtype=np.float64)
+                 * 1e-2).astype(np.float32) for k, s in SPEC_FULL.items()}
+            for _ in range(SPEC_STEPS)]
+
+
+def spec_rank_grads(step_grads, dp, tp):
+    """Device ``(dp, tp)``'s gradients as the model hands them over: ``w``
+    summed over the model axis (its gather's transpose) and cut to this
+    rank's rows, the replicated leaves its own."""
+    g = {k: v[dp * 2 + tp] for k, v in step_grads.items()}
+    rows = SPEC_FULL["w"][0] // 2
+    full_w = step_grads["w"][dp * 2] + step_grads["w"][dp * 2 + 1]
+    g["w"] = full_w[tp * rows:(tp + 1) * rows]
+    return g
+
+
+def case_spec_plan(hvd, rank, world):
+    """DistributedGradientTransform(param_specs=...) over MeshConfig(dp=2,
+    tp=2), 4 steps of adamw_lp(1e-2) (bf16 moments) with k=2 and a
+    64-byte threshold, per :data:`SPEC_CONFIGS`: the parameters after the
+    steps, the inner state's bytes, the bytes each axis carried, and
+    ``state_partition_specs`` of the sharded state."""
+    from horovod_tpu_torch.optim import precision
+    from horovod_tpu_torch.optim.distributed import state_partition_specs
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    pmesh = ParallelMesh(MeshConfig(dp=2, tp=2))
+    dp, tp = pmesh.axis_index("dp"), pmesh.axis_index("tp")
+    rows = SPEC_FULL["w"][0] // 2
+    out = {"coords": (dp, tp)}
+    for name, kw in SPEC_CONFIGS.items():
+        common = dict(threshold_bytes=SPEC_THRESHOLD, wire_format="none",
+                      backward_passes_per_step=SPEC_K, model_axes=("tp",),
+                      **kw)
+        if name.startswith("context"):
+            with pmesh.with_param_specs(SPEC_SPECS):
+                tx = hvd.DistributedGradientTransform(
+                    precision.adamw_lp(SPEC_LR), **common)
+            assert pmesh.param_specs is None     # scoped to the block
+        else:
+            tx = hvd.DistributedGradientTransform(
+                precision.adamw_lp(SPEC_LR), param_specs=SPEC_SPECS,
+                mesh=pmesh, **common)
+        params = {k: _t(v) for k, v in spec_params().items()}
+        params["w"] = params["w"][tp * rows:(tp + 1) * rows].clone()
+        state = tx.init(params)
+        ax.reset_bytes()
+        for g in spec_grads():
+            state = tx.update({k: _t(v) for k, v in
+                               spec_rank_grads(g, dp, tp).items()},
+                              state, params)
+        out[name] = {"params": {k: _np(v).copy() for k, v in
+                                params.items()},
+                     "state_bytes": precision.tree_nbytes(
+                         list(state.inner.state.values())),
+                     "bytes": dict(ax.BYTES)}
+        if name == "sharded":
+            out[name]["partition"] = state_partition_specs(
+                state, "dp", sharded_update=True)
+            out[name]["tiles"] = [t.numel() for t in state.tiles]
+    return out
+
+
+SPEC_LLAMA_STEPS, SPEC_LLAMA_LR, SPEC_LLAMA_BATCH = 3, 0.05, (8, 16)
+
+
+def spec_llama_batch():
+    """(tokens, targets) of the global batch of :func:`case_spec_llama`."""
+    rng = np.random.RandomState(21)
+    return tuple(rng.randint(0, 256, SPEC_LLAMA_BATCH).astype(np.int64)
+                 for _ in range(2))
+
+
+def case_spec_llama(hvd, rank, world):
+    """The tiny fp32 Llama over MeshConfig(dp=2, tp=2) (vocab_parallel
+    off) trained by SGD through DistributedGradientTransform(
+    param_specs=llama.param_specs(par, cfg)) on the gradients as the
+    model gives them: with ``model_axes=()`` for 3 steps (``dp_only``)
+    and with the model axes inferred from the specs (tp) for 1
+    (``inferred``); the full parameters after the steps, gathered over
+    tp, and the bytes each axis carried."""
+    import torch
+    from horovod_tpu_torch import convert, training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import axis as ax
+    from horovod_tpu_torch.parallel.mesh import MeshConfig, ParallelMesh
+    from horovod_tpu_torch.tree import tree_leaves, tree_map, tree_paths
+    cfg = llama.tiny()
+    pmesh = ParallelMesh(MeshConfig(dp=2, tp=2))
+    ts = training.make_llama_train_step(cfg, pmesh, device="cpu")
+    specs = llama.param_specs(ts.par, cfg)
+    toks, tgts = (ts.shard_batch(torch.from_numpy(x))
+                  for x in spec_llama_batch())
+    out = {}
+    for name, model_axes, steps in (("dp_only", (), SPEC_LLAMA_STEPS),
+                                    ("inferred", None, 1)):
+        params, _ = ts.init_fn(0)
+        leaves = training.trainable_leaves(params)
+        tx = hvd.DistributedGradientTransform(
+            functools.partial(torch.optim.SGD, lr=SPEC_LLAMA_LR),
+            param_specs=specs, model_axes=model_axes, mesh=pmesh,
+            wire_format="none")
+        state = tx.init(params)
+        t_bytes = {}
+        for _ in range(steps):
+            with pmesh:
+                loss = llama.loss_fn(params, toks, tgts, cfg, ts.par)
+                g = iter(torch.autograd.grad(loss, leaves))
+            grads = tree_map(lambda _: next(g), params)
+            b0 = dict(ax.BYTES)
+            tx.update(grads, state, params)
+            for k, v in ax.BYTES.items():
+                t_bytes[k] = t_bytes.get(k, 0) + v - b0.get(k, 0)
+        full = convert.llama_gather_params(params, cfg, pmesh, ts.par)
+        out[name] = {"params": {p: _np(t.detach()).copy() for p, t in
+                                zip(tree_paths(full), tree_leaves(full))},
+                     "bytes": {k: v for k, v in t_bytes.items() if v}}
+    return out
+
+
+def case_tracing(hvd, rank, world):
+    """Three grouped allreduces through the engine with negotiation, this
+    rank named host ``host<rank>``: its span buffer's snapshot, the
+    engine's counters and one clock sample."""
+    import torch
+    from horovod_tpu_torch import tracing
+    eng = hvd.runtime._state().engine
+    st0 = eng.stats()
+    tracing.buffer().clear()
+    tracing.set_identity(host=f"host{rank}")
+    for i in range(3):
+        hvd.grouped_allreduce([torch.full((4,), float(rank)),
+                               torch.ones(3)], name=f"trace{i}")
+    # the cycle span closes after the handles resolve: wait for it
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and sum(
+            s["cat"] == "cycle" for s in tracing.buffer().snapshot()[
+                "spans"]) < eng.stats()["cycles"] - st0["cycles"]:
+        time.sleep(0.01)
+    st = eng.stats()
+    return {"snapshot": tracing.buffer().snapshot(),
+            **{k: st[k] - st0[k] for k in ("cycles", "executes",
+                                           "buckets")}}
+
+
 # the overlap toy: tests/test_overlap.py's model with its layers unstacked
 TOY_L, TOY_D, TOY_V = 3, 8, 5
 OVERLAP_CONFIGS = {
