@@ -121,6 +121,17 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            cycle spans the engine's counts, step ms and engine host ms
            both ways; then one step under hvd.start_profiler, whose trace
            file holds a range a bucket and the flash kernels
+  health_dp      the 1B at 16 layers (world 1 over NCCL), loss_fn's
+           gradients through DistributedGradientTransform(adamw_lp(3e-4),
+           health=False, then True, health_check_every=1) and tx.update:
+           the losses bit for bit both ways, no verdict on a clean run,
+           hvd_health_grad_norm set for every bucket, flash launches
+           30/16/16 a step; a collective.corrupt nan:0 rule on bucket
+           HEALTH_BUCKET from fresh weights gives a nonfinite verdict
+           naming worker 0, the bucket's name and the step; scale:0 after
+           the EWMA warm-up a grad_explosion verdict on it; step ms, a
+           profiled step's busy ms and idle share, the taps' device ms and
+           the host ms of their one device-to-host delivery, off and on
   train_dp2      two processes (this script with --dp2-rank) share the card
            over gloo (HOROVOD_CONTROLLER=gloo): 2 layers at full width with
            fused_xent=True, batch 8 x 1024 split 4 + 4, rank 1 submitting
@@ -212,7 +223,11 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            reform_s, sync_ms, step ms at sizes 1 and 2, peak memory, gloo
            bytes a step; one GET /trace/job from the driver while both
            workers run: both merged, none unreachable, each worker's clock
-           offset and every span's error bound
+           offset and every span's error bound; after the recovery, with
+           both workers paused at step 6, GET /health/job (both workers
+           monitored, the job healthy, ELASTIC_SLO's slo_breach verdict
+           among the history) and GET /timeseries/job (windows from both
+           workers, one a second)
   recover_resnet   checkpointless recovery: elastic_resnet's model,
            batch and SGD stepped by hand (forward, loss, backward,
            tx.update) through DistributedGradientTransform(sharded_update,
@@ -592,6 +607,16 @@ TRACE_PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_dq_kernel",
                       "flash_dkv_kernel")
 
+# health_dp: the health-armed transform on the 1B step.  HEALTH_STEPS clean
+# updates with health on (the first HEALTH_OFF_STEPS against health off,
+# bit for bit), then one under collective.corrupt scale:0 on bucket
+# HEALTH_BUCKET: past the evaluator's warm-up of 5 observations, so its
+# EWMA baseline is armed; the NaN run is one update from fresh weights
+HEALTH_OFF_STEPS = 4
+HEALTH_STEPS = 6
+HEALTH_BUCKET = 3
+HEALTH_BATCH = (8, 1024)
+
 # train_dp_tools: train_dp's step under HOROVOD_TIMELINE (cycle marks on)
 # and HOROVOD_AUTOTUNE, with a warm-up of 1 sample of 2 cycles: 6 steps
 # give the warm-up and 2 samples (one cycle a step), then one step into a
@@ -651,6 +676,16 @@ ELASTIC_DIGEST_STEPS = (3, 6)
 # the epoch_formed sizes of the four transitions, in order
 ELASTIC_FORMED_SIZES = [2, 2, 1, 2]
 ELASTIC_TIMEOUT_S = 180
+# the workers' time series (a window a second) and an SLO rule their own
+# traffic breaches: the engine's cycle rate (hvd_engine_cycles_total: the
+# gradients' allreduce, about one cycle a step) is at least one a window
+# in any window a step ends in, against a ceiling of 0.1, and 0 while the
+# workers wait at a pause, so the rule fires during steps 4-6 and
+# recovers at the pause of step 6 (its verdict stays in the history, the
+# job healthy again)
+ELASTIC_TIMESERIES_S = 1
+ELASTIC_SLO = "cycle_rate<=0.1@1w"
+ELASTIC_HEALTH_WAIT_S = 15
 # recover_resnet: elastic_resnet's model, batch and SGD as a ZeRO step
 # (DistributedGradientTransform, sharded_update) with checkpointless
 # recovery in neighbor mode at every boundary; steps 1-3 at size 2, rank
@@ -2635,6 +2670,175 @@ def tools_problems(row, train_row, expected):
         bad.append(f"autotune log header {log[:1]}")
     if sum(1 for line in log[1:] if line.endswith(",sample")) < 2:
         bad.append(f"autotune log has fewer than 2 sample rows: {log}")
+    return bad
+
+
+def health_dp_phase(hvd, fa, llama, training, adamw_lp, dev, over=None,
+                    batch=HEALTH_BATCH, profile=True):
+    """``health_dp``: the 1B step's gradients (``llama.loss_fn``, then
+    ``torch.autograd.grad``) through ``DistributedGradientTransform(
+    adamw_lp(3e-4), health=..., health_check_every=1)`` and ``tx.update``
+    under ``hvd.init()`` at world 1: health off for HEALTH_OFF_STEPS
+    updates, then on for HEALTH_STEPS clean ones and one under a
+    ``collective.corrupt`` ``scale:0`` rule on bucket HEALTH_BUCKET, then
+    one update under ``nan:0`` on it from fresh weights, each run with an
+    evaluator of its own.  Returns the emitted line: losses, verdicts,
+    launches a step, the buckets' names and the ones
+    ``hvd_health_grad_norm`` holds, and the cost off and on (step ms, a
+    profiled step's busy ms and idle share, the taps' device ms and the
+    host ms of their delivery).  ``over`` changes the config's fields and
+    ``profile`` False skips the profiled steps (the CPU rehearsal)."""
+    from horovod_tpu_torch import chaos, health, metrics
+    from horovod_tpu_torch.health import taps as htaps
+    from horovod_tpu_torch.tree import tree_map
+    cfg = bench_config(llama, **(over or {}))
+    rng = np.random.RandomState(0)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, batch),
+                           dtype=torch.long, device=dev)
+    tgts = torch.as_tensor(rng.randint(0, cfg.vocab_size, batch),
+                           dtype=torch.long, device=dev)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def run(armed: bool, steps: int, rule=None, rule_step=None,
+            prof=False):
+        """``steps`` updates from the seed-0 weights with the taps
+        ``armed``, ``rule`` installed for update ``rule_step`` (1-based);
+        ``prof`` profiles one more clean update."""
+        ev = health.HealthEvaluator()
+        old = health.swap_evaluator(ev)
+        params = llama.init_params(cfg, 0, device=dev)
+        leaves = training.trainable_leaves(params)
+        tx = hvd.DistributedGradientTransform(
+            adamw_lp(3e-4), health=armed, health_check_every=1)
+        state = tx.init(params)
+
+        def update():
+            loss = llama.loss_fn(params, toks, tgts, cfg)
+            g = iter(torch.autograd.grad(loss, leaves))
+            tx.update(tree_map(lambda _: next(g), params), state, params)
+            return loss.detach()
+
+        out = {"losses": [], "step_ms": [], "launches_per_step": [],
+               "emit_host_ms": []}
+        try:
+            for i in range(1, steps + 1):
+                sched = None
+                if rule is not None and i == rule_step:
+                    sched = chaos.FaultSchedule.parse(rule, seed=7)
+                    chaos.install(sched)
+                before = dict(fa.LAUNCHES)
+                sync()
+                t0 = time.perf_counter()
+                try:
+                    loss = update()
+                    sync()
+                finally:
+                    if sched is not None:
+                        chaos.uninstall()
+                out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                out["losses"].append(loss.item())
+                out["launches_per_step"].append(
+                    {k: fa.LAUNCHES[k] - before[k] for k in before})
+                if armed:
+                    out["emit_host_ms"].append(
+                        htaps.LAST_EMIT.get("emit_host_ms"))
+                if sched is not None:
+                    out["rule_fired"] = bool(
+                        sched.fired_at("collective.corrupt"))
+            if prof:
+                out["profile"] = profile_step(update)
+        finally:
+            health.swap_evaluator(old)
+        out["verdicts"] = [{k: v[k] for k in ("kind", "worker", "bucket",
+                                              "step", "detail")}
+                           for v in ev.verdicts()]
+        out["buckets"] = {str(d["bucket"]): name for name, d in
+                          ev.snapshot()["buckets"].items()}
+        del params, state, tx, leaves
+        if cuda:
+            torch.cuda.empty_cache()
+        return out
+
+    row = {"layers": cfg.n_layers, "batch": list(batch),
+           "bucket": HEALTH_BUCKET}
+    hvd.init(device=dev)
+    try:
+        row["off"] = run(False, HEALTH_OFF_STEPS, prof=profile)
+        fa.reset_launches()   # the path's run starts here
+        row["on"] = run(True, HEALTH_STEPS + 1,
+                        rule=f"collective.corrupt bucket={HEALTH_BUCKET} "
+                             f"nth=1 action=scale:0",
+                        rule_step=HEALTH_STEPS + 1, prof=profile)
+        row["launches"] = dict(fa.LAUNCHES)   # ... and ends here
+        row["grad_norm_buckets"] = sorted({
+            s["labels"]["bucket"] for s in metrics.registry().to_dict()[
+                "hvd_health_grad_norm"]["series"]
+            if s["labels"]["worker"] == "0"})
+        row["nan"] = run(True, 1,
+                         rule=f"collective.corrupt bucket={HEALTH_BUCKET} "
+                              f"nth=1 action=nan:0", rule_step=1)
+    finally:
+        hvd.shutdown()
+    if profile:
+        for mode in ("off", "on"):
+            p = row[mode]["profile"]
+            row[mode]["profile"] = {
+                k: p[k] for k in ("wall_ms", "device_busy_ms",
+                                  "device_idle_share")}
+            row[mode]["profile"]["taps_device_ms"] = p["annotated_ms"].get(
+                htaps.TAPS_RANGE)
+    emit("health_dp", **row)
+    return row
+
+
+def health_problems(row, expected):
+    """``health_dp``'s gates: the clean updates' losses with health on
+    those with it off bit for bit, finite, falling; no verdict before the
+    scale rule's update, and then one ``grad_explosion`` on
+    HEALTH_BUCKET's name at that step, worker 0; the NaN run's
+    ``nonfinite`` verdict on worker 0, the bucket and step 1; each rule
+    fired; ``hvd_health_grad_norm`` set for every bucket's name (worker
+    0); the flash launches of every update of the armed run
+    ``expected``."""
+    bad = []
+    off, on, nan = row["off"], row["on"], row["nan"]
+    n = len(off["losses"])
+    if on["losses"][:n] != off["losses"]:
+        bad.append(f"losses with health on {on['losses'][:n]} are not "
+                   f"those with it off {off['losses']} bit for bit")
+    clean = on["losses"][:-1]
+    if not all(math.isfinite(x) for x in clean) or \
+            not clean[-1] < clean[0]:
+        bad.append(f"clean losses {clean} not finite and falling")
+    last = len(on["losses"])
+    early = [v for v in on["verdicts"] if v["step"] < last]
+    if early:
+        bad.append(f"verdicts on clean updates: {early}")
+    name = on["buckets"].get(str(row["bucket"]))
+    if name is None:
+        bad.append(f"no bucket {row['bucket']} among {on['buckets']}")
+    for run, kind, step in ((on, "grad_explosion", last), (nan, "nonfinite",
+                                                           1)):
+        hits = [v for v in run["verdicts"] if v["kind"] == kind
+                and v["worker"] == 0 and v["bucket"] == row["bucket"]
+                and v["step"] == step and name is not None
+                and f"({name})" in v["detail"]]
+        if not hits:
+            bad.append(f"no {kind} verdict naming worker 0, bucket "
+                       f"{row['bucket']} ({name}) and step {step}: "
+                       f"{run['verdicts']}")
+        if not run.get("rule_fired"):
+            bad.append(f"the {kind} run's chaos rule never fired")
+    missing = set(on["buckets"].values()) - set(row["grad_norm_buckets"])
+    if missing or not on["buckets"]:
+        bad.append(f"hvd_health_grad_norm lacks buckets {sorted(missing)} "
+                   f"of {len(on['buckets'])}")
+    bad += [f"launches per step {st}, expected {expected}"
+            for st in on["launches_per_step"] if st != expected]
     return bad
 
 
@@ -4916,7 +5120,9 @@ def elastic_resnet_phase(worker_script=None):
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     env = {"HOROVOD_CONTROLLER": "gloo", "PYTHONPATH": str(root),
-           "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "120"}
+           "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "120",
+           "HOROVOD_TIMESERIES_EVERY_S": str(ELASTIC_TIMESERIES_S),
+           "HOROVOD_SLO": ELASTIC_SLO}
     worker_cmd = [sys.executable, str(worker_script or root / "chip_smoke.py"),
                   "--elastic-worker"]
 
@@ -4996,6 +5202,9 @@ def elastic_resnet_phase(worker_script=None):
             t_kill = time.time()
             os.kill(victim.proc.popen.pid, signal.SIGKILL)
             wait_for(steps_done(6, 2), "steps 4-6 after the kill")
+            # both workers wait at the pause of step 6: the job's health
+            # and time series from the driver
+            health_job = elastic_health_job(driver.port)
             hostfile.write_text("localhost:1\n")
             driver.wait_event("epoch_applied", left(),
                               match=lambda e: e["size"] == 1)
@@ -5079,7 +5288,7 @@ def elastic_resnet_phase(worker_script=None):
         losses={s: rank0[s]["loss"] for s in sorted(rank0)},
         losses_vs_reference=losses,
         exits=[info for name, info in events if name == "worker_exit"],
-        trace_job=trace_job,
+        trace_job=trace_job, health_job=health_job,
         reference_s=reference_s, elastic_s=elastic_s,
         seconds=time.monotonic() - t_phase)
     emit("elastic_resnet", **row)
@@ -5087,10 +5296,76 @@ def elastic_resnet_phase(worker_script=None):
             not trace_job["spans"]:
         bad.append(f"GET /trace/job: {trace_job['clock']}, unreachable "
                    f"{trace_job['unreachable']}, {trace_job['spans']} spans")
+    bad += health_job_problems(health_job, [r["wid"] for r in steps
+                                            if r["step"] == 6])
     if row["seconds"] > ELASTIC_TIMEOUT_S:
         bad.append(f"the phase took {row['seconds']:.1f} s")
     require(not bad, f"elastic_resnet: {bad}")
     return row
+
+
+def elastic_health_job(port: int) -> dict:
+    """``GET /health/job`` from the elastic driver on ``port`` until the
+    job is healthy again (the SLO rule recovered) or
+    ELASTIC_HEALTH_WAIT_S pass, then one ``GET /timeseries/job``: each
+    one's verdict, workers, windows and SLO breaches."""
+    import urllib.request
+
+    def get(route):
+        t0 = time.monotonic()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/{route}",
+                                    timeout=30.0) as resp:
+            body = json.loads(resp.read().decode())
+        return body, time.monotonic() - t0
+
+    t_end = time.monotonic() + ELASTIC_HEALTH_WAIT_S
+    polls = 0
+    while True:
+        job, seconds = get("health/job")
+        polls += 1
+        if job["verdict"] == "healthy" or time.monotonic() > t_end:
+            break
+        time.sleep(0.5)
+    ts, ts_seconds = get("timeseries/job")
+    return {
+        "rule": ELASTIC_SLO, "polls": polls, "seconds": seconds,
+        "verdict": job["verdict"], "scraped": job["scraped"],
+        "unreachable": job["unreachable"],
+        "unmonitored": job["unmonitored"], "workers": job["workers"],
+        "counts": job["counts"],
+        "slo_verdicts": [{k: v.get(k) for k in ("worker_id", "worker",
+                                                "step", "rule", "detail")}
+                         for v in job["verdicts"]
+                         if v.get("kind") == "slo_breach"],
+        "timeseries": {"seconds": ts_seconds, "scraped": ts["scraped"],
+                       "unreachable": ts["unreachable"],
+                       "workers": ts["workers"],
+                       "rates": ts["merged"]["rates"],
+                       "active_breaches": ts["slo"]}}
+
+
+def health_job_problems(hj, workers):
+    """``elastic_resnet``'s health and time-series gates: every worker of
+    step 6 (``workers``) scraped, monitored and healthy, the job verdict
+    healthy, an ``slo_breach`` verdict of ELASTIC_SLO in the history;
+    ``/timeseries/job`` with windows from each of them, none
+    unreachable."""
+    bad = []
+    want = sorted(str(w) for w in set(workers))
+    if hj["verdict"] != "healthy" or sorted(hj["workers"]) != want or \
+            hj["unreachable"] or hj["unmonitored"]:
+        bad.append(f"GET /health/job: {hj['verdict']}, workers "
+                   f"{sorted(hj['workers'])} (want {want}), unreachable "
+                   f"{hj['unreachable']}, unmonitored {hj['unmonitored']}")
+    if not any(v["rule"] == ELASTIC_SLO for v in hj["slo_verdicts"]):
+        bad.append(f"GET /health/job: no slo_breach verdict of "
+                   f"{ELASTIC_SLO}: {hj['counts']}")
+    ts = hj["timeseries"]
+    have = {w: info.get("windows", 0) for w, info in ts["workers"].items()}
+    if ts["unreachable"] or any(have.get(w, 0) < 1 for w in want):
+        bad.append(f"GET /timeseries/job: windows by worker {have} (want "
+                   f"{want}), unreachable {ts['unreachable']}")
+    return bad
 
 
 def elastic_trace_job(port: int) -> dict:
@@ -5968,6 +6243,11 @@ def main() -> int:
                   adamw_lp, dev)
     bad = trace_problems(trace, train_dp["losses"])
     require(not bad, f"trace_dp: {bad}")
+    # the health-armed transform: clean, then under the corrupt rules
+    health_dp = timed("health_dp", health_dp_phase, hvd, fa, llama,
+                      training, adamw_lp, dev)
+    bad = health_problems(health_dp, EXPECTED_LAUNCHES)
+    require(not bad, f"health_dp: {bad}")
     torch.cuda.empty_cache()
     timed("train_dp2", train_dp2_phase)
     timed("train_a5_dp2", train_a5_dp2_phase)
@@ -6062,7 +6342,8 @@ def main() -> int:
                          for steps in run["launches_per_step_by_rank"]],
                      "train_tp2_dp2_spec": [
                          n[k] for run in spec["runs"].values()
-                         for n in run["launches_by_rank"]]}
+                         for n in run["launches_by_rank"]],
+                     "health_dp": [health_dp["launches"][k]]}
             summary[-1]["launches_by_path"] = paths
             for path, counts in paths.items():
                 require(all(n > 0 for n in counts),

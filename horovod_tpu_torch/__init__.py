@@ -12,7 +12,9 @@ quantized wire formats) and the broadcast helpers
 (``optim/distributed.py``), ``overlapped_backprop``
 (``optim/overlap.py``), ``start_timeline``/``stop_timeline``
 (``timeline.py``), ``start_profiler``/``stop_profiler`` (a
-``torch.profiler`` capture) and ``hvd.tracing`` (the job-wide tracer), ``SyncBatchNorm`` (``sync_batch_norm.py``) and
+``torch.profiler`` capture), ``hvd.tracing`` (the job-wide tracer) and
+``hvd.health`` (the training-health plane), ``SyncBatchNorm``
+(``sync_batch_norm.py``) and
 ``hvd.elastic`` (``elastic/``: ``run``, ``TensorState``, ``TorchState``,
 ``ElasticSampler``).  ``horovod_tpu_torch.checkpoint`` and
 ``horovod_tpu_torch.data`` are imported on their own, and
@@ -84,6 +86,9 @@ from .runtime import (  # noqa: E402
 from .sync_batch_norm import SyncBatchNorm  # noqa: E402
 # the job-wide tracer (spans, the merge, the critical path)
 from . import tracing  # noqa: E402
+# training-health telemetry: hvd.health.note_loss / on_unhealthy are the
+# user hooks
+from . import health  # noqa: E402
 
 
 def __getattr__(name):
@@ -121,7 +126,7 @@ __all__ = [
     "HostsUpdatedInterrupt", "NotInitializedError", "elastic",
     "ProcessSet", "add_process_set", "remove_process_set",
     "get_process_set_ids_and_ranks", "start_timeline", "stop_timeline",
-    "start_profiler", "stop_profiler", "tracing",
+    "start_profiler", "stop_profiler", "tracing", "health",
     "mpi_threads_supported", "mpi_built", "mpi_enabled", "gloo_built",
     "gloo_enabled", "nccl_built", "ddl_built", "ccl_built", "cuda_built",
     "rocm_built", "xla_built", "tpu_built",

@@ -18,7 +18,10 @@ read by ``serving/plane.py``; ``HOROVOD_ELASTIC`` by ``runtime.init``
 ``HOROVOD_TAIL_*`` by the engine and the transform; ``HOROVOD_TIMELINE*``,
 ``HOROVOD_STALL_*`` and ``HOROVOD_AUTOTUNE*`` by ``runtime.init``;
 ``HOROVOD_RECOVERY*`` by ``elastic/recovery.RecoveryAgent`` (its
-defaults).
+defaults); ``HOROVOD_HEALTH*`` by ``health/`` and the transform,
+``HOROVOD_TIMESERIES*`` and ``HOROVOD_SLO`` (validated here by
+``metrics.slo.parse_rules``) by ``metrics/timeseries.py`` and
+``metrics/slo.py``.
 """
 
 from __future__ import annotations
@@ -35,10 +38,8 @@ WIRE_FORMATS = ("fp8_e4m3", "fp8_e5m2", "int8")
 TAIL_POLICIES = ("strict", "bounded", "stale")
 
 #: (environment variable, Config field, ROADMAP.md item) of every knob
-#: whose feature is not ported yet
-UNPORTED = (
-    ("HOROVOD_SLO", "slo", "A9"),
-)
+#: whose feature is not ported yet (none now)
+UNPORTED = ()
 
 
 def check_ported(c: "Config") -> None:
@@ -440,6 +441,12 @@ class Config:
                 f"HOROVOD_TIMESERIES_WINDOW must be >= 2 (one window "
                 f"of history is no trend), got {c.timeseries_window}")
         c.slo = (_env_str("HOROVOD_SLO", c.slo) or "").strip()
+        if c.slo:
+            from .metrics.slo import parse_rules
+            try:
+                parse_rules(c.slo)
+            except ValueError as e:
+                raise ValueError(f"HOROVOD_SLO invalid: {e}") from None
         c.serve = _env_bool("HOROVOD_SERVE", c.serve)
         c.serve_tick_ms = _env_float(
             "HOROVOD_SERVE_TICK_MS", c.serve_tick_ms)

@@ -418,6 +418,13 @@ class ElasticDriver:
                 logger.warning(
                     "worker %d FAILURE flight recorder (last %d "
                     "events):\n%s", wid, len(flight), tail)
+            windows = payload.get("timeseries") or []
+            if windows:
+                from ..metrics import timeseries as _timeseries
+                logger.warning(
+                    "worker %d FAILURE time-series (last %d "
+                    "window(s)):\n%s", wid, len(windows),
+                    _timeseries.render_windows(windows))
         self.registry.record_result(wid, payload["status"],
                                     payload.get("hostname"))
         if _metrics.ACTIVE:

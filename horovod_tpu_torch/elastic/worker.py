@@ -20,8 +20,10 @@ waiting on a SIGKILLed peer fails at once instead of at its deadline
 coordination service's heartbeat.
 
 The listener's server also serves ``recovery_push``/``recovery_pull`` for
-the process's installed ``RecoveryAgent`` (``elastic/recovery.py``), as
-the JAX worker's does.
+the process's installed ``RecoveryAgent`` (``elastic/recovery.py``),
+``trace_pull`` (the driver's ``GET /trace/job``) and ``health_pull`` (its
+``GET /health/job``), as the JAX worker's does; a FAILURE report carries
+the flight recorder's last events and the last time-series windows.
 """
 
 from __future__ import annotations
@@ -200,6 +202,14 @@ def record_result(status: str):
         # worker
         payload["flight"] = _metrics.flight_events(
             limit=_metrics.FAILURE_REPORT_EVENTS)
+    if status != "SUCCESS":
+        from ..metrics import timeseries as _timeseries
+        if _timeseries.ACTIVE:
+            # ...and the trend lines: what the worker's rates looked like
+            # before it died (none when the sampler never ran)
+            windows = _timeseries.report_windows()
+            if windows:
+                payload["timeseries"] = windows
     try:
         # idempotent=False: a retried FAILURE report must not count the
         # host failure twice; bounded: a dying worker's best-effort goodbye
@@ -213,18 +223,21 @@ class WorkerNotificationManager:
     """In-worker listener the driver pushes host updates to."""
 
     def __init__(self):
+        from .. import health as _health
         from .. import tracing as _tracing
         from . import recovery as _recovery
         self._listeners = []
         # trace_pull: the driver's GET /trace/job pulls this worker's span
         # buffer (and its clock-offset probes) over the RPC transport
-        # every other control-plane call rides.  recovery_push /
+        # every other control-plane call rides; health_pull the same shape
+        # for the training-health verdicts.  recovery_push /
         # recovery_pull: the checkpointless-recovery plane — peers land
         # redundancy frames here and a rejoining worker pulls its lost
         # tiles back (elastic/recovery.py)
         self._server = JsonRpcServer(
             {"hosts_updated": self._on_update,
              "trace_pull": _tracing.pull_handler,
+             "health_pull": _health.pull_handler,
              "recovery_push": _recovery.push_handler,
              "recovery_pull": _recovery.pull_handler})
         self._registered = False

@@ -29,10 +29,13 @@ guards on the module flags —
 (``HOROVOD_METRICS=0`` / ``HOROVOD_FLIGHT_RECORDER=0``).  Env table:
 docs/env.md; metric families and dump formats: docs/metrics.md.
 
-Counterpart: ``horovod_tpu/metrics/__init__.py``, copied, without what
-the port does not have yet (ROADMAP.md A9): the ``/health`` and
-``/timeseries`` routes and the time-series sampler.  A per-rank dump
-file takes the port runtime's rank when it is initialized, else
+Beside them, every server's ``/health`` (this process's training-health
+snapshot, ``health/``) and ``/timeseries`` (its windowed-delta ring,
+``metrics/timeseries.py``, whose sampler and SLO watchdog start here at
+``hvd.init()`` and stop at shutdown).
+
+Counterpart: ``horovod_tpu/metrics/__init__.py``, copied.  A per-rank
+dump file takes the port runtime's rank when it is initialized, else
 ``HOROVOD_RANK``.
 """
 
@@ -229,10 +232,14 @@ def healthz() -> dict:
 
 def get_routes() -> Dict[str, "callable"]:
     """Default GET routes every JsonRpcServer serves: ``/metrics``
-    (Prometheus text format), ``/healthz`` (JSON liveness) and ``/trace``
+    (Prometheus text format), ``/healthz`` (JSON liveness), ``/trace``
     (this process's span buffer as a Chrome trace, the one-worker slice
-    of the driver's ``/trace/job``).  Each route returns ``(status,
-    content_type, body)``."""
+    of the driver's ``/trace/job``), ``/health`` (this process's
+    training-health snapshot, the slice of the driver's ``/health/job``;
+    NOT ``/healthz``, which is liveness) and ``/timeseries`` (this
+    process's windowed metric-delta ring, the slice of
+    ``/timeseries/job``).  Each route returns ``(status, content_type,
+    body)``."""
     def _metrics_route():
         return (200, "text/plain; version=0.0.4; charset=utf-8",
                 render_prometheus())
@@ -245,8 +252,19 @@ def get_routes() -> Dict[str, "callable"]:
         return (200, "application/json",
                 json.dumps(tracing.local_trace(), separators=(",", ":")))
 
+    def _health_route():
+        from .. import health  # lazy: health imports this package
+        return (200, "application/json", health.routes_json())
+
+    def _timeseries_route():
+        from . import timeseries  # lazy: timeseries imports this package
+        return (200, "application/json",
+                json.dumps(timeseries.local_payload(),
+                           separators=(",", ":")))
+
     return {"metrics": _metrics_route, "healthz": _healthz_route,
-            "trace": _trace_route}
+            "trace": _trace_route, "health": _health_route,
+            "timeseries": _timeseries_route}
 
 
 def _rank_and_size(environ) -> Tuple[int, int]:
@@ -270,11 +288,15 @@ def init_from_env(environ=os.environ):
     * refresh the ACTIVE / RECORDING flags from the environment,
     * install the SIGUSR1 dump handler (best effort),
     * start the periodic JSON dump thread (``HOROVOD_METRICS_DUMP``),
-    * start a standalone scrape server (``HOROVOD_METRICS_PORT``).
+    * start a standalone scrape server (``HOROVOD_METRICS_PORT``),
+    * start the time-series sampler and the SLO watchdog
+      (``HOROVOD_TIMESERIES*`` / ``HOROVOD_SLO``).
     """
     global ACTIVE, RECORDING, _dump_thread, _dump_stop, _http_server
     ACTIVE = _env_on(ENV_ENABLE, environ=environ)
     RECORDING = _env_on(ENV_FLIGHT, environ=environ)
+    from . import timeseries  # lazy: timeseries imports this package
+    timeseries.init_from_env(environ)
     if RECORDING:
         # only claim SIGUSR1 when a dump would actually be written — a
         # disabled recorder must not clobber an app's own handler
@@ -314,9 +336,12 @@ def init_from_env(environ=os.environ):
 
 
 def stop_exposition():
-    """Stop the dump thread (flushing one last snapshot) and the
-    standalone scrape server.  Safe to call repeatedly."""
+    """Stop the dump thread (flushing one last snapshot), the
+    time-series sampler, and the standalone scrape server.  Safe to call
+    repeatedly."""
     global _dump_thread, _dump_stop, _http_server
+    from . import timeseries  # lazy: timeseries imports this package
+    timeseries.stop_sampler()
     if _dump_stop is not None:
         _dump_stop.set()
         if _dump_thread is not None:

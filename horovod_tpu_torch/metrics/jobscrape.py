@@ -11,10 +11,12 @@ Counterpart: ``horovod_tpu/metrics/jobscrape.py``.
   exposition (``aggregate.scrape_and_merge``), ``otherData.unreachable``
   in the merged trace (``tracing.merge.scrape_job_trace``).
 * :class:`JobScraper` is the route table the elastic driver registers:
-  ``metrics/job``, ``trace/job``, ``recovery/stats`` and, once a serving
-  plane attaches, ``serve/stats``.  ``health/job`` and ``timeseries/job``
-  answer 501 with a body naming ROADMAP.md A9, where the training-health
-  and time-series planes wait.
+  ``metrics/job``, ``trace/job``, ``health/job`` (every worker's
+  ``health_pull`` merged into one job verdict, ``health.
+  merge_job_health``), ``timeseries/job`` (every worker's ``GET
+  /timeseries`` merged, ``metrics.timeseries.merge_job_timeseries``),
+  ``recovery/stats`` and, once a serving plane attaches,
+  ``serve/stats``.
 """
 
 from __future__ import annotations
@@ -104,10 +106,12 @@ class JobScraper:
             # every worker's span buffer pulled, clocks aligned by RPC
             # midpoint offsets, one Chrome trace with one pid per host
             "trace/job": self._trace_job,
-            "health/job": self._unported("health/job",
-                                         "the training-health plane"),
-            "timeseries/job": self._unported("timeseries/job",
-                                             "the time-series plane"),
+            # every worker's health_pull snapshot merged into ONE verdict
+            # with (worker, bucket, step) attribution
+            "health/job": self._health_job,
+            # every worker's windowed-delta ring merged into per-worker
+            # rates and percentiles plus job-level windowed histograms
+            "timeseries/job": self._timeseries_job,
         }
         if self._recovery_stats is not None:
             # who holds redundancy for whom, and every rebuild
@@ -120,14 +124,6 @@ class JobScraper:
             return (200, _JSON_CT,
                     json.dumps(stats(), separators=(",", ":")))
         return {"serve/stats": _serve_stats}
-
-    @staticmethod
-    def _unported(route: str, what: str) -> Callable:
-        def _route():
-            return (501, _JSON_CT, json.dumps({
-                "error": f"GET /{route}: {what} is not ported yet "
-                         f"(ROADMAP.md A9)"}))
-        return _route
 
     def _recovery_stats_route(self):
         return (200, _JSON_CT,
@@ -143,3 +139,13 @@ class JobScraper:
         trace = _tracing.merge.scrape_job_trace(
             self._endpoints(), probes=_tracing.probes())
         return (200, _JSON_CT, json.dumps(trace, separators=(",", ":")))
+
+    def _health_job(self):
+        from .. import health as _health
+        job = _health.scrape_job_health(self._endpoints())
+        return (200, _JSON_CT, json.dumps(job, separators=(",", ":")))
+
+    def _timeseries_job(self):
+        from . import timeseries as _timeseries
+        job = _timeseries.scrape_job_timeseries(self._endpoints())
+        return (200, _JSON_CT, json.dumps(job, separators=(",", ":")))

@@ -23,7 +23,10 @@ a misuse; use bounded sets like method/op/rule).
 
 Counterpart: ``horovod_tpu/metrics/registry.py``, copied: it imports no
 jax, and the port keeps its own copy because importing any module of the
-JAX package imports jax.
+JAX package imports jax.  One addition: a family's ``max_series`` may be
+raised past :data:`MAX_SERIES` where its label set is bounded by a plan
+(the health plane's per-bucket families: the 1B Llama's plan has 66
+buckets).
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ class _Metric:
         self.name = name
         self.help = help
         self.label_names = tuple(label_names)
+        self.max_series = MAX_SERIES
         self._lock = threading.Lock()
         self._children: Dict[Tuple[str, ...], object] = {}
 
@@ -82,7 +86,7 @@ class _Metric:
         key = _label_key(self.label_names, labels)
         child = self._children.get(key)
         if child is None:
-            if len(self._children) >= MAX_SERIES:
+            if len(self._children) >= self.max_series:
                 key = (OVERFLOW,) * len(self.label_names)
                 child = self._children.get(key)
                 if child is not None:

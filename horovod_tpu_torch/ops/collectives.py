@@ -526,19 +526,29 @@ def plan_tail_round(name: str, tail_policy: str, n_groups: int,
 
 def tail_round(name: str, tail_policy: str, n_groups: int,
                deadline_s: float, max_staleness: int = 0,
-               staleness=None, stall=None, group_ranks=None):
-    """One cross-host tail round: plan it (:func:`plan_tail_round`), wait
-    the planned time, count it (``hvd_tail_rounds_total{policy}``),
-    record it in :data:`TAIL_ROUNDS` and, under ``HOROVOD_TRACE``, as a
-    ``dcn`` span (the phase the critical path pivots on: the policy, the
-    deadline, the excluded host groups and each group's lateness), and
-    return the mask."""
+               staleness=None, stall=None, group_ranks=None,
+               feed_health: bool = True):
+    """One cross-host tail round: plan it (:func:`plan_tail_round`), feed
+    a ``stale`` round's substitution counters to the training-health
+    plane (``health.note_staleness``; unless ``feed_health`` is False,
+    when the caller's taps observe them), wait the planned time, count
+    it (``hvd_tail_rounds_total{policy}``), record it in
+    :data:`TAIL_ROUNDS` and, under ``HOROVOD_TRACE``, as a ``dcn`` span
+    (the phase the critical path pivots on: the policy, the deadline, the
+    excluded host groups and each group's lateness), and return the
+    mask."""
     t0 = time.monotonic()
     t_span = _tracing.now() if _tracing.ACTIVE else 0.0
     present, wait_s, lateness = plan_tail_round(
         name, tail_policy, n_groups, deadline_s,
         max_staleness=max_staleness, staleness=staleness, stall=stall,
         group_ranks=group_ranks)
+    if tail_policy == "stale" and staleness is not None and feed_health:
+        # counters AT the cap mean that group's staleness budget is spent
+        # (one false branch when HOROVOD_HEALTH=0)
+        from .. import health as _health
+        if _health.ACTIVE:
+            _health.note_staleness(name, staleness, max_staleness)
     if _metrics.ACTIVE:
         _m_tail_rounds.inc(policy=tail_policy)
     if wait_s > 0:
@@ -665,8 +675,8 @@ def tail_cross_reduce(chunk: torch.Tensor, cross, tail_policy: str,
 def hierarchical_allreduce(flat: torch.Tensor, ps, op: str = ReduceOp.SUM,
                            wire: Optional[WireFormat] = None,
                            tail_policy: str = "strict",
-                           tail_names: Sequence[str] = ("allreduce",)
-                           ) -> torch.Tensor:
+                           tail_names: Sequence[str] = ("allreduce",),
+                           staleness_hook=None) -> torch.Tensor:
     """Sum or average of a 1-D ``flat`` over ``ps`` in three stages (JAX
     ``_hier_allreduce_fn``, after NCCLHierarchicalAllreduce): zero-padded
     to a multiple of the host size, reduce-scattered within each host; the
@@ -678,7 +688,9 @@ def hierarchical_allreduce(flat: torch.Tensor, ps, op: str = ReduceOp.SUM,
 
     ``tail_names`` are the bucket's tensor names: the first names the tail
     round, all of them key the bucket's ``stale`` state, with its
-    signature.
+    signature.  ``staleness_hook(counters, cap)``, when given, receives a
+    ``stale`` round's new substitution counters in place of the tail
+    round's own health feed (the transform's taps).
     """
     if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
         raise ValueError(f"a hierarchical allreduce sums; got op {op!r}")
@@ -718,11 +730,14 @@ def hierarchical_allreduce(flat: torch.Tensor, ps, op: str = ReduceOp.SUM,
         present = tail_round(name, "stale", n_cross, deadline_s,
                              max_staleness=max_stal,
                              staleness=state[1].tolist(), stall=stall,
-                             group_ranks=groups)
+                             group_ranks=groups,
+                             feed_health=staleness_hook is None)
         chunk, prev, stal = tail_cross_reduce(
             chunk, cross, "stale", present, ps, prev=state[0],
             staleness=state[1], max_staleness=max_stal, wire=wire)
         _TAIL_STATE[key] = (prev, stal)
+        if staleness_hook is not None:
+            staleness_hook(stal.tolist(), max_stal)
     red = all_gather_flat(chunk, local)[:total]
     if op == ReduceOp.AVERAGE:
         _average_(red, ps.size())

@@ -41,6 +41,12 @@ quantized wire (``HOROVOD_COMPRESSION``) on its cross stage only unless
 (``HOROVOD_TAIL_POLICY``) on that stage; an allgather of equal sizes takes
 the hierarchical path under ``HOROVOD_HIERARCHICAL_ALLGATHER``.
 
+Each fused allreduce passes the ``collective.corrupt`` chaos site and,
+under ``HOROVOD_HEALTH`` (every ``HOROVOD_HEALTH_CHECK_EVERY``-th cycle,
+the first always), the training-health tap over this rank's contribution
+(``health.engine_observe``); ``stats()`` carries the health and
+time-series summaries.
+
 Under ``HOROVOD_TRACE`` (``tracing/``) the engine records the JAX engine's
 spans: a ``cycle`` envelope for each drained batch, the ``submit`` phase
 (the earliest entry's enqueue to the drain), ``fuse`` (the plan) and one
@@ -64,6 +70,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from .. import chaos as _chaos
+from .. import health as _health
 from .. import metrics as _metrics
 from .. import tracing as _tracing
 from ..exceptions import HorovodInternalError, HorovodTpuError
@@ -789,10 +797,10 @@ class CollectiveEngine:
         self.stall.check()
 
     def _dispatch_all(self, entries, sigs, owner, base, plan, results):
-        for bucket in plan:
+        for bucket_id, bucket in enumerate(plan):
             try:
                 self._dispatch_bucket(entries, sigs, owner, base, bucket,
-                                      results)
+                                      results, bucket_id)
             except Exception as exc:  # noqa: BLE001 - surface per entry
                 logger.exception("collective dispatch failed")
                 for si in bucket:
@@ -833,7 +841,8 @@ class CollectiveEngine:
             _m_wire_bytes.inc(nbytes - raw_q, format=first.dtype)
         _m_wire_ratio.set(raw_q / max(wire, 1), format=eff)
 
-    def _dispatch_bucket(self, entries, sigs, owner, base, bucket, results):
+    def _dispatch_bucket(self, entries, sigs, owner, base, bucket, results,
+                         bucket_id: int):
         first = sigs[bucket[0]]
         op_type = first.op_type
         e0 = entries[owner[bucket[0]]]
@@ -860,7 +869,8 @@ class CollectiveEngine:
                if self.profiling else contextlib.nullcontext())
         with rng:
             self._dispatch_inner(entries, sigs, owner, base, bucket,
-                                 results, ps, e0, eff, hier, tail)
+                                 results, ps, e0, eff, hier, tail,
+                                 bucket_id)
         if _tracing.ACTIVE:
             _tracing.span("dispatch", first.name, t_disp, _tracing.now(),
                           op=op_type, tensors=len(bucket),
@@ -870,7 +880,7 @@ class CollectiveEngine:
         self.timeline.activity_end(names)
 
     def _dispatch_inner(self, entries, sigs, owner, base, bucket, results,
-                        ps, e0, eff, hier, tail):
+                        ps, e0, eff, hier, tail, bucket_id: int):
         first = sigs[bucket[0]]
         op_type = first.op_type
 
@@ -883,8 +893,31 @@ class CollectiveEngine:
                 from ..compression import resolve_wire_format
                 wire = resolve_wire_format(eff,
                                            self.cfg.compression_block_size)
+            tensors = [tensor(si) for si in bucket]
+            rank = ps.rank()
+            if _chaos.ACTIVE:
+                # collective.corrupt: this process's contribution to the
+                # fused bucket, NaN'd or scaled when it is the target
+                from ..health.taps import chaos_corrupt_eager
+                bad = chaos_corrupt_eager(tensors, rank, bucket_id,
+                                          first.name)
+                if e0.inplace:
+                    # an in-place reduce keeps the caller's tensors
+                    for t, b in zip(tensors, bad):
+                        if b is not t:
+                            t.copy_(b)
+                else:
+                    tensors = bad
+            if _health.ACTIVE and (
+                    (self._cycle_count - 1) % _health.SAMPLE_EVERY == 0):
+                # the numerics tap over the LOCAL contribution, sampled
+                # at the HOROVOD_HEALTH_CHECK_EVERY cadence (the first
+                # cycle always): it pays a device→host copy of the stats.
+                # The cycle count is the engine's step analog
+                _health.engine_observe(self._cycle_count, bucket_id,
+                                       first.name, tensors, rank)
             outs = collectives.allreduce_arrays(
-                [tensor(si) for si in bucket], ps, op=first.reduce_op,
+                tensors, ps, op=first.reduce_op,
                 prescale_factor=e0.prescale, postscale_factor=e0.postscale,
                 inplace=e0.inplace, mark=self._mark(op_type), wire=wire,
                 hierarchical=hier, tail_policy=tail,
@@ -958,6 +991,15 @@ class CollectiveEngine:
                 "tuned": self.autotuner.tuned,
                 "retunes": self.autotuner.retunes,
                 "negotiated": self._negotiated_params is not None}
+        if _health.ACTIVE:
+            # the training-health verdict summary (the full snapshot is
+            # GET /health and the health_pull RPC)
+            out["health"] = _health.evaluator().summary()
+        from ..metrics import timeseries as _timeseries
+        if _timeseries.ACTIVE:
+            # the time-series sampler: knobs, ring occupancy, last-window
+            # rates (the windows are GET /timeseries)
+            out["timeseries"] = _timeseries.summary()
         # the serving summary, present only while a ServingPlane or
         # ServingWorker lives in this process (the serving package is
         # import-light: it loads its submodules lazily)

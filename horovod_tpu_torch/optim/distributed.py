@@ -68,8 +68,19 @@ by the product of all those axes' sizes (the batch is taken to be sharded
 over all of them).  The contract, JAX's: a leaf's gradient arrives summed
 over its spec's axes and partial over the rest.  Under ``sharded_update``
 the ZeRO tiles run over the data axis within each model-shard group; with
-a wire format only the data-axis hop quantizes.  The health taps wait for
-ROADMAP.md A9.
+a wire format only the data-axis hop quantizes.
+
+``health`` (``HOROVOD_HEALTH_TAPS``, vetoed by ``HOROVOD_HEALTH=0``; the
+training-health plane, ``health/``): each bucket's LOCAL flat gradient
+is tapped (l2, max-abs, nonfinite count) before its collective is
+issued, the error-feedback residual's norm under a wire format, the
+substitution counters of a stale tail bucket; the stats stay on the
+device and reach the host evaluator in one copy an update.  Every
+``health_check_every``-th update the divergence sentinel checksums the
+parameter buckets (before the update, which is in place here) and the
+optimizer state, allgathers them over the process set and convicts a
+replica whose checksums disagree.  It refuses ``overlap`` and
+``param_specs``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -459,12 +470,28 @@ def make_spec_plan(param_specs, data_axis: str = "dp", model_axes=None,
 # replicated buckets
 # ---------------------------------------------------------------------------
 
+def _tap_bucket(buf: torch.Tensor, ps, bucket_id: int, name: str,
+                health) -> torch.Tensor:
+    """A bucket's local buffer before its collective: corrupted at the
+    ``collective.corrupt`` chaos site when a rule targets this rank (a
+    new buffer, so the leaves keep their values until the reduced ones
+    land), then tapped by ``health``."""
+    from .. import chaos as _chaos
+    if _chaos.ACTIVE:
+        from ..health.taps import chaos_corrupt
+        buf = chaos_corrupt(buf, ps.rank(), bucket_id, name)
+    if health is not None:
+        health.observe_bucket(bucket_id, name, buf)
+    return buf
+
+
 def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
                       threshold_bytes: Optional[int] = None,
                       compression=Compression.none,
                       prescale_factor: float = 1.0,
                       postscale_factor: float = 1.0,
-                      wire_format=None, residual=None, spec_plan=None):
+                      wire_format=None, residual=None, spec_plan=None,
+                      health=None):
     """Reduce a gradient tree over the process set, one collective a
     planned bucket, in place: returns ``grads`` with every leaf reduced.
 
@@ -482,6 +509,12 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
     model axes its spec does not shard over, and Average divides by the
     global batch degree; with a wire format only the data-axis hop
     quantizes, a replicated bucket's model hops running full-width first.
+
+    ``health`` (a ``health.taps.HealthTaps``) taps each bucket's local
+    buffer before its collective (and the ``collective.corrupt`` chaos
+    site corrupts it there), the new residual under a wire format, and a
+    stale tail bucket's substitution counters; not with ``spec_plan`` or
+    Adasum.
     """
     fmt = resolve_wire_format(wire_format)
     leaves, names, order = _tree_leaves_sorted(grads)
@@ -511,16 +544,19 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
                                   _resolve_threshold(threshold_bytes),
                                   wire_format=fmt.name if fmt else "none")
     res = _residual_leaves(residual, leaves) if fmt is not None else None
-    for bucket in buckets:
+    for bucket_id, bucket in enumerate(buckets):
         parts = [leaves[i] for i in bucket]
         numel = sum(p.numel() for p in parts)
+        buf = _tap_bucket(_bucket_flat(parts, numel), ps, bucket_id,
+                          names[bucket[0]], health)
         if fmt is not None and sigs[bucket[0]].wire_format != "none":
-            buf = _bucket_flat(parts, numel)
             if prescale_factor != 1.0:
                 buf = buf * torch.tensor(prescale_factor).to(buf.dtype)
             red, nres = collectives.quantized_allreduce(
                 buf, ps, fmt, op=op, error_feedback=True,
                 residual=_bucket_flat([res[i] for i in bucket], numel))
+            if health is not None:
+                health.observe_residual(bucket_id, nres)
             if postscale_factor != 1.0:
                 collectives._scale_(red, postscale_factor)
             _split_into(red, parts)
@@ -528,17 +564,21 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
                     [leaves[i].numel() for i in bucket])):
                 res[i] = piece.view(leaves[i].shape)
         elif tail is not None:
-            buf = _bucket_flat(parts, numel)
             if prescale_factor != 1.0:
                 collectives._scale_(buf, prescale_factor)
+            hook = None
+            if health is not None and tail == "stale":
+                def hook(counters, cap, _b=bucket_id,
+                         _n=names[bucket[0]]):
+                    health.observe_staleness(_b, _n, counters, cap)
             red = collectives.hierarchical_allreduce(
                 buf, ps, op, tail_policy=tail,
-                tail_names=tuple(names[i] for i in bucket))
+                tail_names=tuple(names[i] for i in bucket),
+                staleness_hook=hook)
             if postscale_factor != 1.0:
                 collectives._scale_(red, postscale_factor)
             _split_into(red, parts)
         else:
-            buf = _bucket_flat(parts, numel)
             _allreduce_flat_(buf, ps, op, prescale_factor, postscale_factor,
                              compression)
             _split_into(buf, parts)
@@ -653,7 +693,7 @@ def fused_reduce_scatter_tree(grads, process_set=None,
                               prescale_factor: float = 1.0,
                               postscale_factor: float = 1.0,
                               wire_format=None, residual=None,
-                              spec_plan=None):
+                              spec_plan=None, health=None):
     """Reduce-scatter a gradient tree: each rank keeps its 1/N tile of
     every planned bucket.  Returns ``(tiles, layout)``, the tiles fully
     scaled and averaged; with a ``wire_format`` the scatter is quantized
@@ -667,7 +707,8 @@ def fused_reduce_scatter_tree(grads, process_set=None,
     model-sharded one scatters over the data axis alone, and Average
     divides by the global batch degree.  A spec naming the data axis is
     refused: such a gradient arrives reduced and sharded, leaving no axis
-    to scatter over."""
+    to scatter over.  ``health`` taps as in :func:`fused_reduce_tree`
+    (the local padded bucket, the new residual)."""
     if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
         raise ValueError(
             f"fused_reduce_scatter_tree supports op=Average/Sum, got "
@@ -689,9 +730,12 @@ def fused_reduce_scatter_tree(grads, process_set=None,
     global_n = sp.global_size() if sp is not None else n
     res = _residual_leaves(residual, leaves) if fmt is not None else None
     tiles = []
-    for bl in layout.buckets:
+    for bucket_id, bl in enumerate(layout.buckets):
         parts = [leaves[i] for i in bl.indices]
         buf = _bucket_flat(parts, bl.padded_numel)
+        if sp is None:
+            buf = _tap_bucket(buf, ps, bucket_id, names[bl.indices[0]],
+                              health)
         if prescale_factor != 1.0:
             buf = buf * torch.tensor(prescale_factor).to(buf.dtype)
         if sp is not None:
@@ -707,6 +751,8 @@ def fused_reduce_scatter_tree(grads, process_set=None,
                                 bl.padded_numel).float()
             tile, nres = collectives.quantized_sum_scatter(
                 buf.float() + rbuf, ps, fmt, error_feedback=True)
+            if health is not None:
+                health.observe_residual(bucket_id, nres)
             tile = tile.to(buf.dtype)
             off = 0
             for i, sz in zip(bl.indices, bl.sizes):
@@ -805,6 +851,41 @@ def _overlap_default() -> bool:
     cfg = _config()
     return (cfg.overlap if cfg is not None
             else _env_bool("HOROVOD_OVERLAP", False))
+
+
+def _health_taps_default() -> bool:
+    """HOROVOD_HEALTH_TAPS (vetoed by HOROVOD_HEALTH), from the runtime's
+    config or the env: the taps are an opt-in, and an explicit
+    ``health=`` wins over it either way."""
+    cfg = _config()
+    if cfg is not None:
+        return cfg.health and cfg.health_taps
+    from .. import health as _h
+    return _h.taps_default()
+
+
+def _health_check_every_default() -> int:
+    """HOROVOD_HEALTH_CHECK_EVERY (updates), from the runtime's config or
+    the env."""
+    cfg = _config()
+    if cfg is not None:
+        return cfg.health_check_every
+    from .. import health as _h
+    return _h.check_every()
+
+
+def _sentinel_bucket_leaves(target, plan_like, op, prescale_factor,
+                            postscale_factor, threshold_bytes):
+    """``(name, leaves)`` per fusion bucket of ``target``, bucketed by the
+    plan of ``plan_like`` (the GRADIENT tree), so that the sentinel's
+    checksums line up with the taps' bucket ids (JAX
+    ``_sentinel_bucket_flats``, without the concatenation)."""
+    t_leaves = _tree_leaves_sorted(target)[0]
+    p_leaves, p_names, _ = _tree_leaves_sorted(plan_like)
+    buckets, _ = _plan_buckets(p_leaves, p_names, op, prescale_factor,
+                               postscale_factor,
+                               _resolve_threshold(threshold_bytes))
+    return [(p_names[b[0]], [t_leaves[i] for i in b]) for b in buckets]
 
 
 def _wire_format_default():
@@ -1102,6 +1183,15 @@ def DistributedGradientTransform(
     docstring); the ``process_set`` does not apply.  It composes with ``sharded_update``
     (which refuses a spec naming the data axis), ``wire_format`` and
     ``overlap``; it needs op Average or Sum and refuses ``health``.
+
+    ``health`` (default ``HOROVOD_HEALTH_TAPS``, vetoed by
+    ``HOROVOD_HEALTH=0``) arms the numerics taps and the divergence
+    sentinel (the module docstring), every ``health_check_every``-th
+    update (default ``HOROVOD_HEALTH_CHECK_EVERY``; >= 1); with it armed
+    ``count`` advances on every update, and under
+    ``backward_passes_per_step=k`` the taps fire at the boundary only,
+    the cadence dividing the boundary ordinal ``count // k``.  It refuses
+    ``overlap`` and ``param_specs``.
     """
     if param_specs is None:
         # the mesh context is the no-plumbing path: a transform built
@@ -1136,14 +1226,6 @@ def DistributedGradientTransform(
                 "param_specs reduces over the mesh's axis groups: pass "
                 "mesh=, not process_set")
         sp = make_spec_plan(param_specs, "dp", model_axes, mesh=mesh)
-    for arg, on, what in (
-            ("health", bool(health), "the in-step health taps"),
-            ("health_check_every", health_check_every is not None,
-             "the divergence sentinel")):
-        if on:
-            raise NotImplementedError(
-                f"DistributedGradientTransform({arg}=...): {what} is not "
-                f"ported yet (ROADMAP.md A9)")
     if inner is None:
         raise ValueError(
             "DistributedGradientTransform needs the inner optimizer's "
@@ -1184,6 +1266,23 @@ def DistributedGradientTransform(
             prescale=prescale_factor, postscale=postscale_factor,
             sharded=sharded, fmt=fmt, k=k, layers_key=overlap_layers,
             spec_plan=sp)
+    if health and ov_plan is not None:
+        raise ValueError(
+            "health=True is not supported with overlap=True: the "
+            "overlapped buckets dispatch inside the backward pass and "
+            "never materialize a boundary buffer to tap — use the "
+            "trace/metrics plane for overlapped steps, or disable one")
+    hl_enabled = (bool(health) if health is not None
+                  else (ov_plan is None and sp is None
+                        and _health_taps_default()))
+    hl_every = 1
+    if hl_enabled:
+        hl_every = (int(health_check_every)
+                    if health_check_every is not None
+                    else _health_check_every_default())
+        if hl_every < 1:
+            raise ValueError(
+                f"health_check_every must be >= 1, got {hl_every}")
     if recovery is not None and ov_plan is not None:
         raise ValueError(
             "recovery is not supported with overlap=True: overlapped "
@@ -1260,8 +1359,9 @@ def DistributedGradientTransform(
                 "structure divergence between the gradient tree and the "
                 "param tree)")
 
-    def _reduce(grads, state: _DistState):
-        red_kw = dict(kw, process_set=process_set, spec_plan=sp)
+    def _reduce(grads, state: _DistState, taps=None):
+        red_kw = dict(kw, process_set=process_set, spec_plan=sp,
+                      health=taps)
         if sharded:
             if fmt is not None:
                 tiles, layout, state.residual = fused_reduce_scatter_tree(
@@ -1308,17 +1408,40 @@ def DistributedGradientTransform(
             return _ov_reduce(grads, state, ov_plan.consume())
         return _reduce(grads, state)
 
+    def _health_step(grads, state: _DistState, params, cadence_step: int):
+        """One reduce and apply with the health taps armed: the buckets
+        tapped before their collectives, the sentinel's parameter
+        checksums taken before the in-place update and its optimizer-state
+        checksum and gather after it, then one delivery to the host."""
+        from ..health.taps import HealthTaps
+        ps = api._ps(process_set)
+        taps = HealthTaps(ps.rank(), state.count, hl_every,
+                          cadence_step=cadence_step, process_set=ps)
+        reduced = _reduce(grads, state, taps)
+        taps.checksum_params(lambda: _sentinel_bucket_leaves(
+            params if params is not None else state.params, grads, **kw))
+        apply_fn(reduced, state)
+        # under sharded_update the inner state is 1/N a rank by design:
+        # only the replicated parameters are compared
+        taps.sentinel(None if sharded else
+                      lambda: list(_inner_state(state.inner).values()))
+        taps.emit()
+
     def update_fn(grads, state: _DistState, params=None) -> _DistState:
         if params is not None and len(tree_leaves(params)) != \
                 len(tree_leaves(state.params)):
             raise ValueError("update() got another parameter tree than "
                              "init()")
         if k == 1:
-            apply_fn(reduce_fn(grads, state), state)
-            if recovery is not None:
-                # the recovery cadence needs a step counter: with the tap
-                # armed, count advances every update
+            if hl_enabled or recovery is not None:
+                # the sentinel and recovery cadences need a step counter:
+                # with either tap armed, count advances every update
                 state.count += 1
+            if hl_enabled:
+                _health_step(grads, state, params, state.count)
+            else:
+                apply_fn(reduce_fn(grads, state), state)
+            if recovery is not None:
                 _emit_recovery(state.count, state)
             return state
         state.count += 1
@@ -1344,7 +1467,13 @@ def DistributedGradientTransform(
         if boundary:
             for a in tree_leaves(state.acc):
                 a.div_(k)
-            apply_fn(_reduce(state.acc, state), state)
+            if hl_enabled:
+                # taps at the boundary only (the micro-steps accumulate
+                # locally); the sentinel cadence divides the BOUNDARY
+                # ordinal, not the micro-step counter
+                _health_step(state.acc, state, params, state.count // k)
+            else:
+                apply_fn(_reduce(state.acc, state), state)
             for a in tree_leaves(state.acc):
                 a.zero_()
             if recovery is not None:

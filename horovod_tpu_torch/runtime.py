@@ -461,6 +461,13 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
         tracing.set_identity(process=rank,
                              host=os.environ.get("HOROVOD_HOSTNAME") or None,
                              epoch=epoch if epoch is not None else 0)
+        # the training-health evaluator's identity: verdicts carry this
+        # rank and host for the driver's /health/job merge; the history
+        # survives elastic re-inits (a post-mortem scrape wants it)
+        from . import health
+        health.init_from_env()
+        health.set_identity(process=rank,
+                            host=os.environ.get("HOROVOD_HOSTNAME") or None)
         _make_tools(st, cfg)
         from .ops.controller import Controller
         from .ops.engine import CollectiveEngine

@@ -448,6 +448,72 @@ def test_tools_gates_pass_and_fail():
         assert any(what in b for b in bad), (what, bad)
 
 
+# -- health_dp's gates -----------------------------------------------------------
+
+#: a tiny Llama for health_dp on the CPU: 16 buckets under a 16 KiB fusion
+#: threshold, so HEALTH_BUCKET exists
+_HEALTH_TINY = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                    n_kv_heads=2, d_ff=128, max_seq_len=16, loss_chunk=16,
+                    remat_skip_layers=0)
+_NO_LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
+
+
+def _health_row(**edit):
+    row = json.loads(json.dumps(_HEALTH_ROW))
+    for path, value in edit.items():
+        *keys, last = path.split(".")
+        node = row
+        for k in keys:
+            node = node[k]
+        node[last] = value(node[last]) if callable(value) else value
+    return row
+
+
+_HEALTH_ROW = None
+
+
+def test_health_dp_gates_pass_and_fail(monkeypatch, capsys):
+    """chip_smoke.py's health_dp at world 1 on the CPU with a tiny Llama:
+    its gates pass (losses bitwise with health off and on, the nonfinite
+    and grad_explosion verdicts on HEALTH_BUCKET's name, every bucket's
+    grad-norm gauge); a row that lacks the nonfinite verdict, whose losses
+    are one ulp apart, or that breaks any other gate fails them."""
+    global _HEALTH_ROW
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    monkeypatch.setenv("HOROVOD_FUSION_THRESHOLD", "16384")
+    monkeypatch.setenv("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", "60")
+    _HEALTH_ROW = chip_smoke.health_dp_phase(
+        hvd, fa, llama, training, adamw_lp, torch.device("cpu"),
+        over=_HEALTH_TINY, batch=(2, 16), profile=False)
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "phase"] == "health_dp"
+    assert chip_smoke.health_problems(_health_row(), _NO_LAUNCHES) == []
+    assert len(_HEALTH_ROW["on"]["buckets"]) == 16
+    ulp = float(np.nextafter(np.float32(_HEALTH_ROW["on"]["losses"][1]),
+                             np.float32(0)))
+    cases = {
+        "no nonfinite verdict": {"nan.verdicts": []},
+        "bit for bit": {
+            "on.losses": lambda x: [x[0], ulp] + x[2:]},
+        "no grad_explosion verdict": {"on.verdicts": []},
+        "verdicts on clean updates": {"on.verdicts": lambda v: [
+            dict(v[0], step=2)] + v},
+        "nonfinite run's chaos rule never fired": {"nan.rule_fired": False},
+        "lacks buckets": {"grad_norm_buckets": lambda b: b[1:]},
+        "launches per step": {"on.launches_per_step": lambda st: [
+            dict(st[0], fwd=1)] + st[1:]},
+        "not finite and falling": {"on.losses": lambda x: [
+            x[0]] * (len(x) - 1) + [x[-1]]},
+    }
+    for what, edit in cases.items():
+        bad = chip_smoke.health_problems(_health_row(**edit), _NO_LAUNCHES)
+        assert any(what in b for b in bad), (what, bad)
+
+
 # -- the serving phases' gates (decode, serve) --------------------------------
 
 def _logits(seed, shape=(4, 6, 32)):
@@ -796,7 +862,8 @@ def test_chip_smoke_elastic_phase_on_the_cpu(tmp_path, capsys):
     tiny fp32 ResNet-18 on the CPU: the reference run under the static
     launcher, the kill in rank 1's backward pass, the shrink and the
     growth, and every gate of the phase (transitions, digests, the exact
-    restore, steps 4-6 bit for bit, the sampler)."""
+    restore, steps 4-6 bit for bit, the sampler, GET /health/job and
+    /timeseries/job with the SLO rule's verdict)."""
     wrapper = tmp_path / "worker.py"
     wrapper.write_text(_REHEARSAL.format(
         root=str(pathlib.Path(__file__).resolve().parents[1])))
@@ -806,6 +873,15 @@ def test_chip_smoke_elastic_phase_on_the_cpu(tmp_path, capsys):
     assert [size for _, size in row["formed"]] == [2, 2, 1, 2]
     assert row["steps_reexecuted"] == 1 and row["recover_s"] > 0
     assert len(row["step_ms_size1"]) == 2
+    # the health and time-series scrapes at the pause of step 6
+    hj = row["health_job"]
+    assert hj["verdict"] == "healthy" and hj["scraped"] == 2
+    assert {v["rule"] for v in hj["slo_verdicts"]} == {
+        chip_smoke.ELASTIC_SLO}
+    assert chip_smoke.health_job_problems(
+        hj, [int(w) for w in hj["workers"]]) == []
+    assert chip_smoke.health_job_problems(
+        dict(hj, verdict="unhealthy"), [int(w) for w in hj["workers"]])
 
 
 # --- recover_resnet's and hvd_run's gates -----------------------------------

@@ -145,8 +145,15 @@ def test_transform_options_and_refusals():
     hvd.init(device="cpu")
     try:
         make = tr._fp32_adamw_lp(1e-2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-            hvd.DistributedGradientTransform(make, health=True)
+        # the health taps compose as in the JAX package: not with overlap,
+        # and a cadence of at least 1
+        with pytest.raises(ValueError, match="health=True is not "
+                                             "supported with overlap"):
+            hvd.DistributedGradientTransform(make, health=True,
+                                             overlap=True)
+        with pytest.raises(ValueError, match="health_check_every must be"):
+            hvd.DistributedGradientTransform(make, health=True,
+                                             health_check_every=0)
         # the spec plan at world 1 (a mesh of one rank): every axis has
         # size 1, so the spec-aware transform steps the parameters as the
         # plain one does, bit for bit

@@ -70,6 +70,11 @@ def test_importing_every_module_loads_no_jax():
               "runner.executor", "runner.executor_task", "data.parquet",
               "optim"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # the training-health plane, the time series and the SLO watchdog
+    for m in ("health", "health.evaluate", "health.taps",
+              "health.__main__", "metrics.timeseries", "metrics.slo",
+              "metrics.top", "metrics.jobscrape"):
+        assert f"horovod_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -108,8 +113,8 @@ def test_elastic_surface_imports_without_jax():
 #: port keeps ``__version__`` in its ``__init__``)
 DELIBERATE = {"mesh", "worker_axis", "process_count", "process_index",
               "stack_on_workers", "worker_values", "compat", "version"}
-#: top-level names not ported yet, by ROADMAP.md item
-STILL_MISSING = {"health": "A9"}
+#: top-level names not ported yet, by ROADMAP.md item (none now)
+STILL_MISSING = {}
 
 
 def test_top_level_names_resolve_as_in_jax():
@@ -129,8 +134,10 @@ def test_top_level_names_resolve_as_in_jax():
     import horovod_tpu_torch as hvd
     for name in ("NotInitializedError", "get_process_set_ids_and_ranks",
                  "start_timeline", "stop_timeline", "start_profiler",
-                 "stop_profiler", "tracing"):
+                 "stop_profiler", "tracing", "health"):
         assert name in hvd.__all__ and hasattr(hvd, name), name
+    assert callable(hvd.health.note_loss) and \
+        callable(hvd.health.on_unhealthy)
     with pytest.raises(hvd.NotInitializedError):
         hvd.get_process_set_ids_and_ranks()
 

@@ -2010,6 +2010,97 @@ def case_llama_mp(hvd, rank, world):
     return out
 
 
+#: DistributedGradientTransform options the health taps are held against
+#: the JAX package's under (4 steps each, health_check_every=2)
+HEALTH_CONFIGS = {
+    "replicated": {},
+    "sharded": {"sharded_update": True},
+    "int8": {"wire_format": "int8"},
+    "k2": {"backward_passes_per_step": 2},
+}
+
+
+def health_rule_runs(world):
+    """name -> (steps, chaos rule, the update it is installed for, ranks
+    whose weights start 1 ulp off) of :func:`case_health`'s runs beyond
+    the configs: rank ``world - 1``'s contribution NaN'd in bucket 1 at
+    every update, scaled x1e6 in bucket 0 after the evaluator's warm-up,
+    and the last rank's weights perturbed (a minority of one at world 3,
+    an even split at world 2)."""
+    last = world - 1
+    return {
+        "nan": (2, f"collective.corrupt bucket=1 action=nan:{last}", 1,
+                ()),
+        "scale": (7, f"collective.corrupt bucket=0 nth=1 "
+                     f"action=scale:{last}", 7, ()),
+        "perturbed": (1, None, None, (last,)),
+    }
+
+
+def case_health(hvd, rank, world):
+    """The health-armed transform on :func:`zparams` with this rank's
+    :func:`zgrads`: for each of :data:`HEALTH_CONFIGS`, then each of
+    :func:`health_rule_runs`, a fresh evaluator recording every bucket and
+    residual observation, and its verdicts and summary."""
+    import torch
+    from horovod_tpu_torch import chaos, health
+
+    class Recording(health.HealthEvaluator):
+        def __init__(self):
+            super().__init__()
+            self.obs, self.res = [], []
+
+        def ingest_bucket(self, step, worker, bucket, name, l2, max_abs,
+                          nonfinite):
+            self.obs.append((int(step), int(worker), int(bucket), str(name),
+                             float(l2), float(max_abs), int(nonfinite)))
+            super().ingest_bucket(step, worker, bucket, name, l2, max_abs,
+                                  nonfinite)
+
+        def ingest_residual(self, step, worker, bucket, norm, name=None):
+            self.res.append((int(step), int(worker), int(bucket),
+                             float(norm)))
+            super().ingest_residual(step, worker, bucket, norm, name=name)
+
+    def run(kw, steps, rule=None, rule_step=None, perturbed=()):
+        ev = Recording()
+        old = health.swap_evaluator(ev)
+        params = {k: torch.from_numpy(v.copy()) for k, v in
+                  zparams().items()}
+        if rank in perturbed:
+            params["b"][0] = torch.nextafter(params["b"][0],
+                                             torch.tensor(1e9))
+        kw = dict({"wire_format": "none", "wire_block_size": ZBLOCK}, **kw)
+        tx = hvd.DistributedGradientTransform(
+            _fp32_adamw_lp(ZLR), threshold_bytes=ZTHRESHOLD, health=True,
+            health_check_every=2 if rule is None and not perturbed else 1,
+            **kw)
+        state = tx.init(params)
+        try:
+            for i in range(steps):
+                if rule is not None and i + 1 == rule_step:
+                    chaos.install(chaos.FaultSchedule.parse(rule, seed=7))
+                grads = {k: torch.from_numpy(v)
+                         for k, v in zgrads(rank, i).items()}
+                tx.update(grads, state, params)
+        finally:
+            chaos.uninstall()
+            health.swap_evaluator(old)
+        return {"obs": ev.obs, "res": ev.res,
+                "verdicts": [{k: v[k] for k in ("kind", "worker", "bucket",
+                                                "step", "detail")}
+                             for v in ev.verdicts()],
+                "summary": ev.summary(),
+                "checksum_rounds": ev.snapshot()["checks"][
+                    "checksum_rounds"]}
+
+    out = {name: run(kw, 4) for name, kw in HEALTH_CONFIGS.items()}
+    for name, (steps, rule, at, perturbed) in \
+            health_rule_runs(world).items():
+        out[name] = run({}, steps, rule, at, perturbed)
+    return out
+
+
 def main(out_dir, cases):
     import horovod_tpu_torch as hvd
     hvd.init(device="cpu")
