@@ -83,7 +83,8 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            widths in bf16, 2 of its 16 layers): 8 requests in batches of 1
            and 4, each
            call's tokens one process's bit for bit, the per-chip bytes
-           exact
+           exact; both ranks record their first call's collectives: the
+           same schedule, the weights gathered over hvd_serve_mp
   collectives    hvd.init() at world 1 over NCCL: every op of the API on
            fp32, bf16 and int64 CUDA tensors against its plain expectation,
            and 64 small tensors submitted in one call, which the engine
@@ -93,7 +94,11 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            losses must equal train's bit for bit, with the same launches;
            buckets and bytes a step, the device ms of packing, NCCL and
            unpacking, peak memory; train_dp_vs_train puts its losses,
-           step ms, device busy ms and peak beside train's
+           step ms, device busy ms and peak beside train's.  Its first
+           timed step runs with the schedule recorder armed
+           (horovod_tpu_torch/analysis/recorder.py): one record a bucket
+           of the step's plane, each a psum over workers, bucket ids
+           0..n-1 in issue order, the input bytes the plane's
   train_overlap  the 1B step with overlap=True under hvd.init() at world 1:
            the grad taps reduce each layer's buckets on the plan's stream
            during the backward pass; losses equal to train's bit for bit,
@@ -137,7 +142,9 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            fused_xent=True, batch 8 x 1024 split 4 + 4, rank 1 submitting
            its gradients in another order; both ranks' weights must be
            bit-identical after each step, and agree with one process on
-           the whole batch within the parity gates
+           the whole batch within the parity gates; both ranks record
+           their first step's collectives: the same full schedule, and
+           train_dp's prims, axes and bucket sequence
   train_a5_dp2   two such processes (--a5-rank) run 2 steps of three
            variants: zero1=True, overlap=True under HOROVOD_SHARDED_UPDATE=1
            and HOROVOD_COMPRESSION=int8, and grad_accum=2; weights
@@ -263,6 +270,11 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            (logits, loss, gradients, running statistics) and in bf16
            (logits, loss, running statistics; the gradients printed)
 
+decode's first batch and serve's traffic record their collectives:
+none (serving must not go through the gradient plane).  The schedule
+line sums up the armed steps (records, input bytes, the recorder's own
+host ms, prims by axis, bucket ids).
+
 Then three lines: the kernels summary (each kernel's contract numbers,
 its TF/s, and for dq and dkv the flash backward operator's time as
 library_pair_ms, since it gives both at once; the flash rows also carry
@@ -274,6 +286,7 @@ The script imports no jax and nothing of horovod_tpu.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1284,6 +1297,7 @@ def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool,
     fields ``over`` and its ``expected`` launches a step (``train_moe``);
     returns the kernel launches of its timed steps and the line it
     emitted, with its profiled step's."""
+    from horovod_tpu_torch.analysis import recorder
     phase = name or ("train_dp" if engine is not None else (
         "train_fused" if fused else "train"))
     cfg = bench_config(llama, fused_xent=fused, **(over or {}))
@@ -1313,13 +1327,21 @@ def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool,
     fa.reset_launches()  # the path's run starts here
     fx.reset_launches()
     step_ms, per_step, plane = [], [], []
-    for _ in range(steps):
+    schedule = None
+    for i in range(steps):
         before = counts()
         stats0 = engine.stats() if engine is not None else None
+        # under the engine the first timed step records its collectives
+        armed = (recorder.recording() if engine is not None and i == 0
+                 else contextlib.nullcontext())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt_state, loss = ts.step_fn(params, opt_state, toks, tgts)
+        with armed as rec:
+            params, opt_state, loss = ts.step_fn(params, opt_state, toks,
+                                                 tgts)
         torch.cuda.synchronize()
+        if rec is not None:
+            schedule = schedule_row(rec)
         step_ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(loss.item())
         after = counts()
@@ -1343,7 +1365,8 @@ def train_phase(fa, fx, llama, training, adamw_lp, dev, fused: bool,
         torch.cuda._sleep(500 * SPIN_CYCLES_PER_CALL)
         ts.step_fn(params, opt_state, toks, tgts)
         extra = {"gradient_plane": plane,
-                 "plane_device_ms": engine.device_ms()}
+                 "plane_device_ms": engine.device_ms(),
+                 "schedule": schedule}
         engine.time_device = False
     row = dict(params=llama.count_params(cfg), batch=batch, seq=seq,
                fused_xent=fused, losses=losses, warmup_ms=warmup_ms,
@@ -1671,13 +1694,23 @@ def dp2_child(rank: int, dev: torch.device) -> int:
                                          (8, cfg.max_seq_len)),
                              dtype=torch.long, device=dev) for _ in range(2)]
 
-    def run(params, toks, tgts):
+    from horovod_tpu_torch.analysis import recorder
+    recorded = []
+
+    def run(params, toks, tgts, record=False):
         ts = training.make_llama_train_step(cfg, optimizer=adamw_lp(3e-4),
                                             device=dev)
         opt_state = ts.opt_init(params)
-        for _ in range(2):
-            params, opt_state, loss = ts.step_fn(params, opt_state, toks,
-                                                 tgts)
+        for i in range(2):
+            # at dp 2 the first step records its collectives
+            armed = (recorder.recording() if record and i == 0
+                     else contextlib.nullcontext())
+            with armed as rec:
+                params, opt_state, loss = ts.step_fn(params, opt_state,
+                                                     toks, tgts)
+                torch.cuda.synchronize()
+            if rec is not None:
+                recorded.append(schedule_row(rec))
             yield params, loss.item()
 
     def flat(params):
@@ -1694,7 +1727,8 @@ def dp2_child(rank: int, dev: torch.device) -> int:
     fx.reset_launches()
     losses, per_step, identical = [], [], []
     before = {**fa.LAUNCHES, **fx.LAUNCHES}
-    for step, (params, loss) in enumerate(run(params, toks, tgts)):
+    for step, (params, loss) in enumerate(run(params, toks, tgts,
+                                              record=True)):
         after = {**fa.LAUNCHES, **fx.LAUNCHES}
         per_step.append({n: after[n] - before[n] for n in before})
         losses.append(loss)
@@ -1707,6 +1741,7 @@ def dp2_child(rank: int, dev: torch.device) -> int:
         before = {**fa.LAUNCHES, **fx.LAUNCHES}
     engine = hvd.runtime._state().engine.stats()
     orders = hvd.allgather_object(order[:3])
+    schedules = hvd.allgather_object(recorded[0])
     hvd.shutdown()
     if rank:
         return 0
@@ -1720,7 +1755,7 @@ def dp2_child(rank: int, dev: torch.device) -> int:
     print(json.dumps({
         "losses": losses, "losses_dp1": losses1,
         "launches_per_step": per_step, "identical_after_step": identical,
-        "first_leaves_submitted": orders,
+        "first_leaves_submitted": orders, "schedule_ranks": schedules,
         "engine": engine,
         "update_norms": {p: ((dp2[p] - init[p]).double().norm().item(),
                              (dp1[p] - init[p]).double().norm().item())
@@ -1910,8 +1945,9 @@ def train_a5_dp2_phase():
     require(not bad, f"train_a5_dp2: {bad}")
 
 
-def train_dp2_phase():
-    """Two ranks of :func:`dp2_child` on the card over gloo; the gates."""
+def train_dp2_phase(dp_schedule):
+    """Two ranks of :func:`dp2_child` on the card over gloo; the gates,
+    the schedule's against ``dp_schedule`` (``train_dp``'s)."""
     res, seconds = _run_pair("--dp2-rank", DP2_TIMEOUT_S)
     emit("train_dp2", layers=2, batch=[4, 4], seq=1024, fused_xent=True,
          backend="gloo", seconds=seconds, **res)
@@ -1930,6 +1966,11 @@ def train_dp2_phase():
                 f"train_dp2 update norm {p}: {a} (dp 2) vs {b} (dp 1)")
         cos = res["update_cos"][p]
         require(cos > PARITY_COS, f"train_dp2 update cos {p}: {cos}")
+    ranks = [r["list"] for r in res["schedule_ranks"]]
+    bad = dp2_schedule_problems(ranks, dp_schedule)
+    require(not bad, f"train_dp2 schedule: {bad}")
+    SCHEDULE["train_dp2"] = dict(schedule_summary(
+        res["schedule_ranks"][0]), ranks_identical=True)
 
 
 def plain_adasum(rows):
@@ -2673,6 +2714,98 @@ def tools_problems(row, train_row, expected):
     return bad
 
 
+# ------------------------------------------------ the schedule recorder
+
+#: each armed phase's summary: the ``schedule`` line
+SCHEDULE = {}
+
+
+def schedule_row(rec):
+    """One armed step's records (``analysis/recorder.py``, path erased),
+    their count, their input bytes and the recorder's own host ms."""
+    from horovod_tpu_torch.analysis.wire import aval_nbytes
+    recs = [{k: r[k] for k in ("prim", "axes", "inputs", "outputs",
+                               "bucket", "params")} for r in rec.records]
+    return {"records": len(recs),
+            "bytes": sum(aval_nbytes(a) for r in recs for a in r["inputs"]),
+            "host_ms": 1e3 * rec.host_s, "list": recs}
+
+
+def schedule_summary(row):
+    """A schedule row for the ``schedule`` line: counts, not records."""
+    prims = {}
+    for r in row["list"]:
+        key = f"{r['prim']}@{'+'.join(r['axes'])}"
+        prims[key] = prims.get(key, 0) + 1
+    return {"records": row["records"], "bytes": row["bytes"],
+            "host_ms": row["host_ms"], "prims": prims,
+            "buckets": [r["bucket"] for r in row["list"]]}
+
+
+def _prims_axes(recs):
+    return sorted({(r["prim"], tuple(r["axes"])) for r in recs})
+
+
+def dp_schedule_problems(row, plane):
+    """``train_dp``'s gates: one record a bucket of the step's gradient
+    plane (``plane``: its engine stats), each a psum over ``workers``,
+    bucket ids 0..n-1 in issue order, the input bytes the plane's."""
+    bad = []
+    recs = row["list"]
+    if row["records"] != plane["buckets"] or not recs:
+        bad.append(f"{row['records']} records for the plane's "
+                   f"{plane['buckets']} buckets")
+    if _prims_axes(recs) not in ([("psum", ("workers",))], []):
+        bad.append(f"records other than a psum over workers: "
+                   f"{_prims_axes(recs)}")
+    if [r["bucket"] for r in recs] != list(range(len(recs))):
+        bad.append(f"bucket ids {[r['bucket'] for r in recs]} are not "
+                   f"0..{len(recs) - 1} in issue order")
+    if row["bytes"] != plane["bytes"]:
+        bad.append(f"input bytes {row['bytes']}, the plane's gradient "
+                   f"bytes {plane['bytes']}")
+    return bad
+
+
+def ranks_schedule_problems(ranks):
+    """Every rank's full records (shapes included) rank 0's."""
+    return [f"rank {i} recorded another schedule than rank 0 "
+            f"({len(r)} vs {len(ranks[0])} records)"
+            for i, r in enumerate(ranks[1:], start=1) if r != ranks[0]]
+
+
+def dp2_schedule_problems(ranks, dp_row):
+    """``train_dp2``'s gates: both ranks' schedules identical; shapes
+    erased, the prims, axes and bucket sequence of ``train_dp``'s (the
+    depth changes the bucket count only)."""
+    bad = ranks_schedule_problems(ranks)
+    recs = ranks[0]
+    if not recs:
+        bad.append("no records")
+    if _prims_axes(recs) != _prims_axes(dp_row["list"]):
+        bad.append(f"prims and axes {_prims_axes(recs)}, train_dp's "
+                   f"{_prims_axes(dp_row['list'])}")
+    if [r["bucket"] for r in recs] != list(range(len(recs))):
+        bad.append(f"bucket ids {[r['bucket'] for r in recs]} are not "
+                   f"0..{len(recs) - 1} in issue order")
+    return bad
+
+
+def serve_mp_schedule_problems(ranks):
+    """``serve_mp2``'s gates: both ranks' schedules identical, the weights'
+    all-gathers over the mp group; returns the problems and the other
+    prims (ROADMAP §C names them)."""
+    bad = ranks_schedule_problems(ranks)
+    recs = ranks[0]
+    gathers = [r for r in recs if r["prim"] == "all_gather"]
+    if not gathers:
+        bad.append("no all_gather recorded")
+    if any(r["axes"] != ["hvd_serve_mp"] for r in gathers):
+        bad.append(f"all_gathers over {_prims_axes(gathers)}")
+    others = _prims_axes([r for r in recs if r["prim"] != "all_gather"])
+    return bad, others
+
+
 def health_dp_phase(hvd, fa, llama, training, adamw_lp, dev, over=None,
                     batch=HEALTH_BATCH, profile=True):
     """``health_dp``: the 1B step's gradients (``llama.loss_fn``, then
@@ -2763,21 +2896,29 @@ def health_dp_phase(hvd, fa, llama, training, adamw_lp, dev, over=None,
             torch.cuda.empty_cache()
         return out
 
+    def grad_norms():
+        """Worker 0's ``hvd_health_grad_norm`` gauges by bucket name."""
+        fam = metrics.registry().to_dict().get("hvd_health_grad_norm")
+        return {x["labels"]["bucket"]: x["value"]
+                for x in (fam or {"series": []})["series"]
+                if x["labels"]["worker"] == "0"}
+
     row = {"layers": cfg.n_layers, "batch": list(batch),
            "bucket": HEALTH_BUCKET}
     hvd.init(device=dev)
     try:
         row["off"] = run(False, HEALTH_OFF_STEPS, prof=profile)
+        # the registry is the process's: only gauges this run set count
+        # (an earlier run in the process may have left series behind)
+        before = grad_norms()
         fa.reset_launches()   # the path's run starts here
         row["on"] = run(True, HEALTH_STEPS + 1,
                         rule=f"collective.corrupt bucket={HEALTH_BUCKET} "
                              f"nth=1 action=scale:0",
                         rule_step=HEALTH_STEPS + 1, prof=profile)
         row["launches"] = dict(fa.LAUNCHES)   # ... and ends here
-        row["grad_norm_buckets"] = sorted({
-            s["labels"]["bucket"] for s in metrics.registry().to_dict()[
-                "hvd_health_grad_norm"]["series"]
-            if s["labels"]["worker"] == "0"})
+        row["grad_norm_buckets"] = sorted(
+            b for b, v in grad_norms().items() if before.get(b) != v)
         row["nan"] = run(True, 1,
                          rule=f"collective.corrupt bucket={HEALTH_BUCKET} "
                               f"nth=1 action=nan:0", rule_step=1)
@@ -3892,8 +4033,15 @@ def serve_mp_child(rank: int, dev: torch.device) -> int:
     expected = sum(t.numel() * t.element_size() // (
         SERVE_MP_DEGREE if fwd.axis in llama.leaf_spec(specs, p) else 1)
         for p, t in zip(tree_paths(params), tree_leaves(params)))
+    from horovod_tpu_torch.analysis import recorder
     rng = np.random.RandomState(6)
-    calls, outs, ms = [], [], []
+    calls, outs, ms, recorded = [], [], [], []
+
+    def armed():
+        """The first call of each rank records its collectives."""
+        return recorder.recording() if not recorded \
+            else contextlib.nullcontext()
+
     ax.reset_bytes()
     if fwd.group.rank() == 0:
         for b, n in SERVE_MP_CALLS:
@@ -3904,18 +4052,25 @@ def serve_mp_child(rank: int, dev: torch.device) -> int:
                                      (b, SERVE_MP_SEQ)).astype(np.int32)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                outs.append(np.asarray(fwd(tokens, lengths)))
+                with armed() as rec:
+                    outs.append(np.asarray(fwd(tokens, lengths)))
                 ms.append(1e3 * (time.perf_counter() - t0))
+                if rec is not None:
+                    recorded.append(schedule_row(rec))
                 calls.append((tokens, lengths))
         fwd.close()
     else:
         while True:
-            o = fwd()
+            with armed() as rec:
+                o = fwd()
+            if rec is not None:
+                recorded.append(schedule_row(rec))
             if o is None:
                 break
             outs.append(np.asarray(o))
     nbytes = dict(sorted(ax.BYTES.items()))
     digest = hvd.allgather_object([o.tolist() for o in outs])
+    schedules = hvd.allgather_object(recorded[0])
     st = fwd.stats()
     peak = torch.cuda.max_memory_allocated()
     hvd.shutdown()
@@ -3929,6 +4084,7 @@ def serve_mp_child(rank: int, dev: torch.device) -> int:
         "batches": [len(n) for _, n in calls], "ms_by_call": ms,
         "ms_per_token": [m / SERVE_MP_NEW for m in ms],
         "equal_world1": equal, "ranks_agree": digest[0] == digest[1],
+        "schedule_ranks": schedules,
         "stats": st, "per_chip_expected": expected,
         "host_bytes_by_call": {k: v // len(calls)
                                for k, v in nbytes.items()},
@@ -3946,6 +4102,12 @@ def serve_mp2_phase(script=None):
          new_tokens=SERVE_MP_NEW, backend="gloo", seconds=seconds, **res)
     bad = serve_mp_problems(res)
     require(not bad, f"serve_mp2: {bad}")
+    bad, others = serve_mp_schedule_problems(
+        [r["list"] for r in res["schedule_ranks"]])
+    require(not bad, f"serve_mp2 schedule: {bad}")
+    SCHEDULE["serve_mp2"] = dict(schedule_summary(
+        res["schedule_ranks"][0]), ranks_identical=True,
+        not_mp_gathers=[f"{p}@{'+'.join(a)}" for p, a in others])
     return res
 
 
@@ -4451,6 +4613,7 @@ def decode_phase(llama, gen, paging, fa, fx, convert, dev):
     widths (SERVE_LAYERS layers), then the ragged bucket against
     sequential decode, then card
     against CPU at 2 layers; none of the six kernels may launch."""
+    from horovod_tpu_torch.analysis import recorder
     cfg = bench_config(llama, n_layers=SERVE_LAYERS)
     params = serve_params(llama, gen, cfg, dev)
     rng = np.random.RandomState(0)
@@ -4479,7 +4642,14 @@ def decode_phase(llama, gen, paging, fa, fx, convert, dev):
                 params, cfg, prompts, lengths, tables, pool, new)[0],
                 lambda: gen.forward_with_cache(params, prompts, cfg, pool,
                                                block_tables=tables))}
-        toks = {k: call() for k, (call, _) in calls.items()}
+        # the first batch's decode calls record their collectives: none
+        with (recorder.recording() if not SCHEDULE.get("decode")
+              else contextlib.nullcontext()) as rec:
+            toks = {k: call() for k, (call, _) in calls.items()}
+        if rec is not None:
+            SCHEDULE["decode"] = schedule_summary(schedule_row(rec))
+            require(not rec.records,
+                    f"decode issued collectives: {rec.records[:3]}")
         row = {"paged_equals_dense": torch.equal(toks["dense"],
                                                  toks["paged"]),
                **decode_bound(cfg, llama.count_params, [seq] * B, new),
@@ -4584,16 +4754,21 @@ def decode_parity(llama, gen, convert, dev):
 def serve_phase(llama, gen, paging, fa, fx, dev):
     """48 requests through the serving plane, one worker thread on the
     card with the paged KV pool; the gates of :func:`serve_problems`."""
+    from horovod_tpu_torch.analysis import recorder
     cfg = bench_config(llama, n_layers=SERVE_LAYERS)
     params = serve_params(llama, gen, cfg, dev)
     prompts = serve_prompts(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()  # the path's run starts here
     fx.reset_launches()
-    row, answers, fwd, batches, after_warmup = serve_run(
-        paging, params, cfg, prompts, SERVE_NEW, SERVE_BLOCK, SERVE_BATCHES,
-        SERVE_SEQS, SERVE_BURSTS, SERVE_TIMEOUT_S)
+    # the traffic records its collectives: serving is data parallel, none
+    with recorder.recording() as rec:
+        row, answers, fwd, batches, after_warmup = serve_run(
+            paging, params, cfg, prompts, SERVE_NEW, SERVE_BLOCK,
+            SERVE_BATCHES, SERVE_SEQS, SERVE_BURSTS, SERVE_TIMEOUT_S)
     launches = {**fa.LAUNCHES, **fx.LAUNCHES}  # ... and ends here
+    SCHEDULE["serve"] = schedule_summary(schedule_row(rec))
+    require(not rec.records, f"serve issued collectives: {rec.records[:3]}")
     row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     from horovod_tpu_torch.serving.shapes import ShapeBuckets
     buckets = [ShapeBuckets(SERVE_BATCHES, SERVE_SEQS).seq_bucket(len(p))
@@ -6191,6 +6366,11 @@ def main() -> int:
     require(train_dp["losses"] == train["losses"],
             f"train_dp losses {train_dp['losses']} are not train's "
             f"{train['losses']}")
+    # its first timed step ran with the schedule recorder armed
+    bad = dp_schedule_problems(train_dp["schedule"],
+                               train_dp["gradient_plane"][0])
+    require(not bad, f"train_dp schedule: {bad}")
+    SCHEDULE["train_dp"] = schedule_summary(train_dp["schedule"])
     expected = {**EXPECTED_LAUNCHES,
                 **{n: 0 for n in EXPECTED_XENT_LAUNCHES}}
     emit("train_overlap_vs_train_dp", **{
@@ -6249,7 +6429,7 @@ def main() -> int:
     bad = health_problems(health_dp, EXPECTED_LAUNCHES)
     require(not bad, f"health_dp: {bad}")
     torch.cuda.empty_cache()
-    timed("train_dp2", train_dp2_phase)
+    timed("train_dp2", train_dp2_phase, train_dp["schedule"])
     timed("train_a5_dp2", train_a5_dp2_phase)
     timed("train_hier_dp4", train_hier_dp4_phase)
     # the model-parallel Llama: tp x sp (ring, then Ulysses) and experts
@@ -6287,6 +6467,7 @@ def main() -> int:
     timed("parity_bert", parity_bert_phase, convert, dev)
     timed("parity_resnet", parity_resnet_phase, convert, dev)
     emit("phase_seconds", **phase_s)
+    emit("schedule", **SCHEDULE)
 
     # (name, source, replaces, kernels-phase row, launches on its path)
     rows = [(f"flash_{k}", SOURCE, REPLACES[k], kernels[("main", k)],

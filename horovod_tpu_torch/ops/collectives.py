@@ -44,6 +44,9 @@ The in-step forms :func:`allreduce_p`, :func:`allgather_p`,
 traceable ``*_p`` for use inside ``shard_map``) run over a named axis of
 the current ``ParallelMesh`` through ``parallel/axis.py``, differentiable
 where JAX's are.
+
+Every ``torch.distributed`` call here reports to the schedule recorder
+first (``analysis/recorder.py``; one flag test when it is not armed).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import torch.distributed as dist
 
 from .. import chaos as _chaos
 from .. import metrics as _metrics
+from ..analysis import recorder as _rec
 from .. import tracing as _tracing
 from ..compression import (WireFormat, dequantize_blocks, dequantize_sum,
                            quantization_error, quantize_blocks)
@@ -164,6 +168,9 @@ def allreduce_arrays(tensors: Sequence[torch.Tensor], ps,
     elif wire is not None:
         flat.copy_(quantized_allreduce(flat, ps, wire, op=op)[0])
     else:
+        if _rec.ARMED:
+            _rec.note(_rec.PRIM_OF_OP[op], ps, [flat], [flat],
+                      bucket=_rec.engine_bucket(), axis_index_groups=None)
         dist.all_reduce(flat, op=_DIST_OPS[op], group=group)
     mark("unpack")
     if op == ReduceOp.AVERAGE and wire is None and not hierarchical:
@@ -187,6 +194,8 @@ def allreduce_sum(x: torch.Tensor, ps) -> torch.Tensor:
     calling thread (JAX ``lax.psum`` inside a program; the engine is not
     involved): for collectives inside a model's forward or backward."""
     out = x.contiguous().clone()
+    if _rec.ARMED:
+        _rec.reduce("sum", ps, out)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(ps))
     return out
 
@@ -209,6 +218,9 @@ def allgather_array(x: torch.Tensor, ps,
     if x.shape[0] < mx:
         x = torch.cat([x, x.new_zeros((mx - x.shape[0],) + x.shape[1:])])
     outs = [torch.empty_like(x) for _ in range(n)]
+    if _rec.ARMED:
+        _rec.gather(ps, x, x.new_empty((n * mx,) + tuple(x.shape[1:]),
+                                       device="meta"))
     dist.all_gather(outs, x, group=group)
     return torch.cat([o[:r] for o, r in zip(outs, rows)])
 
@@ -232,6 +244,8 @@ def broadcast_array(x: torch.Tensor, root_rank: int, ps,
         raise ValueError(f"root_rank {root_rank} outside the process set "
                          f"of {ps.size()} ranks")
     out = x if inplace and x.is_contiguous() else x.contiguous().clone()
+    if _rec.ARMED:
+        _rec.broadcast(ps, out, root_rank)
     dist.broadcast(out, src=ps.ranks[root_rank], group=_group(ps))
     if out is not x and inplace:
         x.copy_(out)
@@ -263,6 +277,8 @@ def alltoall_array(x: torch.Tensor, ps,
                          f"({x.shape[0]})")
     recv = [splits[ps.rank()]] * n
     out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    if _rec.ARMED:
+        _rec.exchange(ps, x, out)
     dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
                            input_split_sizes=splits, group=_group(ps))
     return out
@@ -279,6 +295,8 @@ def reducescatter_array(x: torch.Tensor, ps,
         raise ValueError(f"reducescatter dim-0 {tuple(x.shape)[:1]} not "
                          f"divisible by {n}")
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    if _rec.ARMED:
+        _rec.scatter(ps, x, out)
     dist.reduce_scatter_tensor(out, x.contiguous(), op=dist.ReduceOp.SUM,
                                group=_group(ps))
     if op == ReduceOp.AVERAGE:
@@ -325,6 +343,8 @@ def reduce_scatter_flat(buf: torch.Tensor, ps) -> torch.Tensor:
     if n == 1:
         return buf.clone()
     out = buf.new_empty(buf.numel() // n)
+    if _rec.ARMED:
+        _rec.scatter(ps, buf, out)
     _run_flat(lambda o, i, group: dist.reduce_scatter_tensor(
         o, i, op=dist.ReduceOp.SUM, group=group),
         out, buf.contiguous(), _group(ps))
@@ -337,6 +357,8 @@ def all_gather_flat(tile: torch.Tensor, ps) -> torch.Tensor:
     if ps.size() == 1:
         return tile.clone()
     out = tile.new_empty(tile.numel() * ps.size())
+    if _rec.ARMED:
+        _rec.gather(ps, tile, out)
     _run_flat(lambda o, i, group: dist.all_gather_into_tensor(
         _on_wire(o), _on_wire(i), group=group),
         out, tile.contiguous(), _group(ps))
@@ -346,6 +368,8 @@ def all_gather_flat(tile: torch.Tensor, ps) -> torch.Tensor:
 def _all_to_all_flat(x: torch.Tensor, ps) -> torch.Tensor:
     """Equal 1-D chunks: chunk ``j`` of every rank goes to rank ``j``."""
     out = torch.empty_like(x)
+    if _rec.ARMED:
+        _rec.exchange(ps, x, out)
     _run_flat(lambda o, i, group: dist.all_to_all_single(
         _on_wire(o), _on_wire(i), group=group),
         out, x.contiguous(), _group(ps))
@@ -583,6 +607,11 @@ def _agree_min(mask: torch.Tensor, ps, device: torch.device) -> torch.Tensor:
     group = _group(ps)
     t = (mask.to(device) if dist.get_backend(group) == "nccl"
          else mask.clone())
+    if _rec.ARMED:
+        # one agreement over the whole set: both axes of its hierarchy
+        hier = getattr(ps, "hier_shape", lambda: None)()
+        _rec.reduce("min", ps, t, axis=("workers", "hvd_local")
+                    if hier is not None else None)
     dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
     return t.cpu()
 
@@ -593,6 +622,8 @@ def _sum_over(chunk: torch.Tensor, cross, wire: Optional[WireFormat]
     if wire is not None:
         return quantized_allreduce(chunk, cross, wire, op=ReduceOp.SUM)[0]
     out = chunk.clone()
+    if _rec.ARMED:
+        _rec.reduce("sum", cross, out)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(cross))
     return out
 

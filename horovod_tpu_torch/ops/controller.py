@@ -559,6 +559,9 @@ class Controller:
         while True:
             with self._lock:
                 self.kv_checks += 1
+                # read with its writer's lock (runtime.note_superseded runs
+                # on the elastic worker's notification thread)
+                superseded = self._superseded_at is not None
             if _metrics.ACTIVE:
                 _m_kv_ops.inc(op="check")
             if self.store.check(keys):
@@ -568,7 +571,7 @@ class Controller:
                 if _metrics.ACTIVE:
                     _m_kv_ops.inc(op="multi_get")
                 return {q: v.decode() for q, v in zip(need, raw)}
-            if self._superseded_at is not None:
+            if superseded:
                 self._check_superseded(seq, [q for q, k in zip(need, keys)
                                              if not self.store.check([k])])
             waited = time.monotonic() - t0

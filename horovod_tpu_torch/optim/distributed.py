@@ -96,6 +96,7 @@ import torch
 import torch.distributed as dist
 
 from .. import api, runtime
+from ..analysis import recorder as _rec
 from ..compression import Compression, quantizable, resolve_wire_format
 from ..ops import collectives
 from ..ops.fusion import (BucketLayout, EntrySig, canonicalize_spec,
@@ -207,6 +208,8 @@ def _allreduce_flat_(buf: torch.Tensor, ps, op: str, prescale: float,
     if prescale != 1.0:
         collectives._scale_(buf, prescale)
     wire, ctx = compression.compress(buf)
+    if _rec.ARMED:
+        _rec.reduce("sum", ps, wire)
     dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=collectives._group(ps))
     if wire is not buf:
         buf.copy_(compression.decompress(wire, ctx))
@@ -545,6 +548,8 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
                                   wire_format=fmt.name if fmt else "none")
     res = _residual_leaves(residual, leaves) if fmt is not None else None
     for bucket_id, bucket in enumerate(buckets):
+        if _rec.ARMED:
+            _rec.set_bucket(bucket_id)
         parts = [leaves[i] for i in bucket]
         numel = sum(p.numel() for p in parts)
         buf = _tap_bucket(_bucket_flat(parts, numel), ps, bucket_id,
@@ -582,6 +587,8 @@ def fused_reduce_tree(grads, process_set=None, op: str = ReduceOp.AVERAGE,
             _allreduce_flat_(buf, ps, op, prescale_factor, postscale_factor,
                              compression)
             _split_into(buf, parts)
+    if _rec.ARMED:
+        _rec.set_bucket(None)
     if fmt is None:
         return grads
     it = iter(_restore_order(res, order))
@@ -600,7 +607,9 @@ def _spec_reduce_tree(grads, leaves, names, order, sp: SpecPlan, op,
     global_n = sp.global_size()
     data = sp.data_axis
     res = _residual_leaves(residual, leaves) if fmt is not None else None
-    for bucket in buckets:
+    for bucket_id, bucket in enumerate(buckets):
+        if _rec.ARMED:
+            _rec.set_bucket(bucket_id)
         parts = [leaves[i] for i in bucket]
         numel = sum(p.numel() for p in parts)
         buf = _bucket_flat(parts, numel)
@@ -631,6 +640,8 @@ def _spec_reduce_tree(grads, leaves, names, order, sp: SpecPlan, op,
         if postscale != 1.0:
             collectives._scale_(red, postscale)
         _split_into(red, parts)
+    if _rec.ARMED:
+        _rec.set_bucket(None)
     if fmt is None:
         return grads
     it = iter(_restore_order(res, order))
@@ -731,6 +742,8 @@ def fused_reduce_scatter_tree(grads, process_set=None,
     res = _residual_leaves(residual, leaves) if fmt is not None else None
     tiles = []
     for bucket_id, bl in enumerate(layout.buckets):
+        if _rec.ARMED:
+            _rec.set_bucket(bucket_id)
         parts = [leaves[i] for i in bl.indices]
         buf = _bucket_flat(parts, bl.padded_numel)
         if sp is None:
@@ -767,6 +780,8 @@ def fused_reduce_scatter_tree(grads, process_set=None,
         if postscale_factor != 1.0:
             collectives._scale_(tile, postscale_factor)
         tiles.append(tile)
+    if _rec.ARMED:
+        _rec.set_bucket(None)
     if fmt is None:
         return tuple(tiles), layout
     return tuple(tiles), layout, _unflatten(layout, res)
@@ -799,7 +814,9 @@ def all_gather_sharded_tree(tiles, layout: ShardedLayout, process_set=None,
     ps = api._ps(process_set)
     dst = _tree_leaves_sorted(out)[0] if out is not None else None
     pieces: List[Optional[torch.Tensor]] = [None] * len(layout.shapes)
-    for bl, tile in zip(layout.buckets, tiles):
+    for b, (bl, tile) in enumerate(zip(layout.buckets, tiles)):
+        if _rec.ARMED:
+            _rec.set_bucket(b)
         full = collectives.all_gather_flat(tile, ps)
         if dst is not None:
             _split_into(full, [dst[i] for i in bl.indices])
@@ -808,6 +825,8 @@ def all_gather_sharded_tree(tiles, layout: ShardedLayout, process_set=None,
         for i, sz in zip(bl.indices, bl.sizes):
             pieces[i] = full[off:off + sz].view(layout.shapes[i])
             off += sz
+    if _rec.ARMED:
+        _rec.set_bucket(None)
     return out if out is not None else _unflatten(layout, pieces)
 
 
@@ -824,9 +843,13 @@ def _step_tiles(opt, p_tiles, g_tiles, layout, params, ps) -> None:
     opt.step()
     for t in p_tiles:
         t.grad = None
-    for bl, t in zip(layout.buckets, p_tiles):
+    for b, (bl, t) in enumerate(zip(layout.buckets, p_tiles)):
+        if _rec.ARMED:
+            _rec.set_bucket(b)
         _split_into(collectives.all_gather_flat(t, ps),
                     [sorted_p[i] for i in bl.indices])
+    if _rec.ARMED:
+        _rec.set_bucket(None)
 
 
 # ---------------------------------------------------------------------------

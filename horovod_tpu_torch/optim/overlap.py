@@ -64,6 +64,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from .. import tracing as _tracing
+from ..analysis import recorder as _rec
 from ..compression import quantizable
 from ..ops import collectives
 from ..ops.fusion import (EntrySig, dtype_name, plan_bucket_layouts,
@@ -231,6 +232,15 @@ def build_layout(tree, plan: OverlapPlan,
         bucket_spec=tuple(sigs[b[0]].spec for b in buckets))
 
 
+def _bucket_id(layout: OverlapLayout, b: int) -> int:
+    """Bucket ``b``'s ordinal among its layer's buckets: the id the JAX
+    package's per-tap plan gives it (its ``hvd_bucket<i>`` scope), which
+    the schedule recorder records."""
+    layers = layout.dispatch.layers
+    return [i for i in range(len(layers))
+            if layers[i] == layers[b]].index(b)
+
+
 def _shards(plan: OverlapPlan) -> int:
     return plan.process_set.size() if plan.sharded else 1
 
@@ -351,8 +361,12 @@ def reduce_full(tree, plan: OverlapPlan,
     leaves, layout = _leaves_for(tree, layout, plan)
     for b in layout.dispatch.order:
         bl = layout.buckets[b]
+        if _rec.ARMED:
+            _rec.set_bucket(_bucket_id(layout, b))
         _reduce_bucket_(_parts(leaves, bl), bl, layout.bucket_wire[b], plan,
                         spec=layout.bucket_spec[b])
+    if _rec.ARMED:
+        _rec.set_bucket(None)
     if _tracing.ACTIVE:
         # off every round's path (round=-1): when and how the overlap
         # plan staged its buckets at the boundary
@@ -372,9 +386,13 @@ def scatter_tiles(tree, plan: OverlapPlan,
     tiles: List[Optional[torch.Tensor]] = [None] * len(layout.buckets)
     for b in layout.dispatch.order:
         bl = layout.buckets[b]
+        if _rec.ARMED:
+            _rec.set_bucket(_bucket_id(layout, b))
         tiles[b] = _scatter_bucket(_parts(leaves, bl), bl,
                                    layout.bucket_wire[b], plan,
                                    spec=layout.bucket_spec[b])
+    if _rec.ARMED:
+        _rec.set_bucket(None)
     if _tracing.ACTIVE:
         _tracing.span("overlap", "scatter_tiles", t_stage, _tracing.now(),
                       round=-1, phase="bwd" if active() else "boundary",
@@ -429,13 +447,17 @@ def gather_updates(tiles, layout: OverlapLayout, plan: OverlapPlan,
             f"different plans")
     pieces: List[Optional[torch.Tensor]] = [None] * len(layout.shapes)
     dst = _tree_leaves_sorted(out)[0] if out is not None else None
-    for bl, tile in zip(layout.buckets, tiles):
+    for b, (bl, tile) in enumerate(zip(layout.buckets, tiles)):
+        if _rec.ARMED:
+            _rec.set_bucket(_bucket_id(layout, b))
         full = collectives.all_gather_flat(tile, plan.process_set)
         if dst is None:
             _split_entries(full, bl, layout, pieces)
         else:
             from .distributed import _split_into
             _split_into(full, [dst[i] for i in bl.indices])
+    if _rec.ARMED:
+        _rec.set_bucket(None)
     return out if out is not None else _unflatten(layout, pieces)
 
 
@@ -503,6 +525,8 @@ class _Dispatch:
 
     def _issue(self, b: int, bl) -> None:
         t0 = time.perf_counter()
+        if _rec.ARMED:
+            _rec.set_bucket(_bucket_id(self.layout, b))
         parts = [self.bufs[i] for i in bl.indices]
         stream = self.plan.stream(parts[0].device)
         ctx = (torch.cuda.stream(stream) if stream is not None
@@ -532,6 +556,8 @@ class _Dispatch:
                 self.done = torch.cuda.Event(enable_timing=
                                              self.plan.time_device)
                 self.done.record(stream)
+        if _rec.ARMED:
+            _rec.set_bucket(None)
         self.issue_s += time.perf_counter() - t0
 
     def finish(self):
@@ -539,27 +565,31 @@ class _Dispatch:
         Returns the reduced leaves (path-sorted) or, under sharded_update,
         the tiles (plan order)."""
         t0 = time.perf_counter()
-        if self.plan.time_device and self.done is not None:
-            # after the backward's last kernel on the caller's stream
-            self.bwd_end = torch.cuda.Event(enable_timing=True)
-            self.bwd_end.record()
-        missing = [n for n, a in zip(self.layout.names, self.arrived)
-                   if not a]
-        if missing:
-            raise ValueError(
-                f"overlap: grad taps fired but leaves {missing} never "
-                f"reached one; every leaf must be covered by exactly one "
-                f"tap (the port's Llama taps each layer's weights and, "
-                f"with tap_root, the rest)")
-        self._issue_ready()
-        out = list(self.tiles if self.plan.sharded else self.bufs)
-        # the caller owns the gradients now: a dispatch kept for its
-        # stats (plan.last) must not hold a step's worth of them
-        self.bufs = [None] * len(self.bufs)
-        self.tiles = [None] * len(self.tiles)
-        if self.done is not None:
+        # the taps' backwards may have run on autograd's device threads:
+        # read what they wrote, and issue the rest, under their lock
+        with self._lock:
+            if self.plan.time_device and self.done is not None:
+                # after the backward's last kernel on the caller's stream
+                self.bwd_end = torch.cuda.Event(enable_timing=True)
+                self.bwd_end.record()
+            missing = [n for n, a in zip(self.layout.names, self.arrived)
+                       if not a]
+            if missing:
+                raise ValueError(
+                    f"overlap: grad taps fired but leaves {missing} never "
+                    f"reached one; every leaf must be covered by exactly "
+                    f"one tap (the port's Llama taps each layer's weights "
+                    f"and, with tap_root, the rest)")
+            self._issue_ready()
+            out = list(self.tiles if self.plan.sharded else self.bufs)
+            # the caller owns the gradients now: a dispatch kept for its
+            # stats (plan.last) must not hold a step's worth of them
+            self.bufs = [None] * len(self.bufs)
+            self.tiles = [None] * len(self.tiles)
+            done = self.done
+        if done is not None:
             cur = torch.cuda.current_stream(out[0].device)
-            cur.wait_event(self.done)
+            cur.wait_event(done)
             for t in out:
                 t.record_stream(cur)
         self.finish_s = time.perf_counter() - t0
@@ -572,16 +602,18 @@ class _Dispatch:
         the device ms from that kernel to the last bucket's end (the
         exposed plane), the host ms spent issuing and in ``finish()``, and
         the wire's relative quantization error."""
-        layers = [self.layout.dispatch.layers[b] for b in self.issued]
-        out = {"buckets": len(self.issued), "bucket_layers": layers,
-               "issue_host_ms": 1e3 * self.issue_s,
+        with self._lock:    # what the issuing threads wrote
+            issued, issue_s = list(self.issued), self.issue_s
+            issue_events = list(self.issue_events)
+            bwd_end, done = self.bwd_end, self.done
+        layers = [self.layout.dispatch.layers[b] for b in issued]
+        out = {"buckets": len(issued), "bucket_layers": layers,
+               "issue_host_ms": 1e3 * issue_s,
                "finish_host_ms": 1e3 * self.finish_s}
-        if self.bwd_end is not None:
+        if bwd_end is not None:
             out["issued_before_backward_end"] = sum(
-                1 for _, ev in self.issue_events
-                if ev.elapsed_time(self.bwd_end) > 0)
-            out["exposed_device_ms"] = max(
-                0.0, self.bwd_end.elapsed_time(self.done))
+                1 for _, ev in issue_events if ev.elapsed_time(bwd_end) > 0)
+            out["exposed_device_ms"] = max(0.0, bwd_end.elapsed_time(done))
         if self.errors:
             err = sum(e for e, _ in self.errors)
             total = sum(c for _, c in self.errors)

@@ -21,7 +21,8 @@ The axis resolves through :func:`parallel.mesh.current_mesh` when the
 forward runs; an axis of size 1 is the identity.  Over gloo, CUDA tensors
 go through host memory.  :data:`BYTES` counts the payload bytes one rank
 hands each axis, by collective (``"tp.all_reduce"``, ``"sp.ppermute"``,
-...).
+...).  Every ``torch.distributed`` call reports to the schedule recorder
+first (``analysis/recorder.py``), named by its axis.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..analysis import recorder as _rec
 from .mesh import current_mesh
 
 #: payload bytes this rank handed each axis since :func:`reset_bytes`, by
@@ -78,6 +80,8 @@ def _host(t: torch.Tensor, g) -> bool:
 
 def _all_reduce(x: torch.Tensor, g, name: str, op=dist.ReduceOp.SUM):
     _count(name, "all_reduce", x)
+    if _rec.ARMED:
+        _rec.reduce(op, g, x, axis=name)
     if _host(x, g):
         t = x.detach().cpu()
         dist.all_reduce(t, op=op, group=g.group)
@@ -94,6 +98,11 @@ def _gather(x: torch.Tensor, g, name: str, dim: int):
     src = (x.detach().cpu() if _host(x, g)
            else x.detach().contiguous()).reshape(-1)
     out = src.new_empty(n * src.numel())
+    if _rec.ARMED:
+        shape = list(x.shape) or [1]
+        shape[dim if x.dim() else 0] *= n
+        _rec.gather(g, x, x.new_empty(shape, device="meta"), dim=dim,
+                    axis=name)
     dist.all_gather_into_tensor(out, src, group=g.group)
     parts = out.to(x.device).view((n,) + tuple(x.shape)).unbind(0)
     return torch.cat(parts, dim=dim) if x.dim() else torch.stack(parts)
@@ -112,6 +121,12 @@ def _exchange(x: torch.Tensor, g, name: str, split_axis: int,
     chunks = torch.stack(x.detach().chunk(n, dim=split_axis))
     src = chunks.cpu() if _host(x, g) else chunks.contiguous()
     out = torch.empty_like(src)
+    if _rec.ARMED:
+        shape = list(x.shape)
+        shape[split_axis] //= n
+        shape[concat_axis] *= n
+        _rec.exchange(g, x, x.new_empty(shape, device="meta"),
+                      split=split_axis, concat=concat_axis, axis=name)
     dist.all_to_all_single(out, src, group=g.group)
     return torch.cat(list(out.to(x.device).unbind(0)), dim=concat_axis)
 
@@ -123,6 +138,8 @@ def _permute(x: torch.Tensor, g, name: str, perm):
     me = g.rank()
     src = x.detach().cpu() if _host(x, g) else x.detach().contiguous()
     out = torch.zeros_like(src)
+    if _rec.ARMED:
+        _rec.permute(g, x, x, perm, axis=name)
     reqs = []
     for s, d in perm:
         if s == me:
@@ -146,6 +163,11 @@ def _scatter_sum(x: torch.Tensor, g, name: str, dim: int):
     chunks = torch.stack(x.detach().chunk(n, dim=dim))
     src = (chunks.cpu() if _host(x, g) else chunks.contiguous()).view(-1)
     out = src.new_empty(src.numel() // n)
+    if _rec.ARMED:
+        shape = list(x.shape)
+        shape[dim] //= n
+        _rec.scatter(g, x, x.new_empty(shape, device="meta"), dim=dim,
+                     axis=name)
     dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
                                group=g.group)
     return out.to(x.device).view(chunks.shape[1:])

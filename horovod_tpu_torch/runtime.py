@@ -93,11 +93,16 @@ class SubGroup:
     """One stage's group of a hierarchical collective: the ranks of one
     host (local) or of one local rank on every host (cross).  It answers
     what the collectives ask of a process set (``group``, ``ranks``,
-    ``size()``, ``rank()``)."""
+    ``size()``, ``rank()``).  ``axis`` names the axis a hierarchy's group
+    spans, as the JAX package names it (``hvd_local``, ``workers``) for
+    the schedule recorder; a mesh's groups leave it None (one group can
+    be two meshes' axes)."""
 
-    def __init__(self, ranks: Sequence[int], group):
+    def __init__(self, ranks: Sequence[int], group,
+                 axis: Optional[str] = None):
         self.ranks = list(ranks)
         self.group = group
+        self.axis = axis
 
     def size(self) -> int:
         return len(self.ranks)
@@ -208,12 +213,12 @@ def _make_hier_groups(ranks: Sequence[int], shape: Tuple[int, int]):
         members = list(ranks[g * n_local:(g + 1) * n_local])
         group = dist.new_group(members)
         if me in members:
-            local = SubGroup(members, group)
+            local = SubGroup(members, group, axis="hvd_local")
     for i in range(n_local):
         members = list(ranks[i::n_local])
         group = dist.new_group(members)
         if me in members:
-            cross = SubGroup(members, group)
+            cross = SubGroup(members, group, axis="workers")
     return local, cross
 
 

@@ -259,6 +259,9 @@ class MeshSlicedForward(BucketedForward):
     def _bcast(self, t: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
         t = t.to(self._wire)
+        from ..analysis import recorder as _rec
+        if _rec.ARMED:
+            _rec.broadcast(self.group, t, 0, axis=self.axis)
         dist.broadcast(t, self.ranks[0], group=self.group.group)
         return t
 

@@ -41,7 +41,8 @@ setup(
     # the installed tree
     package_data={"horovod_tpu.native": ["*.cc", "*.cpp"],
                   # the port's CUDA sources, compiled by nvcc at first use
-                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "horovod_tpu_torch.analysis": ["baseline.json"]},
     ext_modules=exts,
     entry_points={
         "console_scripts": [

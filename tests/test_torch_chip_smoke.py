@@ -1529,6 +1529,10 @@ def test_chip_smoke_a6_phases_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert all(b["dp.all_gather"] > 0 and b["dp.psum_scatter"] > 0
                for b in run["bytes_per_step_by_rank"])
     assert serve["requests"] == 8 and all(serve["equal_world1"])
+    # both ranks recorded their first call: broadcasts, then the gathers
+    assert chip_smoke.SCHEDULE["serve_mp2"]["not_mp_gathers"] == [
+        "pbroadcast@hvd_serve_mp"]
+    assert chip_smoke.SCHEDULE["serve_mp2"]["records"] == 3 + 2 + 9 * 2
 
 
 # ---------------------------------------------------------------------------
@@ -1704,3 +1708,99 @@ def test_trace_gates_pass_and_fail():
     row["off"]["spans"] = row["on"]["spans"]
     assert any("HOROVOD_TRACE=0" in b
                for b in chip_smoke.trace_problems(row, ref))
+
+
+# -- the schedule recorder's gates ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def engine_schedule():
+    """train_dp's recording on the CPU: a world of one, 24 gradient-like
+    tensors through the engine's fused buckets (as ``training.sum_scaled_``
+    submits them), the recorder armed; the row and the step's plane."""
+    import os
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import recorder
+    # a 64-byte fusion threshold: several buckets, as at the 1B
+    old = os.environ.get("HOROVOD_FUSION_THRESHOLD")
+    os.environ["HOROVOD_FUSION_THRESHOLD"] = "64"
+    try:
+        hvd.init(device="cpu")
+    finally:
+        if old is None:
+            os.environ.pop("HOROVOD_FUSION_THRESHOLD")
+        else:
+            os.environ["HOROVOD_FUSION_THRESHOLD"] = old
+    try:
+        engine = hvd.runtime._state().engine
+        grads = [torch.full((3 + i,), float(i)) for i in range(24)]
+        before = engine.stats()
+        with recorder.recording() as rec:
+            for h in hvd.api._allreduce_each_async_(
+                    grads, [f"g.{i}" for i in range(24)], op=hvd.Sum):
+                h.synchronize()
+        after = engine.stats()
+    finally:
+        hvd.shutdown()
+    plane = {k: after[k] - before[k] for k in ("buckets", "bytes")}
+    return chip_smoke.schedule_row(rec), plane
+
+
+def test_train_dp_schedule_gates_pass_and_fail(engine_schedule):
+    row, plane = engine_schedule
+    assert 1 < row["records"] == plane["buckets"] < 24
+    assert row["bytes"] == sum(4 * (3 + i) for i in range(24))
+    assert chip_smoke.dp_schedule_problems(row, plane) == []
+    summary = chip_smoke.schedule_summary(row)
+    assert summary["prims"] == {"psum@workers": row["records"]}
+    assert summary["host_ms"] >= 0
+    recs = row["list"]
+    cases = {
+        "records for": dict(row, records=row["records"] - 1,
+                            list=recs[:-1]),
+        "other than a psum": dict(row, list=[dict(recs[0], prim="pmax")]
+                                  + recs[1:]),
+        "bucket ids": dict(row, list=[dict(r, bucket=r["bucket"] + 1)
+                                      for r in recs]),
+        "input bytes": dict(row, bytes=row["bytes"] + 4),
+    }
+    for what, bad_row in cases.items():
+        bad = chip_smoke.dp_schedule_problems(bad_row, plane)
+        assert any(what in b for b in bad), (what, bad)
+
+
+def test_train_dp2_schedule_gates_pass_and_fail(engine_schedule):
+    row, _ = engine_schedule
+    recs = row["list"]
+    assert chip_smoke.dp2_schedule_problems([recs, recs], row) == []
+    # a 2-layer step has fewer buckets than the 16-layer one: still fine
+    assert chip_smoke.dp2_schedule_problems([recs[:2], recs[:2]], row) == []
+    other = [dict(recs[0], inputs=["float32[1]"])] + recs[1:]
+    assert any("rank 1" in b for b in
+               chip_smoke.dp2_schedule_problems([recs, other], row))
+    gather = [dict(r, prim="all_gather") for r in recs]
+    assert any("prims and axes" in b for b in
+               chip_smoke.dp2_schedule_problems([gather, gather], row))
+    assert any("no records" in b for b in
+               chip_smoke.dp2_schedule_problems([[], []], row))
+
+
+def test_serve_mp2_schedule_gates_on_a_recorded_world():
+    """MeshSlicedForward's first call, recorded on two gloo ranks: the
+    leader's broadcasts and the weights' gathers over the mp group."""
+    from horovod_tpu_torch.analysis import schedule
+    got = schedule.record_worlds(["serve_mp_forward_step"], sizes=(1,))
+    ranks = [[{k: v for k, v in r.as_dict().items()
+               if k not in ("index", "path")} for r in s.records]
+             for s in got[("serve_mp_forward_step", 1)]]
+    bad, others = chip_smoke.serve_mp_schedule_problems(ranks)
+    assert bad == [] and others == [("pbroadcast", ("hvd_serve_mp",))]
+    assert chip_smoke.schedule_summary({
+        "records": 0, "bytes": 0, "host_ms": 0.0, "list": []})[
+        "prims"] == {}
+    moved = [dict(r, axes=["workers"]) if r["prim"] == "all_gather" else r
+             for r in ranks[0]]
+    bad, _ = chip_smoke.serve_mp_schedule_problems([moved, moved])
+    assert any("all_gathers over" in b for b in bad)
+    bad, _ = chip_smoke.serve_mp_schedule_problems([ranks[0],
+                                                    ranks[0][:-1]])
+    assert any("rank 1" in b for b in bad)

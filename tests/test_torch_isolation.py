@@ -75,6 +75,14 @@ def test_importing_every_module_loads_no_jax():
               "health.__main__", "metrics.timeseries", "metrics.slo",
               "metrics.top", "metrics.jobscrape"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # the analysis plane: the hvdlint engines and the schedule recorder
+    for m in ("analysis", "analysis.__main__", "analysis.cli",
+              "analysis.report", "analysis.baseline", "analysis.callgraph",
+              "analysis.lock_order", "analysis.guarded_by",
+              "analysis.lifecycle", "analysis.user_rules",
+              "analysis.divergence", "analysis.wire", "analysis.contracts",
+              "analysis.recorder", "analysis.schedule"):
+        assert f"horovod_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -190,6 +198,30 @@ def test_sources_import_neither_jax_nor_horovod_tpu():
         assert not pattern.search(path.read_text()), path
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert not pattern.search(smoke)
+
+
+def test_analysis_runs_without_jax_or_horovod_tpu():
+    """The port's hvdlint lints a script and its schedule module reads a
+    pinned snapshot with neither jax nor horovod_tpu loaded; the data
+    plane's import of the recorder leaves the engines unloaded."""
+    code = (
+        "import sys\n"
+        "import horovod_tpu_torch\n"
+        "from horovod_tpu_torch.ops import collectives\n"
+        "lazy = 'horovod_tpu_torch.analysis.cli' not in sys.modules\n"
+        "from horovod_tpu_torch.analysis import analyze_source, schedule\n"
+        "src = 'import horovod_tpu_torch as hvd\\nif hvd.rank() == 0:\\n'"
+        " '    hvd.allreduce(x)\\n'\n"
+        "codes = [f.code for f in analyze_source(src, 'x.py')]\n"
+        "snap = schedule.load_snapshot('distopt_step')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
+        "print(bad, codes, len(snap.records), lazy)\n"
+        "sys.exit(0 if not bad and codes == ['HVD001'] and lazy"
+        " and len(snap.records) == 3 else 1)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 @pytest.fixture

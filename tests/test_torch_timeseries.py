@@ -244,8 +244,13 @@ def test_top_smoke_on_the_cpu(capsys):
 
 
 def _sampler_threads():
+    """The port's live sampler threads.  The JAX package's runtime (the
+    session-scoped ``hvd`` fixture) runs a sampler of the same name for
+    the rest of a worker process once any test has used it, so a count by
+    name alone failed whenever such a test ran first in the process."""
     return [t for t in threading.enumerate()
-            if t.name == "hvd-timeseries" and t.is_alive()]
+            if t.name == "hvd-timeseries" and t.is_alive()
+            and getattr(t, "_target", None) is ts._loop]
 
 
 def test_sampler_starts_at_init_and_stops_at_shutdown(monkeypatch):
@@ -292,6 +297,32 @@ def test_sampler_starts_at_init_and_stops_at_shutdown(monkeypatch):
     assert stats["slo"]["rules"] == 1
     # the floor's breach rode the health plane
     assert any(v["kind"] == "slo_breach" for v in ev.verdicts())
+
+
+@pytest.mark.usefixtures("hvd")
+def test_sampler_count_beside_the_jax_runtimes_sampler(monkeypatch):
+    """The order that failed under xdist: the JAX runtime (``hvd``, up for
+    the session) keeps its own ``hvd-timeseries`` thread alive; the port's
+    ``hvd.init()`` still starts exactly one sampler of its own and its
+    shutdown stops it, leaving the JAX package's running."""
+    jax_samplers = [t for t in threading.enumerate()
+                    if t.name == "hvd-timeseries" and t.is_alive()
+                    and t not in _sampler_threads()]
+    assert jax_samplers, "the JAX runtime's sampler is not running"
+    monkeypatch.setenv("HOROVOD_TIMESERIES_EVERY_S", "0.05")
+    old_ring = ts.swap_ring(None)
+    try:
+        assert _sampler_threads() == []
+        hvd.init(device="cpu")
+        try:
+            assert len(_sampler_threads()) == 1
+        finally:
+            hvd.shutdown()
+        assert _sampler_threads() == []
+        assert all(t.is_alive() for t in jax_samplers)
+    finally:
+        ts.swap_ring(old_ring)
+        slo.swap_watchdog(None)
 
 
 def test_failure_report_carries_windows(monkeypatch):
