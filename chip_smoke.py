@@ -13,7 +13,9 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            fwd, dq and dkv at head_dim 64 and 128, the xent forward, xent
            dh and dW at every d_model) must spill none, or the phase
            fails; and the clusters of each xent kernel the card runs at
-           once, which must be at least one
+           once, which must be at least one; g++ builds the native
+           control-plane core (horovod_tpu_torch/native/core.cpp) at the
+           same time: its seconds, include dir and artifact
   kernels  each flash-attention kernel at the training shapes (plus a
            non-causal case, an H == Hkv case, a ragged T = 960, a
            multiple of 64 but not of 128, BERT-base's fine-tune shape,
@@ -51,9 +53,10 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
   train_moe, parity_moe   the train step with 8 experts (top-2, capacity
            factor 1.25) at 4 layers; parity at 2 MoE layers with top-8
            routing, where both sides route every token alike
-  parity_moe_route   top-2 routing card against CPU at step 0: each MoE
-           layer's picks in the full model, where a differing pick is
-           printed with its logit gap; then layer 0 on one input, where
+  parity_moe_route   top-2 routing card against CPU at step 0, through
+           layer 0 of parity_moe's weights: its picks in the model's
+           forward, where a differing pick is printed with its logit gap;
+           then layer 0 on one input, where
            every differing pick must be a near-tie of the bf16 logits and
            the agreeing tokens' outputs and gradients meet parity's gates
   train_tp2_sp2  four gloo ranks on the card as MeshConfig(sp=2, tp=2)
@@ -108,6 +111,15 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            the last bucket's end, and the host ms after the backward's
            return) beside train_dp's engine host ms, device busy time,
            idle share and peak
+  native_core    host code: every signature list train_dp's engine
+           planned (the 66-bucket gradient plane) and train_overlap's taps
+           planned (82 buckets), planned again by plan_fusion and by the
+           native plan_fusion_sigs, all equal; plan_dispatch_sigs equal
+           to plan_dispatch on the latter; negotiate_decide equal to the
+           controller's Python arithmetic on seeded token multisets at
+           worlds 2, 4 and 8; each planner's host us a call on the
+           66-bucket list (median of 200); train_dp, train_dp2 and
+           train_hier_dp4 ran every control-plane object on the core
   train_wire     the same under HOROVOD_COMPRESSION=int8: the first loss
            equal to train's, the later ones within WIRE_LOSS_REL, the
            wire's quantization error within WIRE_ERROR_REL of the
@@ -259,6 +271,13 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            rank order; a failing function raises RuntimeError;
            TpuExecutor(np=2): a module-level counter across two run calls
            and run_remote/fetch
+  estimator      TorchEstimator.fit of the MNIST convnet (MnistConfig's
+           widths as an nn.Module) at np 2, gloo ranks on the card, batch
+           64 a rank, 2 epochs of 1024 seeded images, SGD with momentum,
+           cuDNN deterministic: the loss falls, the history and the fitted
+           weights equal, bit for bit, the same fit run in this process
+           rank by rank, the Store's checkpoint holds CPU tensors and
+           reloads bit for bit, predict runs on the card
   mnist    5 classifier steps of the MNIST convnet at batch 128 of seeded
            28 x 28 images (losses falling); then serving/models.py's
            classifier_forward on a bucket of MNIST rows and one of BERT
@@ -424,7 +443,9 @@ EXPECTED_MOE_LAUNCHES = {"fwd": 6, "dq": 4, "dkv": 4}
 # top-2 selection itself
 PARITY_MOE_OVER = {**MOE_OVER, "expert_top_k": 8, "capacity_factor": 1.0}
 # parity_moe_route: parity_moe's weights and batch at top-2 (MOE_OVER),
-# card against CPU at step 0.  On one input, each side's router logit is
+# card against CPU at step 0, through layer 0 alone (1 of the 2 layers:
+# every gate reads layer 0, whose weights and input the cut leaves as
+# they were).  On one input, each side's router logit is
 # the bf16 rounding of an fp32 sum of the same bf16 products in another
 # order, so the two sides' logits lie within a bf16 step of each other,
 # and a pick can change only where its two contested logits lie within
@@ -712,6 +733,25 @@ RECOVER_KILL_STEP = 4
 RECOVER_BATCH = 32
 RECOVER_FORMED_SIZES = [2, 2]
 RECOVER_TIMEOUT_S = 180
+# native_core: the module hvd.init() loads from native/core.cpp (every
+# control-plane object of a runtime on the core lives there); the
+# decision's seeded token multisets at worlds 2, 4 and 8; the planners'
+# host time a call as the median of this many calls
+NATIVE_MODULE = "horovod_tpu_torch.native._hvd_core"
+NATIVE_WORLDS = (2, 4, 8)
+NATIVE_DECIDE_SEEDS = 50
+NATIVE_TIMING_CALLS = 200
+# estimator: TorchEstimator.fit at np 2 (gloo ranks on the card) of
+# models/mnist.py's convnet as an nn.Module, batch 64 a rank, 2 epochs of
+# ESTIMATOR_IMAGES seeded 28 x 28 images whose labels are the argmax of a
+# seeded linear map of the pixels (a rule the net can learn), SGD with
+# momentum; against the same fit in this process, rank by rank
+ESTIMATOR_IMAGES = 1024
+ESTIMATOR_BATCH = 64
+ESTIMATOR_EPOCHS = 2
+ESTIMATOR_LR = 0.05
+ESTIMATOR_SEED = 0
+ESTIMATOR_PREDICT_ROWS = 256
 # mnist: batch 128 of seeded 28 x 28 images, 5 steps; classifier_forward
 # buckets of 8 rows
 MNIST_BATCH, MNIST_STEPS = 128, 5
@@ -1742,6 +1782,7 @@ def dp2_child(rank: int, dev: torch.device) -> int:
     engine = hvd.runtime._state().engine.stats()
     orders = hvd.allgather_object(order[:3])
     schedules = hvd.allgather_object(recorded[0])
+    native = hvd.allgather_object(native_objects(hvd))
     hvd.shutdown()
     if rank:
         return 0
@@ -1756,7 +1797,7 @@ def dp2_child(rank: int, dev: torch.device) -> int:
         "losses": losses, "losses_dp1": losses1,
         "launches_per_step": per_step, "identical_after_step": identical,
         "first_leaves_submitted": orders, "schedule_ranks": schedules,
-        "engine": engine,
+        "engine": engine, "native_objects": native,
         "update_norms": {p: ((dp2[p] - init[p]).double().norm().item(),
                              (dp1[p] - init[p]).double().norm().item())
                          for p in init},
@@ -1969,6 +2010,8 @@ def train_dp2_phase(dp_schedule):
     ranks = [r["list"] for r in res["schedule_ranks"]]
     bad = dp2_schedule_problems(ranks, dp_schedule)
     require(not bad, f"train_dp2 schedule: {bad}")
+    bad = native_object_problems("train_dp2", res["native_objects"])
+    require(not bad, f"train_dp2: {bad}")
     SCHEDULE["train_dp2"] = dict(schedule_summary(
         res["schedule_ranks"][0]), ranks_identical=True)
 
@@ -2301,6 +2344,7 @@ def hier_child(rank: int, dev: torch.device) -> int:
             del want, got
         del rows, local, applied, opt, params
         out["adasum"] = {"steps": [rec]}
+        out["native_objects"] = hvd.allgather_object(native_objects(hvd))
     finally:
         hvd.shutdown()
     if rank:
@@ -2482,7 +2526,8 @@ def train_hier_dp4_phase():
     emit("train_hier_dp4", layers=2, batch=[2, 2, 2, 2], seq=1024,
          fused_xent=True, backend="gloo", hosts=[[0, 1], [2, 3]],
          seconds=seconds, parent_bytes=parent, **res)
-    bad = hier_problems(res) + hier_trace_problems(res)
+    bad = (hier_problems(res) + hier_trace_problems(res)
+           + native_object_problems("train_hier_dp4", res["native_objects"]))
     require(not bad, f"train_hier_dp4: {bad}")
 
 
@@ -4119,10 +4164,23 @@ def cosine(a, b) -> float:
         a.double().flatten(), b.double().flatten(), dim=0).item()
 
 
+def parity_weights(llama, convert, over=None):
+    """The parity phases' weights: ``init_params`` (seed 1) of the
+    2-layer config with the fields ``over``, on the CPU, as numpy.  They
+    depend on the widths, the depth and the experts alone, so ``parity``
+    and ``parity_fused`` share one draw, ``parity_moe`` and
+    ``parity_moe_route`` another."""
+    cfg = bench_config(llama, **{"n_layers": 2, **(over or {})})
+    return convert.llama_params_to_numpy(
+        llama.init_params(cfg, seed=1, device=torch.device("cpu")))
+
+
 def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool,
-                 name=None, over=None):
+                 name=None, over=None, np_params=None):
     """``parity``, or ``parity_fused`` with ``fused_xent=True``, or phase
-    ``name`` with the config's fields ``over`` (``parity_moe``)."""
+    ``name`` with the config's fields ``over`` (``parity_moe``), on
+    ``np_params`` (:func:`parity_weights`, drawn here when None); returns
+    the weights."""
     cfg = bench_config(llama, **{"n_layers": 2, "fused_xent": fused,
                                  **(over or {})})
     last = cfg.n_layers - 1
@@ -4132,8 +4190,8 @@ def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool,
            if cfg.n_experts else {f"w_down{last}": (last, "w_down")})
     batch, seq = 2, 256
     cpu = torch.device("cpu")
-    np_params = convert.llama_params_to_numpy(
-        llama.init_params(cfg, seed=1, device=cpu))
+    if np_params is None:
+        np_params = parity_weights(llama, convert, over)
     rng = np.random.RandomState(1)
     toks = rng.randint(0, cfg.vocab_size, (batch, seq))
     tgts = rng.randint(0, cfg.vocab_size, (batch, seq))
@@ -4175,6 +4233,7 @@ def parity_phase(llama, training, adamw_lp, convert, dev, fused: bool,
         require(abs(a - b) <= PARITY_NORM_REL * b,
                 f"parity grad norm {n}: {a} (card) vs {b} (cpu)")
         require(cos[n] > PARITY_COS, f"parity grad cos {n}: {cos[n]}")
+    return np_params
 
 
 def bf16_step(x):
@@ -4233,23 +4292,28 @@ def route_problems(stats):
     return bad
 
 
-def parity_moe_route_phase(llama, convert, dev):
-    """parity_moe's weights and batch at top-2 routing, step 0, card
-    against CPU.  Each MoE layer's input is captured in the full forward
-    on both sides and its picks compared (printed: the inputs differ by
-    the attention upstream).  Then layer 0's moe_layer runs on both sides
-    on the CPU's input: every differing pick must be a near-tie, and on
-    the tokens whose picks and kept slots agree the output rows and the
-    gradients of a cotangent on those rows only meet parity's gates."""
+def parity_moe_route_phase(llama, convert, dev, np_params=None):
+    """parity_moe's weights (``np_params``, :func:`parity_weights`; drawn
+    here when None) and batch at top-2 routing, step 0, card against CPU,
+    through layer 0 alone (the gates read layer 0 only; its weights and
+    input are those of the 2-layer model).  Layer 0's MoE input is
+    captured in the forward on both sides and its picks compared
+    (printed: the inputs differ by the attention upstream).  Then layer
+    0's moe_layer runs on both sides on the CPU's input: every differing
+    pick must be a near-tie, and on the tokens whose picks and kept slots
+    agree the output rows and the gradients of a cotangent on those rows
+    only meet parity's gates."""
     from horovod_tpu_torch.models import moe
-    cfg = bench_config(llama, n_layers=2, **MOE_OVER)
+    cfg = bench_config(llama, n_layers=1, **MOE_OVER)
     k = cfg.expert_top_k
     batch, seq = 2, 256
     N, D = batch * seq, cfg.d_model
     C = int(math.ceil(k * N / cfg.n_experts * cfg.capacity_factor))
     cpu = torch.device("cpu")
-    np_params = convert.llama_params_to_numpy(
-        llama.init_params(cfg, seed=1, device=cpu))
+    if np_params is None:
+        np_params = parity_weights(llama, convert, MOE_OVER)
+    np_params = {**np_params, "layers": {
+        n: w[:cfg.n_layers] for n, w in np_params["layers"].items()}}
     toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (batch, seq))
     layer_fn, seen = moe.moe_layer, []
 
@@ -6041,6 +6105,367 @@ def hvd_run_phase(device="cuda:0"):
     return res
 
 
+def native_objects(hvd) -> dict:
+    """Where each control-plane object of the runtime's engine lives: the
+    planner and its response cache, the controller's decision, the
+    timeline's writer and the stall inspector's tracker (the native core's
+    module, or the Python one's; None where there is no native object)."""
+    eng = hvd.runtime._state().engine
+    return {"planner": eng._plan_fn.__module__,
+            "cache": type(eng._cache).__module__,
+            "decision": getattr(eng._controller._core, "__name__", None),
+            "timeline": getattr(eng.timeline._core, "__name__", None),
+            "stall": type(eng.stall._native).__module__}
+
+
+def native_object_problems(what: str, objects) -> list:
+    """``objects`` (one :func:`native_objects` dict, or one a rank) all on
+    the native core."""
+    ranks = objects if isinstance(objects, list) else [objects]
+    return [f"{what}: rank {r}'s {k} is {v}, not {NATIVE_MODULE}"
+            for r, objs in enumerate(ranks) for k, v in objs.items()
+            if v != NATIVE_MODULE]
+
+
+@contextlib.contextmanager
+def record_plans(owner, attr: str):
+    """Wrap the planner ``owner.attr`` (``(sigs, threshold) -> buckets``)
+    so that each call is kept as ``(sigs, threshold, buckets)``; yields
+    the list, and puts the planner back at the block's exit."""
+    plan_fn, calls = getattr(owner, attr), []
+
+    def recording(sigs, threshold):
+        buckets = plan_fn(sigs, threshold)
+        calls.append((list(sigs), threshold, buckets))
+        return buckets
+
+    setattr(owner, attr, recording)
+    try:
+        yield calls
+    finally:
+        setattr(owner, attr, plan_fn)
+
+
+def build_native_core():
+    """Build the native core (``python -m horovod_tpu_torch.native.build``
+    does the same); returns its line's fields."""
+    from horovod_tpu_torch.native import build
+    t0 = time.perf_counter()
+    path = build.build()
+    return {"build_seconds": time.perf_counter() - t0,
+            "compiler": build.compiler(),
+            "include_dir": build.include_dir(), "artifact": str(path)}
+
+
+def decide_multisets(world: int, seed: int):
+    """Seeded announced-token multisets of ``world`` processes and the
+    active ones (the rest joined): repeats, grouped tokens, a rank that
+    announced nothing."""
+    rng = np.random.RandomState(seed)
+
+    def token(names):
+        return json.dumps({"s": [[n, "allreduce", "sum", "float32", [4], 0,
+                                  False, -1 if len(names) == 1 else 0,
+                                  None, None, "none", "strict",
+                                  "replicated"] for n in names],
+                           "r": 0, "sp": None},
+                          separators=(",", ":"), sort_keys=True)
+
+    pool = [token([f"t{i}"]) for i in range(12)]
+    pool += [token([f"g{i}.0", f"g{i}.1"]) for i in range(3)]
+    full = {q: [pool[i] for i in rng.randint(0, len(pool),
+                                             rng.randint(0, 16))]
+            for q in range(world)}
+    active = sorted(int(q) for q in rng.choice(
+        world, rng.randint(1, world + 1), replace=False))
+    return full, active
+
+
+def host_us(fn, calls: int) -> float:
+    """Median host microseconds of one call of ``fn`` over ``calls``."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e6 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def native_core_phase(build_row, dp_plans, overlap_plans, objects):
+    """``native_core``: the native planner's buckets against the Python
+    planner's on every signature list ``train_dp``'s engine planned and
+    ``train_overlap``'s taps planned (``record_plans``), and
+    ``plan_dispatch_sigs`` against ``plan_dispatch`` on the latter;
+    ``negotiate_decide`` against the controller's Python arithmetic on
+    :func:`decide_multisets` at NATIVE_WORLDS; each planner's host us a
+    call on ``train_dp``'s largest list; ``objects``: train_dp's runtime
+    on the core.  Host code only: it runs alike on the CPU."""
+    from collections import Counter
+
+    from horovod_tpu_torch.native import loader
+    from horovod_tpu_torch.ops import controller, fusion
+    core = loader.load()
+    bad = native_object_problems("train_dp", objects)
+    if not dp_plans or not overlap_plans:
+        bad.append(f"no plan recorded: train_dp {len(dp_plans)}, "
+                   f"train_overlap {len(overlap_plans)}")
+    for what, plans in (("train_dp", dp_plans),
+                        ("train_overlap", overlap_plans)):
+        for sigs, threshold, buckets in plans:
+            want = fusion.plan_fusion(sigs, threshold)
+            if buckets != want or core.plan_fusion_sigs(
+                    sigs, threshold) != want:
+                bad.append(f"{what}: the native plan of {len(sigs)} "
+                           f"signatures at {threshold} B differs from "
+                           f"plan_fusion's")
+    for sigs, _, buckets in overlap_plans:
+        want = fusion.plan_dispatch(sigs, buckets)
+        if core.plan_dispatch_sigs(sigs, buckets) != (want.order,
+                                                      want.layers):
+            bad.append("train_overlap: plan_dispatch_sigs differs from "
+                       "plan_dispatch")
+    decide = {}
+    python, native = controller.Controller(), controller.Controller(
+        core=core)
+    for world in NATIVE_WORLDS:
+        same = 0
+        for seed in range(NATIVE_DECIDE_SEEDS):
+            full, active = decide_multisets(world, 1000 * world + seed)
+            counters = {q: Counter(full[q]) for q in full}
+            tokens = sorted(set().union(*map(set, counters.values())))
+            same += (native._decide_counts(full, active, counters, tokens)
+                     == python._decide_counts(full, active, counters,
+                                              tokens))
+        decide[world] = same
+        if same != NATIVE_DECIDE_SEEDS:
+            bad.append(f"negotiate_decide at world {world}: {same} of "
+                       f"{NATIVE_DECIDE_SEEDS} decisions equal Python's")
+    timing = {}
+    if dp_plans:
+        sigs, threshold, _ = max(dp_plans, key=lambda p: len(p[2]))
+        timing = {
+            "signatures": len(sigs), "threshold": threshold,
+            "buckets": len(fusion.plan_fusion(sigs, threshold)),
+            "plan_fusion_us": host_us(
+                lambda: fusion.plan_fusion(sigs, threshold),
+                NATIVE_TIMING_CALLS),
+            "plan_fusion_sigs_us": host_us(
+                lambda: core.plan_fusion_sigs(sigs, threshold),
+                NATIVE_TIMING_CALLS)}
+    row = dict(build_row, objects=objects,
+               train_dp_lists=[[len(s), len(b)] for s, _, b in dp_plans],
+               train_overlap_lists=[[len(s), len(b)]
+                                    for s, _, b in overlap_plans],
+               decide_equal_by_world=decide, timing_calls=NATIVE_TIMING_CALLS,
+               planner_host_us=timing)
+    emit("native_core", **row)
+    require(not bad, f"native_core: {bad}")
+    return row
+
+
+class EstimatorMnist(torch.nn.Module):
+    """models/mnist.py's convnet at MnistConfig's widths as an
+    ``nn.Module`` (the estimator ships modules): its parameters are
+    ``mnist.init``'s, seeded, on the CPU; its forward is
+    ``mnist.forward`` (bf16 convolutions and fc1, fp32 fc2)."""
+
+    def __init__(self, seed: int = 0):
+        super().__init__()
+        from horovod_tpu_torch.models import mnist
+        p = mnist.init(mnist.MnistConfig(), seed, device="cpu")
+        self.conv1 = torch.nn.Parameter(p["conv1"])
+        self.conv2 = torch.nn.Parameter(p["conv2"])
+        self.fc1_w = torch.nn.Parameter(p["fc1"]["w"])
+        self.fc1_b = torch.nn.Parameter(p["fc1"]["b"])
+        self.fc2_w = torch.nn.Parameter(p["fc2"]["w"])
+        self.fc2_b = torch.nn.Parameter(p["fc2"]["b"])
+
+    def forward(self, images):
+        from horovod_tpu_torch.models import mnist
+        return mnist.forward(
+            {"conv1": self.conv1, "conv2": self.conv2,
+             "fc1": {"w": self.fc1_w, "b": self.fc1_b},
+             "fc2": {"w": self.fc2_w, "b": self.fc2_b}},
+            images, mnist.MnistConfig())
+
+
+def estimator_optimizer(params):
+    """The estimator's optimizer factory: SGD with momentum, after
+    setting cuDNN deterministic and TF32 off; in an estimator worker this
+    is the first code of this script that runs, before the first step."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.optim.SGD(params, lr=ESTIMATOR_LR, momentum=0.9)
+
+
+def estimator_data():
+    """ESTIMATOR_IMAGES seeded ``[N, 1, 28, 28]`` images in [0, 1) and
+    int64 labels: the argmax of a seeded linear map of the pixels."""
+    rng = np.random.RandomState(ESTIMATOR_SEED)
+    X = rng.rand(ESTIMATOR_IMAGES, 1, 28, 28).astype(np.float32)
+    w = rng.randn(28 * 28, 10).astype(np.float32)
+    return X, (X.reshape(len(X), -1) @ w).argmax(1).astype(np.int64)
+
+
+def estimator_reference(model, X, y, dev, world: int = 2):
+    """The estimator's fit in this process, rank by rank: each rank's
+    shard (``X[r::world]``), its order (``torch.randperm`` from a
+    generator seeded ``seed + r``) and its batches as
+    ``estimator/_worker.py`` takes them; at each step every rank's
+    gradient in turn, summed in rank order and divided by ``world`` as
+    the port's ``DistributedOptimizer`` reduces them, then one optimizer
+    step; each epoch's loss the ranks' mean losses averaged likewise.
+    Returns (history, model)."""
+    import torch.nn.functional as F
+    model = model.to(dev)
+    opt = estimator_optimizer(model.parameters())
+    params = list(model.parameters())
+    shards = [(torch.from_numpy(np.ascontiguousarray(X[r::world])),
+               torch.from_numpy(np.ascontiguousarray(y[r::world])))
+              for r in range(world)]
+    gens = [torch.Generator().manual_seed(ESTIMATOR_SEED + r)
+            for r in range(world)]
+    steps = min(len(xs) // ESTIMATOR_BATCH for xs, _ in shards)
+    history = []
+    for _ in range(ESTIMATOR_EPOCHS):
+        orders = [torch.randperm(len(xs), generator=g)
+                  for (xs, _), g in zip(shards, gens)]
+        epoch_loss = [0.0] * world
+        for s in range(steps):
+            grads = []
+            for r, (xs, ys) in enumerate(shards):
+                idx = orders[r][s * ESTIMATOR_BATCH:(s + 1) * ESTIMATOR_BATCH]
+                opt.zero_grad()
+                loss = F.cross_entropy(model(xs[idx].to(dev)),
+                                       ys[idx].to(dev))
+                loss.backward()
+                grads.append([p.grad.clone() for p in params])
+                epoch_loss[r] += float(loss.detach())
+            for i, p in enumerate(params):
+                total = grads[0][i].clone()
+                for g in grads[1:]:
+                    total.add_(g[i])
+                p.grad = total.div_(world)
+            opt.step()
+        means = [torch.tensor(e / max(steps, 1), device=dev)
+                 for e in epoch_loss]
+        total = means[0].clone()
+        for m in means[1:]:
+            total.add_(m)
+        history.append(float(total.div_(world)))
+    return history, model
+
+
+def estimator_phase(device="cuda:0"):
+    """``estimator``: ``TorchEstimator.fit`` of :class:`EstimatorMnist` at
+    np 2 (gloo ranks sharing ``device``) with a FilesystemStore under
+    ``build/``; the loss falls, the fitted weights and the loss history
+    are :func:`estimator_reference`'s bit for bit (cuDNN deterministic),
+    the Store's checkpoint holds CPU tensors and reloads bit for bit, and
+    ``predict`` runs on ``device``.  The model class, the optimizer
+    factory and the loss are names of modules the workers import (this
+    one as ``chip_smoke``), so plain ``pickle`` finds them."""
+    import io
+    import pathlib
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.nn.functional as F
+
+    import chip_smoke as mod
+    from horovod_tpu_torch.estimator import (FilesystemStore,
+                                             TorchEstimator, load_model)
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    root = pathlib.Path(__file__).resolve().parent
+    X, y = estimator_data()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    (root / "build").mkdir(exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="estimator-", dir=root / "build")
+    try:
+        store = FilesystemStore(store_dir)
+        est = TorchEstimator(
+            model=mod.EstimatorMnist(ESTIMATOR_SEED),
+            optimizer=mod.estimator_optimizer, loss=F.cross_entropy,
+            epochs=ESTIMATOR_EPOCHS, batch_size=ESTIMATOR_BATCH, np=2,
+            store=store, run_id="estimator", seed=ESTIMATOR_SEED,
+            env={"PYTHONPATH": str(root), "HOROVOD_CONTROLLER": "gloo",
+                 "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "120"},
+            port=port, device=dev)
+        t0 = time.perf_counter()
+        fitted = est.fit(X, y)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref_history, ref = estimator_reference(
+            mod.EstimatorMnist(ESTIMATOR_SEED), X, y, dev)
+        ref_s = time.perf_counter() - t0
+        got, want = fitted.model.state_dict(), ref.state_dict()
+        differing = [k for k in want if not torch.equal(got[k], want[k])]
+        ckpt = store.load_checkpoint("estimator")
+        saved = torch.load(io.BytesIO(ckpt["model"]), weights_only=False)
+        saved_devices = sorted({p.device.type for p in saved.parameters()})
+        reloaded = load_model(store, "estimator", device=dev)
+        reload_equal = all(torch.equal(v, got[k]) for k, v in
+                           reloaded.model.state_dict().items())
+        rows = X[:ESTIMATOR_PREDICT_ROWS]
+        t0 = time.perf_counter()
+        preds = fitted.predict(rows)
+        predict_ms = 1e3 * (time.perf_counter() - t0)
+        with torch.no_grad():
+            ref_preds = ref(torch.from_numpy(rows).to(dev)).cpu().numpy()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+        shutil.rmtree(store_dir, ignore_errors=True)
+    row = dict(
+        device=str(dev), np=2, images=ESTIMATOR_IMAGES,
+        batch=ESTIMATOR_BATCH, epochs=ESTIMATOR_EPOCHS,
+        history=fitted.history, reference_history=ref_history,
+        differing_leaves=differing, checkpoint_devices=saved_devices,
+        reload_equal=reload_equal, predict_shape=list(preds.shape),
+        predict_device=str(fitted.device),
+        predict_equal=bool(np.array_equal(preds, ref_preds)),
+        predict_ms=predict_ms, fit_seconds=fit_s, reference_seconds=ref_s,
+        seconds=time.perf_counter() - t_phase)
+    emit("estimator", **row)
+    bad = estimator_problems(row)
+    require(not bad, f"estimator: {bad}")
+    return row
+
+
+def estimator_problems(row) -> list:
+    """``estimator``'s gates on its line's fields."""
+    bad = []
+    hist = row["history"]
+    if len(hist) != ESTIMATOR_EPOCHS or not all(map(math.isfinite, hist)):
+        bad.append(f"history {hist}")
+    elif not hist[-1] < hist[0]:
+        bad.append(f"the loss did not fall: {hist}")
+    if hist != row["reference_history"]:
+        bad.append(f"history {hist} is not the reference's "
+                   f"{row['reference_history']}")
+    if row["differing_leaves"]:
+        bad.append(f"fitted leaves differ from the reference's: "
+                   f"{row['differing_leaves']}")
+    if row["checkpoint_devices"] != ["cpu"]:
+        bad.append(f"the checkpoint holds {row['checkpoint_devices']} "
+                   f"tensors")
+    if not row["reload_equal"]:
+        bad.append("load_model's weights differ from the fitted ones")
+    if row["predict_shape"] != [ESTIMATOR_PREDICT_ROWS, 10] or \
+            not row["predict_equal"]:
+        bad.append(f"predict gave {row['predict_shape']}, equal to the "
+                   f"reference's: {row['predict_equal']}")
+    return bad
+
+
 def mnist_phase(fa, fx, dev):
     """MNIST_STEPS classifier steps at batch 128 of seeded 28 x 28 images;
     then ``classifier_forward`` serves a bucket of MNIST rows (the
@@ -6297,7 +6722,11 @@ def main() -> int:
          python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    build_s = _build.build_all()
+    # the native core's g++ alongside the kernels' nvccs
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(build_native_core)
+        build_s = _build.build_all()
+        native_build = native_build.result()
     wgmma_spills, other_spills, problems = spill_check(_build.PTXAS_REPORT)
     xent_lib = _build.library("fused_xent")
     active = {f"{k}_active_clusters": {
@@ -6305,7 +6734,8 @@ def main() -> int:
         for D in XENT_DIMS} for k in ("dh", "dw")}
     active["fwd_active_clusters"] = xent_lib.hvd_xent_fwd_active_clusters()
     emit("build", seconds=build_s, ptxas=_build.PTXAS_REPORT,
-         wgmma_spills=wgmma_spills, other_spills=other_spills, **active)
+         wgmma_spills=wgmma_spills, other_spills=other_spills,
+         native_core=native_build, **active)
     require(not problems, f"wgmma kernels must not spill: {problems}")
     for key, n in active.items():
         counts = n.values() if isinstance(n, dict) else [n]
@@ -6327,10 +6757,10 @@ def main() -> int:
                             adamw_lp, dev, fused=False)
     launches_fused, _ = timed("train_fused", train_phase, fa, fx, llama,
                               training, adamw_lp, dev, fused=True)
-    timed("parity", parity_phase, llama, training, adamw_lp, convert, dev,
-          fused=False)
+    weights = timed("parity", parity_phase, llama, training, adamw_lp,
+                    convert, dev, fused=False)
     timed("parity_fused", parity_phase, llama, training, adamw_lp, convert,
-          dev, fused=True)
+          dev, fused=True, np_params=weights)
     # the mixture of experts at world 1: 4 layers at the 1B widths, then
     # 2 layers card against CPU
     launches_moe, _ = timed(
@@ -6338,26 +6768,39 @@ def main() -> int:
         fused=False, name="train_moe",
         over={**MOE_OVER, "n_layers": MOE_LAYERS},
         expected=EXPECTED_MOE_LAUNCHES)
-    timed("parity_moe", parity_phase, llama, training, adamw_lp, convert,
-          dev, fused=False, name="parity_moe", over=PARITY_MOE_OVER)
-    timed("parity_moe_route", parity_moe_route_phase, llama, convert, dev)
+    weights = timed("parity_moe", parity_phase, llama, training, adamw_lp,
+                    convert, dev, fused=False, name="parity_moe",
+                    over=PARITY_MOE_OVER)
+    timed("parity_moe_route", parity_moe_route_phase, llama, convert, dev,
+          np_params=weights)
+    del weights
 
     # the Horovod core at world 1 over NCCL: every op, the train step with
     # its gradients through the engine, then overlapped through the grad
     # taps
+    # train_dp's engine and train_overlap's taps record the signature
+    # lists they plan, for native_core
+    from horovod_tpu_torch.optim import overlap as ov
     hvd.init()
     try:
         require(hvd.runtime._state().backend == "nccl" and hvd.size() == 1,
                 f"hvd.init() on the card: {hvd.runtime._state().backend}, "
                 f"size {hvd.size()}")
         timed("collectives", collectives_phase, hvd, dev)
-        _, train_dp = timed("train_dp", train_phase, fa, fx, llama,
-                            training, adamw_lp, dev, fused=False,
-                            engine=hvd.runtime._state().engine)
-        train_overlap = timed("train_overlap", overlap_phase, fa, fx, llama,
-                              training, adamw_lp, dev, wire=False)
+        engine = hvd.runtime._state().engine
+        with record_plans(engine, "_plan_fn") as dp_plans:
+            _, train_dp = timed("train_dp", train_phase, fa, fx, llama,
+                                training, adamw_lp, dev, fused=False,
+                                engine=engine)
+        dp_objects = native_objects(hvd)
+        with record_plans(ov, "plan_fusion") as overlap_plans:
+            train_overlap = timed("train_overlap", overlap_phase, fa, fx,
+                                  llama, training, adamw_lp, dev,
+                                  wire=False)
     finally:
         hvd.shutdown()
+    timed("native_core", native_core_phase, native_build, dp_plans,
+          overlap_plans, dp_objects)
     emit("train_dp_vs_train", **{
         k: [train_dp[k], train[k]] for k in ("losses", "step_ms",
                                              "max_memory_allocated")},
@@ -6463,6 +6906,7 @@ def main() -> int:
           full_sync={"bytes": sorted(set(elastic["sync_bytes"])),
                      "ms": elastic["sync_ms"]})
     timed("hvd_run", hvd_run_phase)
+    timed("estimator", estimator_phase)
     timed("mnist", mnist_phase, fa, fx, dev)
     timed("parity_bert", parity_bert_phase, convert, dev)
     timed("parity_resnet", parity_resnet_phase, convert, dev)

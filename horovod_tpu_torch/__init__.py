@@ -30,25 +30,27 @@ from __future__ import annotations
 
 from typing import Union
 
-import torch
+# under another name: importing the subpackage horovod_tpu_torch.torch
+# binds ``torch`` in this namespace to it
+import torch as _torch
 
 __version__ = "0.1.0"
 
-DeviceLike = Union[str, torch.device, None]
+DeviceLike = Union[str, _torch.device, None]
 
 
-def default_device() -> torch.device:
+def default_device() -> _torch.device:
     """The current CUDA device; raises when there is none."""
-    if not torch.cuda.is_available():
+    if not _torch.cuda.is_available():
         raise RuntimeError(
             "horovod_tpu_torch runs on a CUDA device by default and none is "
             "visible; pass device=\"cpu\" to run on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
+    return _torch.device("cuda", _torch.cuda.current_device())
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
+def resolve_device(device: DeviceLike = None) -> _torch.device:
     """``device`` as a ``torch.device``; ``None`` means :func:`default_device`."""
-    return default_device() if device is None else torch.device(device)
+    return default_device() if device is None else _torch.device(device)
 
 
 # the Horovod API (after the helpers above, which runtime imports)

@@ -3,10 +3,10 @@
 Counterpart: ``horovod_tpu/analysis/contracts.py``, re-pointed at the
 port: the scan set is the port's package (``horovod_tpu_torch/``) and
 its tests (``tests/test_torch_*.py``, ``tests/torch_*.py``), anchored at
-the directory holding the package.  The port has no ``docs/`` tables and
-no native core of its own yet, so every contract whose artifact is
-missing is skipped by name (:data:`SKIPPED`); the token-schema contract
-holds the port's pure-Python planner alone.
+the directory holding the package.  The port has no ``docs/`` tables, so
+every contract whose artifact is missing is skipped by name
+(:data:`SKIPPED`); the token-schema contract holds ``EntrySig`` against
+the port's own native core (``horovod_tpu_torch/native/core.cpp``).
 
 The other four engines reason about ONE module at a time.  This one
 reasons about the REPO: it AST-extracts the registries the operator
@@ -89,8 +89,6 @@ SKIPPED = {
     "HVD302": "metric families against docs/metrics.md: no docs tree",
     "HVD305-docs": "fired chaos sites against docs/env.md's site list: "
                    "no docs tree (inert seeds are still checked)",
-    "HVD306-native": "EntrySig against native parse_sig: the port has "
-                     "no native core (horovod_tpu_torch/native/core.cpp)",
 }
 
 
@@ -602,9 +600,8 @@ class RepoContracts:
     # -- artifact ingestion -----------------------------------------------
 
     def load_artifacts(self) -> None:
-        """The port's own artifacts: a native core under the package,
-        once A4 lands (the docs tables are JAX's and stay unread:
-        :data:`SKIPPED`)."""
+        """The port's own artifacts: its native core under the package
+        (the docs tables are JAX's and stay unread: :data:`SKIPPED`)."""
         if not self.root:
             return
         cand = os.path.join(self.root, PACKAGE, "native", "core.cpp")

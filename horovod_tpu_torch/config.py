@@ -137,8 +137,9 @@ class Config:
     # --- additions of the JAX package ---
     # mesh axis name used for the data-parallel worker axis (unused here)
     worker_axis: str = "workers"
-    # use the native C++ core (_hvd_core) when available (the port has
-    # none: its planner is the pure-Python one)
+    # run the control plane on the native C++ core (native/core.cpp, built
+    # at first use; a failed build raises at init); False: the pure-Python
+    # planner, decision, timeline writer and stall tracker
     use_native_core: bool = True
     # cross-process negotiation controller (reference: controller.cc);
     # HOROVOD_TPU_CONTROLLER=0 falls back to assumed-identical submission

@@ -152,9 +152,12 @@ class Controller:
     """
 
     def __init__(self, cfg=None, store=None, rank: int = 0, world: int = 1,
-                 deadline_s: float = 300.0, stall=None):
+                 deadline_s: float = 300.0, stall=None, core=None):
         self.store = store
         self.stall = stall
+        # the native core hvd.init() loaded: its negotiate_decide does the
+        # readiness arithmetic (None: the Python loop of _decide_counts)
+        self._core = core
         self.rank = rank
         self.world = world
         self.deadline_s = float(deadline_s)
@@ -483,10 +486,19 @@ class Controller:
         return NegotiationResult(counts=counts, missing=missing,
                                  last_joiner=last)
 
-    @staticmethod
-    def _decide_counts(full, active, counters, all_tokens):
+    def _decide_counts(self, full, active, counters, all_tokens):
         """Token dispatch counts (min over active members), per-name
-        lagging ranks, and the deferred total."""
+        lagging ranks, and the deferred total: the native core's
+        ``negotiate_decide`` when loaded (reference: controller.cc
+        ComputeResponseList), else the same arithmetic in Python."""
+        if self._core is not None:
+            counts_d, lagging, deferred = self._core.negotiate_decide(
+                full, list(active))
+            missing: Dict[str, List[int]] = {}
+            for t, procs in lagging.items():
+                for name in token_names(t):
+                    missing[name] = procs
+            return Counter(counts_d), missing, deferred
         counts = Counter()
         missing = {}
         deferred = 0

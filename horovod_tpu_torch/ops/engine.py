@@ -234,10 +234,13 @@ class Handle:
 
 class CollectiveEngine:
     """Background cycle loop draining the tensor queue into fused
-    dispatches (reference: BackgroundThreadLoop + RunLoopOnce)."""
+    dispatches (reference: BackgroundThreadLoop + RunLoopOnce).
+
+    ``core`` is the native core module ``hvd.init()`` loaded (None: the
+    pure-Python planner and response cache)."""
 
     def __init__(self, cfg, device: torch.device, backend: str, controller,
-                 timeline, stall_inspector, autotuner=None):
+                 timeline, stall_inspector, autotuner=None, core=None):
         self.cfg = cfg
         self.device = device
         self.backend = backend
@@ -257,7 +260,7 @@ class CollectiveEngine:
         self._cv = threading.Condition(self._lock)
         self._stop = False
         self._thread: Optional[threading.Thread] = None
-        self._plan_fn, self._cache = get_planner(cfg)
+        self._plan_fn, self._cache = get_planner(cfg, core)
         self._cycle_count = 0
         self._group_counter = 0
         self._name_counter = 0

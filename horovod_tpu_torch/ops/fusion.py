@@ -11,9 +11,12 @@ distributed optimizer's bucket layouts (``pad_to_multiple``,
 signatures, which tests/test_torch_controller.py and
 tests/test_torch_overlap.py hold against the JAX package.  Torch dtypes
 enter by their names without the ``torch.`` prefix (:func:`dtype_name`),
-which are the JAX package's names for the same element widths.  The JAX
-package's native ``_hvd_core`` is not ported: this pure-Python planner is
-the one it is parity-checked against.
+which are the JAX package's names for the same element widths.  The
+native core (``native/core.cpp``) plans and caches with the same
+algorithm in C++; :func:`get_planner` hands the engine its
+``plan_fusion_sigs`` and ``ResponseCache`` when ``hvd.init()`` loaded it,
+and this pure-Python planner is what it is parity-checked against (and
+what ``HOROVOD_TPU_NATIVE_CORE=0`` runs).
 
 The execution side (pack a bucket, one collective, unpack) is
 ``ops/collectives.allreduce_arrays``.
@@ -436,8 +439,12 @@ class ResponseCache:
                 "entries": len(self._cache)}
 
 
-def get_planner(cfg):
-    """Return ``(plan_fn, cache)``: :func:`plan_fusion` and a
-    :class:`ResponseCache` of ``cfg.cache_capacity`` plans."""
+def get_planner(cfg, core=None):
+    """Return ``(plan_fn, cache)`` of ``cfg.cache_capacity`` plans: the
+    native core's ``plan_fusion_sigs`` and ``ResponseCache`` when ``core``
+    (the module ``hvd.init()`` loaded) is given, else :func:`plan_fusion`
+    and :class:`ResponseCache`."""
     cap = cfg.cache_capacity if cfg is not None else 1024
+    if core is not None:
+        return core.plan_fusion_sigs, core.ResponseCache(cap)
     return plan_fusion, ResponseCache(cap)

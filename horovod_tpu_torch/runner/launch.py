@@ -84,6 +84,7 @@ def check_build(out=None) -> int:
     import torch.distributed as dist
 
     import horovod_tpu_torch
+    from ..native import loader
     from ..ops import _build
 
     def nvcc_found():
@@ -103,6 +104,8 @@ def check_build(out=None) -> int:
     ]
     checks += [(f"CUDA library {name} built", name in built)
                for name in sorted(p.stem for p in _build.CSRC.glob("*.cu"))]
+    # report-only: a status command never starts a compile
+    checks.append(("Native C++ core (_hvd_core) built", loader.built()))
     checks.append(("Elastic training", importlib.util.find_spec(
         "horovod_tpu_torch.elastic") is not None))
     print(f"horovod_tpu_torch v{horovod_tpu_torch.__version__}:", file=out)

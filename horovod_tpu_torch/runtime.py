@@ -37,7 +37,11 @@ set's registration, which the hierarchical allreduce and allgather run
 over (``ops/collectives.py``).  ``init`` also builds the timeline
 (``HOROVOD_TIMELINE``), the stall inspector and, under
 ``HOROVOD_AUTOTUNE``, the parameter manager, and starts the metrics'
-exposition (``metrics.init_from_env``).
+exposition (``metrics.init_from_env``).  It first loads the native core
+(``native/``, built at first use) unless ``HOROVOD_TPU_NATIVE_CORE=0``,
+and hands it to the engine's planner, the controller's decision, the
+timeline's writer and the stall inspector's tracker; a failed build
+raises there.
 """
 
 from __future__ import annotations
@@ -419,6 +423,14 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
         import torch._dynamo  # noqa: F401
         cfg = Config.from_env()
         _setup_logging(cfg)
+        # the native control-plane core, built at first use; a failed
+        # build raises here, before any group forms
+        # (HOROVOD_TPU_NATIVE_CORE=0 runs the Python planner, decision,
+        # timeline writer and stall tracker instead)
+        core = None
+        if cfg.use_native_core:
+            from .native import loader
+            core = loader.load()
         _LAST_INIT_DEVICE = device
         if cfg.elastic:
             rank, size, local_rank, dev, backend, store, epoch = \
@@ -473,17 +485,19 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
         health.init_from_env()
         health.set_identity(process=rank,
                             host=os.environ.get("HOROVOD_HOSTNAME") or None)
-        _make_tools(st, cfg)
+        _make_tools(st, cfg, core)
         from .ops.controller import Controller
         from .ops.engine import CollectiveEngine
         controller = Controller(
             cfg, dist.PrefixStore(f"hvdctl/{st.namespace}", store), rank,
-            size, deadline_s=timeout_s(cfg), stall=st.stall_inspector)
+            size, deadline_s=timeout_s(cfg), stall=st.stall_inspector,
+            core=core)
         controller.superseded_grace_s = _env_seconds(
             "HOROVOD_ELASTIC_HEARTBEAT_TIMEOUT", 10.0)
         st.engine = CollectiveEngine(
             cfg, dev, backend, controller, timeline=st.timeline,
-            stall_inspector=st.stall_inspector, autotuner=st.autotuner)
+            stall_inspector=st.stall_inspector, autotuner=st.autotuner,
+            core=core)
         st.engine.start()
         st.initialized = True
         if not _ATEXIT_REGISTERED:
@@ -512,15 +526,15 @@ def _gather_hosts(st: _RuntimeState) -> Optional[List[int]]:
     return [int(c) for _, c in pairs]
 
 
-def _make_tools(st: _RuntimeState, cfg: Config) -> None:
+def _make_tools(st: _RuntimeState, cfg: Config, core) -> None:
     """The timeline, the stall inspector (its straggler scores wired to
     the elastic driver's blacklist) and, under HOROVOD_AUTOTUNE, the
     parameter manager (reference: ``runtime.py``'s observability
-    subsystems)."""
+    subsystems); ``core`` is the native core (or None)."""
     from .stall import StallInspector
     from .timeline import Timeline
     st.timeline = Timeline(cfg.timeline_path,
-                           mark_cycles=cfg.timeline_mark_cycles)
+                           mark_cycles=cfg.timeline_mark_cycles, core=core)
 
     def report_straggler(process, score):
         # a no-op outside the elastic driver (no endpoint exported)
@@ -530,7 +544,7 @@ def _make_tools(st: _RuntimeState, cfg: Config) -> None:
     st.stall_inspector = StallInspector(
         check_time=cfg.stall_check_time, disabled=cfg.stall_check_disable,
         blacklist_score=cfg.tail_blacklist_score,
-        on_straggler=report_straggler)
+        on_straggler=report_straggler, core=core)
     st.autotuner = None
     if cfg.autotune:
         from .autotune import ParameterManager

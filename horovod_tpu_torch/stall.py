@@ -1,9 +1,12 @@
 """Stall inspector: collectives stuck in the queue, and stragglers.
 
-Counterpart: ``horovod_tpu/stall.py``, copied without its native tracker,
-after the reference's ``horovod/common/stall_inspector.cc``: a tensor some
-ranks submitted and others have not, for ``HOROVOD_STALL_CHECK_TIME_SECONDS``,
-is logged with the ranks the negotiation reports missing.
+Counterpart: ``horovod_tpu/stall.py``, copied, after the reference's
+``horovod/common/stall_inspector.cc``: a tensor some ranks submitted and
+others have not, for ``HOROVOD_STALL_CHECK_TIME_SECONDS``, is logged with
+the ranks the negotiation reports missing.  With the native core loaded
+(``core``, from ``hvd.init()``) its ``StallTracker`` keeps the pending and
+warned tables, as in the JAX package, and the Python ones stay empty; it
+runs with ``shutdown_time=0``, since here the controller aborts (below).
 
 One difference, deliberate: the JAX inspector raises ``StallError`` on its
 own process past ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``.  In the port the
@@ -55,7 +58,7 @@ EWMA_ALPHA = 0.25
 
 class StallInspector:
     def __init__(self, check_time: float = 60.0, disabled: bool = False,
-                 blacklist_score: float = 0.0, on_straggler=None):
+                 blacklist_score: float = 0.0, on_straggler=None, core=None):
         self.check_time = check_time
         self.disabled = disabled or check_time <= 0
         self.blacklist_score = float(blacklist_score)
@@ -68,16 +71,25 @@ class StallInspector:
         # guards the tables below: record_enqueue runs on the submitting
         # thread while check() scans on the engine thread
         self._lock = threading.Lock()
+        # the pending and warned tables, when there is no native tracker
         self._pending: Dict[str, float] = {}
         self._warned: Dict[str, float] = {}
         # tensor name -> ranks that have not submitted it, reported by
         # the negotiation controller
         self._missing: Dict[str, list] = {}
         self.warnings_issued = 0
+        # the native tracker (reference: stall_inspector.cc): it keeps
+        # the pending and warned tables in place of the dicts above
+        self._native = (core.StallTracker(check_time=check_time,
+                                          shutdown_time=0.0)
+                        if core is not None and not self.disabled else None)
 
     def record_enqueue(self, name: str, t: float):
         """Note ``name`` pending since ``t`` (tracked while disabled too:
         it is the clock of the controller's abort)."""
+        if self._native is not None:
+            self._native.record_enqueue(name, t)
+            return
         with self._lock:
             self._pending.setdefault(name, t)
 
@@ -159,8 +171,11 @@ class StallInspector:
             # its lateness is the whole missing -> complete gap
             for key in [k for k in self._missing_since if k[0] == name]:
                 cleared.append((key[1], now - self._missing_since.pop(key)))
-            self._warned.pop(name, None)
-            self._pending.pop(name, None)
+            if self._native is not None:
+                self._native.record_complete(name)
+            else:
+                self._warned.pop(name, None)
+                self._pending.pop(name, None)
         for p, lateness in cleared:
             self.note_lateness(p, lateness, now=now)
 
@@ -170,8 +185,11 @@ class StallInspector:
         ``DivergenceError`` on every rank if the round still finds it
         missing."""
         now = time.monotonic() if now is None else now
-        with self._lock:
-            t0 = self._pending.get(name)
+        if self._native is not None:
+            t0 = self._native.pending_since(name)
+        else:
+            with self._lock:
+                t0 = self._pending.get(name)
         return t0 is not None and now - t0 > bar_s
 
     def check(self, now: float = None):
@@ -180,12 +198,18 @@ class StallInspector:
         if self.disabled:
             return
         now = time.monotonic() if now is None else now
-        with self._lock:
-            pending = list(self._pending.items())
-            warned = set(self._warned)
-        self._warn([(name, now - t0) for name, t0 in pending
-                    if now - t0 > self.check_time and name not in warned],
-                   now)
+        if self._native is not None:
+            # the tracker marks what it returns as warned
+            stalled, _ = self._native.check(now)
+        else:
+            with self._lock:
+                stalled = [(name, now - t0)
+                           for name, t0 in self._pending.items()
+                           if now - t0 > self.check_time
+                           and name not in self._warned]
+                for name, _ in stalled:
+                    self._warned[name] = now
+        self._warn(stalled)
 
     def describe(self, name: str, age: float) -> str:
         missing = self.missing_processes(name)
@@ -193,12 +217,10 @@ class StallInspector:
             return f"{name} ({age:.0f}s; missing on ranks {missing})"
         return f"{name} ({age:.0f}s)"
 
-    def _warn(self, stalled, now: float):
+    def _warn(self, stalled):
         if not stalled:
             return
         with self._lock:
-            for n, _ in stalled:
-                self._warned.setdefault(n, now)
             self.warnings_issued += 1
         if _metrics.ACTIVE:
             _m_warnings.inc()

@@ -1,12 +1,15 @@
 """Chrome-trace timeline of per-tensor collective lifecycles.
 
-Counterpart: ``horovod_tpu/timeline.py``, copied without its native
-writer (the port has no ``_hvd_core``).  After the reference's
+Counterpart: ``horovod_tpu/timeline.py``, copied.  After the reference's
 ``horovod/common/timeline.cc``: every tensor's journey is recorded as
 Chrome trace events (open the file in ``chrome://tracing`` or Perfetto):
 NEGOTIATE_<OP> → QUEUED → MEMCPY_IN_FUSION_BUFFER → <OP> → DONE.  A
 writer thread drains an event queue, so the engine's hot path only
-enqueues.  ``HOROVOD_TIMELINE`` enables it;
+enqueues.  The thread serialises each event; with the native core
+loaded (``core``, from ``hvd.init()``) it hands the JSON to the core's
+``TimelineWriter``, whose own C++ thread does the file I/O (the
+reference's TimelineWriter), else it writes the file itself.
+``HOROVOD_TIMELINE`` enables it;
 ``HOROVOD_TIMELINE_MARK_CYCLES=1`` adds one instant event per background
 cycle; ``hvd.start_timeline``/``stop_timeline`` reopen and close it at
 run time.
@@ -31,8 +34,11 @@ MAX_TENSOR_TIDS = 4096
 
 
 class Timeline:
-    def __init__(self, path: Optional[str], mark_cycles: bool = False):
+    def __init__(self, path: Optional[str], mark_cycles: bool = False,
+                 core=None):
         self._path = None
+        self._core = core
+        self._native = None     # core.TimelineWriter of the open file
         self._mark_cycles = mark_cycles
         self._queue: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
@@ -54,8 +60,11 @@ class Timeline:
         self.close()
         self._path = path
         self._mark_cycles = mark_cycles
-        self._file = open(path, "w")
-        self._file.write("[\n")
+        if self._core is not None:
+            self._native = self._core.TimelineWriter(path)
+        else:
+            self._file = open(path, "w")
+            self._file.write("[\n")
         self._first = True
         # per-incarnation tid table: the thread_name metadata events live
         # in the previous file, so names re-register (and re-emit their
@@ -69,15 +78,20 @@ class Timeline:
         self._thread.start()
 
     def close(self):
-        if self._file is None:
+        if self._file is None and self._native is None:
             return
         self._queue.put(None)
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
-        self._file.write("\n]\n")
-        self._file.close()
-        self._file = None
+        if self._native is not None:
+            # drains the native queue, writes the JSON tail, closes
+            self._native.close()
+            self._native = None
+        if self._file is not None:
+            self._file.write("\n]\n")
+            self._file.close()
+            self._file = None
         self._path = None
 
     # -- event API (called from the engine) ---------------------------------
@@ -176,7 +190,7 @@ class Timeline:
                     "args": {"cycle": cycle}})
 
     def _emit(self, event: dict):
-        if self._file is not None:
+        if self._native is not None or self._file is not None:
             self._queue.put(event)
 
     def _writer_loop(self):
@@ -184,12 +198,16 @@ class Timeline:
             ev = self._queue.get()
             if ev is None:
                 return
-            f = self._file
+            s = json.dumps(ev)
+            native, f = self._native, self._file
+            if native is not None:
+                native.write(s)  # a no-op once the writer closed
+                continue
             if f is None:
                 return  # closed out from under us (join timed out)
             prefix = "" if self._first else ",\n"
             self._first = False
             try:
-                f.write(prefix + json.dumps(ev))
+                f.write(prefix + s)
             except ValueError:
                 return  # file closed

@@ -225,3 +225,28 @@ def test_contracts_name_the_skipped_artifacts():
                or os.path.basename(p).startswith("torch_")
                for p in repo.modules)
     assert "collective.corrupt" in reg["chaos"]["sites"]
+
+
+def test_contracts_hold_entry_sig_against_the_native_core():
+    """HVD306's native half runs: ``EntrySig``'s fields against the port's
+    own ``native/core.cpp`` ``parse_sig``, clean on the tree, and a field
+    either side drops is a finding naming it."""
+    import dataclasses
+
+    from horovod_tpu_torch.analysis import contracts
+    from horovod_tpu_torch.ops.fusion import EntrySig
+    repo = contracts.build_repo([(os.path.join(
+        REPO, "horovod_tpu_torch", "__init__.py"), "", None)])
+    assert "HVD306-native" not in contracts.SKIPPED
+    assert repo.cpp_path == os.path.join(
+        REPO, "horovod_tpu_torch", "native", "core.cpp")
+    fields = {f.name for f in dataclasses.fields(EntrySig)}
+    assert {n for n, _ in repo.cpp_sig_attrs} == fields
+    assert not [f for f in contracts._check_token(repo)
+                if f.code == "HVD306"]
+    repo.cpp_sig_attrs = [(n, line) for n, line in repo.cpp_sig_attrs
+                          if n != "spec"] + [("colour", 1)]
+    msgs = [f.message for f in contracts._check_token(repo)
+            if f.code == "HVD306"]
+    assert any("'spec' is not parsed" in m for m in msgs), msgs
+    assert any("'colour' which EntrySig" in m for m in msgs), msgs

@@ -1287,10 +1287,36 @@ def test_chip_smoke_parity_moe_route_on_the_cpu(monkeypatch, capsys):
                                             torch.device("cpu"))
     line = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert line["phase"] == "parity_moe_route" and line["top_k"] == 2
-    assert [x["differing"] for x in line["full_model"]] == [0, 0]
+    assert line["layers"] == 1
+    assert [x["differing"] for x in line["full_model"]] == [0]
     assert row["agreeing"] == row["tokens"] == 512
     assert row["capacity"] == 160
     assert all(a == b for a, b in row["norms"].values())
+
+
+def test_parity_moe_route_depth_cut_leaves_its_gates_as_they_were(
+        monkeypatch, capsys):
+    """parity_moe_route's forward through layer 0 alone gives the gated
+    layer-0 numbers of the forward through both layers, exactly: the
+    same weights (drawn at 2 layers) and the same input to layer 0."""
+    import dataclasses
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models import llama
+    base = llama.LlamaConfig(
+        vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=128, max_seq_len=256, remat=True, remat_policy="full",
+        remat_skip_layers=2)
+    cpu = torch.device("cpu")
+    rows = []
+    for depth in (None, 2):   # the phase's own depth, then both layers
+        monkeypatch.setattr(chip_smoke, "bench_config", lambda _, **over: (
+            dataclasses.replace(base, **{**over, **(
+                {"n_layers": depth} if depth and over.get("n_layers") == 1
+                else {})})))
+        rows.append(chip_smoke.parity_moe_route_phase(llama, convert, cpu))
+        line = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert line["layers"] == (depth or 1)
+    assert rows[0] == rows[1]
 
 
 # -- the pipeline, BERT's tp x sp, FSDP and mp serving ------------------------
@@ -1804,3 +1830,90 @@ def test_serve_mp2_schedule_gates_on_a_recorded_world():
     bad, _ = chip_smoke.serve_mp_schedule_problems([ranks[0],
                                                     ranks[0][:-1]])
     assert any("rank 1" in b for b in bad)
+
+
+# --- native_core and estimator -----------------------------------------------
+
+def test_chip_smoke_native_core_phase_on_the_cpu(capsys):
+    """``native_core`` rehearsed on the CPU: a tiny Llama's step through
+    the engine and its overlapped step record the lists they plan (as
+    ``train_dp`` and ``train_overlap`` do on the card); every gate holds,
+    and each fails on a wrong plan or a Python object."""
+    import dataclasses
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.optim import overlap as ov
+    from horovod_tpu_torch.optim.precision import adamw_lp
+    cfg = dataclasses.replace(llama.tiny(), n_layers=2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(0))
+    hvd.init(device="cpu")
+    try:
+        engine = hvd.runtime._state().engine
+        with chip_smoke.record_plans(engine, "_plan_fn") as dp_plans:
+            ts = training.make_llama_train_step(
+                cfg, optimizer=adamw_lp(3e-4), device="cpu")
+            params, opt = ts.init_fn(0)
+            ts.step_fn(params, opt, toks, toks)
+        objects = chip_smoke.native_objects(hvd)
+        with chip_smoke.record_plans(ov, "plan_fusion") as overlap_plans:
+            ts = training.make_llama_train_step(
+                cfg, optimizer=adamw_lp(3e-4), overlap=True, device="cpu")
+            params, opt = ts.init_fn(0)
+            ts.step_fn(params, opt, toks, toks)
+    finally:
+        hvd.shutdown()
+    assert engine._plan_fn.__module__ == chip_smoke.NATIVE_MODULE
+    assert dp_plans and overlap_plans
+    assert any(s.layer >= 0 for s in overlap_plans[0][0])
+    build_row = chip_smoke.build_native_core()
+    row = chip_smoke.native_core_phase(build_row, dp_plans, overlap_plans,
+                                       objects)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "native_core"
+    assert row["artifact"].endswith(
+        "_hvd_core" + __import__("sysconfig").get_config_var("EXT_SUFFIX"))
+    assert row["decide_equal_by_world"] == {
+        w: chip_smoke.NATIVE_DECIDE_SEEDS for w in chip_smoke.NATIVE_WORLDS}
+    assert row["planner_host_us"]["plan_fusion_sigs_us"] > 0
+    assert row["planner_host_us"]["buckets"] == max(
+        len(b) for _, _, b in dp_plans)
+    sigs, threshold, buckets = dp_plans[0]
+    wrong = [(sigs, threshold, buckets[::-1] + [[]])]
+    with pytest.raises(chip_smoke.SmokeFailure, match="differs"):
+        chip_smoke.native_core_phase(build_row, wrong, overlap_plans,
+                                     objects)
+    python = dict(objects, planner="horovod_tpu_torch.ops.fusion")
+    assert chip_smoke.native_object_problems("x", [objects, python]) == [
+        f"x: rank 1's planner is horovod_tpu_torch.ops.fusion, not "
+        f"{chip_smoke.NATIVE_MODULE}"]
+
+
+def test_estimator_reference_is_the_fit_on_the_cpu(monkeypatch, capsys):
+    """``estimator`` rehearsed on the CPU (256 images): the workers' fit
+    and the in-process reference agree bit for bit, and every gate holds;
+    the gates fail a history or a leaf that differs."""
+    monkeypatch.setattr(chip_smoke, "ESTIMATOR_IMAGES", 256)
+    monkeypatch.setattr(chip_smoke, "ESTIMATOR_PREDICT_ROWS", 32)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        row = chip_smoke.estimator_phase(device="cpu")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "estimator"
+    assert row["history"] == row["reference_history"]
+    assert row["differing_leaves"] == [] and row["reload_equal"]
+    assert row["checkpoint_devices"] == ["cpu"]
+    assert chip_smoke.estimator_problems(row) == []
+    flat = dict(row, history=[row["history"][0]] * 2)
+    assert any("did not fall" in b
+               for b in chip_smoke.estimator_problems(flat))
+    assert chip_smoke.estimator_problems(
+        dict(row, differing_leaves=["fc1_w"]))
+    assert chip_smoke.estimator_problems(
+        dict(row, checkpoint_devices=["cuda"]))

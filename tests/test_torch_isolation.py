@@ -75,6 +75,13 @@ def test_importing_every_module_loads_no_jax():
               "health.__main__", "metrics.timeseries", "metrics.slo",
               "metrics.top", "metrics.jobscrape"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # the native control-plane core, the torch adapter's import path and
+    # the estimator's torch half
+    for m in ("native", "native.build", "native.loader", "torch",
+              "torch.elastic", "torch.sync_batch_norm", "estimator",
+              "estimator.store", "estimator._worker",
+              "estimator.torch_estimator", "estimator.lightning_estimator"):
+        assert f"horovod_tpu_torch.{m}" in mods
     # the analysis plane: the hvdlint engines and the schedule recorder
     for m in ("analysis", "analysis.__main__", "analysis.cli",
               "analysis.report", "analysis.baseline", "analysis.callgraph",
@@ -150,19 +157,25 @@ def test_top_level_names_resolve_as_in_jax():
         hvd.get_process_set_ids_and_ranks()
 
 
-@pytest.mark.parametrize("sub", ["runner", "data", "elastic", "optim"])
+@pytest.mark.parametrize("sub", ["runner", "data", "elastic", "optim",
+                                 "torch", "estimator"])
 def test_subpackage_names_resolve_as_in_jax(sub):
     """Every public name of ``horovod_tpu.<sub>`` that is not a module
-    resolves on ``horovod_tpu_torch.<sub>`` (``hvd.runner.run``,
-    ``hvd.runner.TpuExecutor``, ``hvd.data.ParquetDataset``, ...), but
-    for the names still to port or left out by design, which this test
-    names."""
+    (nor a helper its source imports from ``typing``, ``contextlib`` or
+    ``__future__``) resolves on ``horovod_tpu_torch.<sub>``
+    (``hvd.runner.run``, ``hvd.runner.TpuExecutor``,
+    ``hvd.data.ParquetDataset``, ``horovod_tpu_torch.torch.TorchHandle``,
+    ...), but for the names still to port or left out by design, which
+    this test names."""
     code = (
-        "import importlib, json, types\n"
+        "import __future__, importlib, json, types\n"
         f"j = importlib.import_module('horovod_tpu.{sub}')\n"
         f"t = importlib.import_module('horovod_tpu_torch.{sub}')\n"
+        "helper = lambda v: isinstance(v, __future__._Feature) or \\\n"
+        "    getattr(v, '__module__', None) in ('typing', 'contextlib')\n"
         "names = [n for n, v in vars(j).items() if not n.startswith('_')\n"
-        "         and not isinstance(v, types.ModuleType)]\n"
+        "         and not isinstance(v, types.ModuleType)\n"
+        "         and not helper(v)]\n"
         "print(json.dumps(sorted(n for n in names if not hasattr(t, n))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -176,6 +189,15 @@ def test_subpackage_names_resolve_as_in_jax(sub):
         from horovod_tpu_torch.data import ParquetDataset, ParquetLoader
         assert ParquetLoader.__mro__[1].__name__ == "BaseDataLoader"
         assert ParquetDataset.__name__ == "ParquetDataset"
+    if sub == "torch":
+        import horovod_tpu_torch as top
+        import horovod_tpu_torch.torch as hvd
+        from horovod_tpu_torch.ops.engine import Handle
+        assert hvd.TorchHandle is Handle and hvd.allreduce is top.allreduce
+        assert hvd.DistributedOptimizer is top.DistributedOptimizer
+        assert hvd.elastic.TorchState is top.elastic.TorchState
+        assert hvd.elastic.run is top.elastic.run
+        assert hvd.SyncBatchNorm is top.SyncBatchNorm
 
 
 #: public names of the JAX subpackages the port's lack: by design
@@ -183,11 +205,13 @@ def test_subpackage_names_resolve_as_in_jax(sub):
 #: ``fused_tail_reduce_tree``: the port's ``fused_reduce_tree`` takes the
 #: hierarchical path itself; ``scale_by_adam_lp``: an optax
 #: transformation, where the port has the optimizer ``AdamWLP``) or by
-#: ROADMAP.md item (none now)
+#: ROADMAP.md item (the Keras estimator, with the TF/Keras adapters)
 SUB_MISSING = {
     "runner": set(), "data": set(),
     "elastic": {"ArrayState", "TpuState"},
     "optim": {"fused_tail_reduce_tree", "scale_by_adam_lp"},
+    "torch": set(),
+    "estimator": {"KerasEstimator", "KerasModel", "load_keras_model"},
 }
 
 

@@ -182,7 +182,11 @@ def test_network_selection_matches_the_reference(monkeypatch):
                                     interface="lo") == "127.0.0.1"
 
 
-def test_check_build_reports_the_port(capsys):
+def test_check_build_reports_the_port(capsys, monkeypatch, tmp_path):
+    from horovod_tpu_torch.native import build as native_build
+    # an empty build directory: the native line reads "not built", and the
+    # report starts no compile
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path)
     args = launch.parse_args(["--check-build"])
     assert launch.run_launcher(args) == 0
     out = capsys.readouterr().out
@@ -191,7 +195,14 @@ def test_check_build_reports_the_port(capsys):
     for name in ("flash_attention", "fused_xent"):
         assert f"CUDA library {name} built" in out
     assert "nvcc" in out and "[X] Elastic training" in out
-    assert "Pallas" not in out and "_hvd_core" not in out
+    assert "[ ] Native C++ core (_hvd_core) built" in out
+    assert "Pallas" not in out and not any(tmp_path.iterdir())
+    path = native_build.artifact_path()
+    assert path.parent.parent == tmp_path
+    path.parent.mkdir()
+    path.touch()
+    assert launch.run_launcher(args) == 0
+    assert "[X] Native C++ core (_hvd_core) built" in capsys.readouterr().out
 
 
 # --- real launches ------------------------------------------------------------

@@ -304,11 +304,20 @@ def test_sampler_count_beside_the_jax_runtimes_sampler(monkeypatch):
     """The order that failed under xdist: the JAX runtime (``hvd``, up for
     the session) keeps its own ``hvd-timeseries`` thread alive; the port's
     ``hvd.init()`` still starts exactly one sampler of its own and its
-    shutdown stops it, leaving the JAX package's running."""
-    jax_samplers = [t for t in threading.enumerate()
-                    if t.name == "hvd-timeseries" and t.is_alive()
-                    and t not in _sampler_threads()]
-    assert jax_samplers, "the JAX runtime's sampler is not running"
+    shutdown stops it, leaving the JAX package's running.  (An earlier
+    file in this worker may have stopped the JAX runtime's sampler, with
+    a JAX ``hvd.shutdown()``: it is then started here as the JAX
+    package's ``hvd.init()`` starts it, and stopped at the end.)"""
+    def jax_samplers():
+        return [t for t in threading.enumerate()
+                if t.name == "hvd-timeseries" and t.is_alive()
+                and t not in _sampler_threads()]
+
+    started = not jax_samplers()
+    if started:
+        jts.init_from_env({"HOROVOD_TIMESERIES": "1"})
+    jax_threads = jax_samplers()
+    assert jax_threads, "the JAX runtime's sampler is not running"
     monkeypatch.setenv("HOROVOD_TIMESERIES_EVERY_S", "0.05")
     old_ring = ts.swap_ring(None)
     try:
@@ -319,10 +328,12 @@ def test_sampler_count_beside_the_jax_runtimes_sampler(monkeypatch):
         finally:
             hvd.shutdown()
         assert _sampler_threads() == []
-        assert all(t.is_alive() for t in jax_samplers)
+        assert all(t.is_alive() for t in jax_threads)
     finally:
         ts.swap_ring(old_ring)
         slo.swap_watchdog(None)
+        if started:
+            jts.stop_sampler()
 
 
 def test_failure_report_carries_windows(monkeypatch):

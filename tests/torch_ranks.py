@@ -225,6 +225,42 @@ def case_collectives(hvd, rank, world):
     return out
 
 
+def case_native_core(hvd, rank, world):
+    """:func:`case_collectives` on the native core (the default), then
+    again after a re-init under ``HOROVOD_TPU_NATIVE_CORE=0``; each run's
+    results, the engine's plans as ``(sigs, threshold, buckets)`` (the
+    planner the engine calls, wrapped), and which objects served it."""
+    def run():
+        eng = hvd.runtime._state().engine
+        plan_fn, plans = eng._plan_fn, []
+
+        def recording(sigs, threshold):
+            buckets = plan_fn(sigs, threshold)
+            plans.append((list(sigs), threshold, buckets))
+            return buckets
+
+        eng._plan_fn = recording
+        out = case_collectives(hvd, rank, world)
+        eng._plan_fn = plan_fn
+        return {"out": out, "plans": plans,
+                "objects": [type(eng._cache).__module__,
+                            type(eng.stall._native).__module__,
+                            getattr(eng.timeline._core, "__name__", None),
+                            getattr(eng._controller._core, "__name__",
+                                    None)],
+                "planner": plan_fn.__module__ or type(plan_fn).__module__}
+
+    on = run()
+    hvd.shutdown()
+    os.environ["HOROVOD_TPU_NATIVE_CORE"] = "0"
+    try:
+        hvd.init(device="cpu")
+        off = run()
+    finally:
+        del os.environ["HOROVOD_TPU_NATIVE_CORE"]
+    return {"on": on, "off": off}
+
+
 def case_process_set(hvd, rank, world):
     """A subset process set (ranks 1 and world - 1): members reduce among
     themselves."""
