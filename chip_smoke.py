@@ -278,6 +278,15 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
            weights equal, bit for bit, the same fit run in this process
            rank by rank, the Store's checkpoint holds CPU tensors and
            reloads bit for bit, predict runs on the card
+  adapters the TF/Keras adapters: without TensorFlow (the card's machine)
+           a child interpreter imports horovod_tpu_torch, .torch and
+           .estimator with no TensorFlow or Keras module loaded, and
+           .tensorflow, .keras, .mxnet and KerasEstimator.fit (before any
+           worker) each raise an ImportError naming the missing package
+           and the port's torch path; with TensorFlow, 3 steps of
+           tests/helpers_runner.py's tf_training_fn toy at world 1 on the
+           card, eager and under jit_compile=True, within 1e-6 of the
+           plain TF loop.  The line says which branch ran
   mnist    5 classifier steps of the MNIST convnet at batch 128 of seeded
            28 x 28 images (losses falling); then serving/models.py's
            classifier_forward on a bucket of MNIST rows and one of BERT
@@ -752,6 +761,12 @@ ESTIMATOR_EPOCHS = 2
 ESTIMATOR_LR = 0.05
 ESTIMATOR_SEED = 0
 ESTIMATOR_PREDICT_ROWS = 256
+# adapters: the TF/Keras adapters' import rules where TensorFlow is absent
+# (a child interpreter; the card's machine has no TensorFlow), else
+# tests/helpers_runner.py tf_training_fn's toy at world 1 (3 steps, eager
+# and under jit_compile=True) against the plain TF loop
+ADAPTERS_TOL = 1e-6
+ADAPTERS_STEPS = 3
 # mnist: batch 128 of seeded 28 x 28 images, 5 steps; classifier_forward
 # buckets of 8 rows
 MNIST_BATCH, MNIST_STEPS = 128, 5
@@ -6466,6 +6481,145 @@ def estimator_problems(row) -> list:
     return bad
 
 
+ADAPTERS_CHILD = """
+import json, sys
+import horovod_tpu_torch, horovod_tpu_torch.torch, horovod_tpu_torch.estimator
+from horovod_tpu_torch import runner
+from horovod_tpu_torch.estimator import KerasEstimator
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("tensorflow", "keras"))
+errors = {}
+for sub in ("tensorflow", "keras", "mxnet"):
+    try:
+        __import__("horovod_tpu_torch." + sub)
+        errors[sub] = None
+    except ImportError as exc:
+        errors[sub] = [type(exc).__name__, str(exc)]
+launched = []
+runner.run = lambda *a, **k: launched.append(1)
+try:
+    KerasEstimator(model=None, optimizer="sgd", loss="mse", np=2).fit(
+        [[0.0]], [[0.0]])
+    errors["KerasEstimator.fit"] = None
+except ImportError as exc:
+    errors["KerasEstimator.fit"] = [type(exc).__name__, str(exc)]
+print(json.dumps({"loaded": loaded, "errors": errors,
+                  "launched": len(launched)}))
+"""
+
+#: the package each ImportError must name, by what was imported
+ADAPTERS_MISSING = {"tensorflow": "tensorflow", "keras": "tensorflow",
+                    "mxnet": "mxnet", "KerasEstimator.fit": "tensorflow"}
+
+
+def adapters_absent():
+    """The import rules without TensorFlow, in a child interpreter (its
+    ``sys.modules`` clean): ``horovod_tpu_torch``, ``.torch`` and
+    ``.estimator`` load no TensorFlow or Keras; ``.tensorflow``,
+    ``.keras`` and ``.mxnet`` raise an ImportError naming the missing
+    package and the port's torch path; ``KerasEstimator.fit`` raises one
+    before launching a worker.  A caller that hid TensorFlow
+    (``sys.modules["tensorflow"] = None``) hides it from the child too."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    prelude = ('import sys; sys.modules["tensorflow"] = None\n'
+               if "tensorflow" in sys.modules
+               and sys.modules["tensorflow"] is None else "")
+    res = subprocess.run([sys.executable, "-c", prelude + ADAPTERS_CHILD],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=120)
+    require(res.returncode == 0,
+            f"adapters: the import child failed: {res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def adapters_absent_problems(got) -> list:
+    bad = []
+    if got["loaded"]:
+        bad.append(f"importing the port loaded {got['loaded']}")
+    if got["launched"]:
+        bad.append("KerasEstimator.fit launched a worker")
+    for what, package in ADAPTERS_MISSING.items():
+        err = got["errors"].get(what)
+        if err is None or err[0] != "ImportError":
+            bad.append(f"{what}: no ImportError ({err})")
+            continue
+        named = (package, "horovod_tpu_torch.torch")
+        if not all(n in err[1] for n in named):
+            bad.append(f"{what}: the error does not name {named}: "
+                       f"{err[1]}")
+    return bad
+
+
+def adapters_present(device):
+    """tests/helpers_runner.py ``tf_training_fn``'s toy over
+    ``horovod_tpu_torch.tensorflow`` at world 1 on ``device`` (NCCL on the
+    card): ``ADAPTERS_STEPS`` steps through ``DistributedGradientTape``,
+    eagerly and under ``tf.function(jit_compile=True)``, against the
+    plain TF loop; each weight's largest difference."""
+    import tensorflow as tf
+
+    import horovod_tpu_torch.tensorflow as hvd
+    from horovod_tpu_torch import runtime
+
+    X = np.random.RandomState(3).randn(8, 2).astype("f4")
+    y = (X @ np.array([[1.0], [-0.5]], dtype="f4")).astype("f4")
+    Xs, ys = tf.constant(X[:4]), tf.constant(y[:4])
+
+    def train(distributed: bool, jit: bool):
+        w = tf.Variable([[0.2], [0.1]])
+
+        def step():
+            tape = tf.GradientTape()
+            if distributed:
+                tape = hvd.DistributedGradientTape(tape)
+            with tape:
+                loss = tf.reduce_mean((tf.matmul(Xs, w) - ys) ** 2)
+            w.assign_sub(0.5 * tape.gradient(loss, [w])[0])
+
+        fn = tf.function(step, jit_compile=True) if jit else step
+        for _ in range(ADAPTERS_STEPS):
+            fn()
+        return w.numpy()
+
+    hvd.init(device=device)
+    try:
+        backend = runtime._state().backend
+        ref = train(False, False)
+        eager, jit = train(True, False), train(True, True)
+    finally:
+        hvd.shutdown()
+    return {"tensorflow": tf.__version__, "backend": backend,
+            "weights": ref.ravel().tolist(),
+            "max_abs_err": {"eager": float(np.abs(eager - ref).max()),
+                            "jit": float(np.abs(jit - ref).max())}}
+
+
+def adapters_phase(device="cuda:0"):
+    """``adapters``: the TF/Keras adapters where the card's machine runs
+    them.  Without TensorFlow (the card's machine): the import rules
+    (:func:`adapters_absent`).  With it: the toy's steps
+    (:func:`adapters_present`) within ``ADAPTERS_TOL`` of plain TF.  The
+    line says which branch ran; either failing fails the run."""
+    import importlib.util
+    t0 = time.perf_counter()
+    if importlib.util.find_spec("tensorflow") is None:
+        got = adapters_absent()
+        row = {"branch": "absent", "tensorflow": "absent",
+               "messages": {k: (v[1] if v else None)
+                            for k, v in got["errors"].items()},
+               "loaded": got["loaded"], "launched": got["launched"]}
+        bad = adapters_absent_problems(got)
+    else:
+        row = {"branch": "present", **adapters_present(device)}
+        bad = [f"{mode}: {err} > {ADAPTERS_TOL}"
+               for mode, err in row["max_abs_err"].items()
+               if not err <= ADAPTERS_TOL]
+    row["seconds"] = time.perf_counter() - t0
+    emit("adapters", **row)
+    require(not bad, f"adapters: {bad}")
+    return row
+
+
 def mnist_phase(fa, fx, dev):
     """MNIST_STEPS classifier steps at batch 128 of seeded 28 x 28 images;
     then ``classifier_forward`` serves a bucket of MNIST rows (the
@@ -6907,6 +7061,7 @@ def main() -> int:
                      "ms": elastic["sync_ms"]})
     timed("hvd_run", hvd_run_phase)
     timed("estimator", estimator_phase)
+    timed("adapters", adapters_phase)
     timed("mnist", mnist_phase, fa, fx, dev)
     timed("parity_bert", parity_bert_phase, convert, dev)
     timed("parity_resnet", parity_resnet_phase, convert, dev)

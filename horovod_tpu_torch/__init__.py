@@ -17,7 +17,9 @@ quantized wire formats) and the broadcast helpers
 (``sync_batch_norm.py``) and
 ``hvd.elastic`` (``elastic/``: ``run``, ``TensorState``, ``TorchState``,
 ``ElasticSampler``).  ``horovod_tpu_torch.checkpoint`` and
-``horovod_tpu_torch.data`` are imported on their own, and
+``horovod_tpu_torch.data`` are imported on their own, as are the
+framework adapters ``horovod_tpu_torch.torch``, ``.tensorflow`` and
+``.keras`` (the last two need TensorFlow), and
 ``python -m horovod_tpu_torch.runner`` launches a job.
 
 Entry points run on the card unless the caller passes ``device="cpu"``:

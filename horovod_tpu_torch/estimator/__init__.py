@@ -7,10 +7,13 @@ distributed training run by the port's launcher (``runner.run``) on
 ``device`` and the artifacts in a :class:`Store`.  Spark itself
 (DataFrames, Petastorm) is absent, as in the JAX package:
 ``fit(ParquetDataset)`` is the on-disk data plane.  The Keras estimator
-(``KerasEstimator``, ``KerasModel``, ``load_keras_model``) is not ported
-yet: it comes with the TF/Keras adapters.
+(``KerasEstimator``, ``KerasModel``, ``load_keras_model``) imports
+TensorFlow only when it fits or loads, so this package imports without
+it.
 """
 
+from .keras_estimator import (  # noqa: F401
+    KerasEstimator, KerasModel, load_keras_model)
 from .lightning_estimator import (  # noqa: F401
     LightningEstimator, LightningModelWrapper)
 from .store import (  # noqa: F401
@@ -19,5 +22,6 @@ from .torch_estimator import (  # noqa: F401
     TorchEstimator, TorchModel, load_model)
 
 __all__ = ["Store", "LocalStore", "FilesystemStore", "RemoteStore",
-           "TorchEstimator", "TorchModel", "LightningEstimator",
-           "LightningModelWrapper", "load_model"]
+           "TorchEstimator", "TorchModel", "KerasEstimator", "KerasModel",
+           "LightningEstimator", "LightningModelWrapper", "load_model",
+           "load_keras_model"]

@@ -69,6 +69,17 @@ def build(timeout_s: float = 300.0) -> Path:
     :class:`NativeBuildError` when the compiler fails or cannot run, and
     when the build directory cannot be made, locked or written."""
     path = artifact_path()
+    return build_locked(
+        path, lambda out: [compiler(), *FLAGS, f"-I{include_dir()}",
+                           str(SOURCE), "-o", str(out)],
+        SOURCE.name, timeout_s)
+
+
+def build_locked(path: Path, command, source_name: str,
+                 timeout_s: float) -> Path:
+    """Run ``command(tmp)`` to compile ``path`` unless it exists, under
+    the directory's lock; the compiler writes a temporary name beside
+    ``path`` that is moved into place.  Raises :class:`NativeBuildError`."""
     if path.exists():
         return path
     try:
@@ -77,19 +88,18 @@ def build(timeout_s: float = 300.0) -> Path:
             fcntl.flock(lock, fcntl.LOCK_EX)
             if path.exists():  # another process built it while we waited
                 return path
-            _compile(path, timeout_s)
+            _compile(path, command, source_name, timeout_s)
     except OSError as exc:
         raise NativeBuildError(
-            f"could not build {SOURCE.name} into {path.parent}: {exc}"
+            f"could not build {source_name} into {path.parent}: {exc}"
         ) from exc
     return path
 
 
-def _compile(path: Path, timeout_s: float):
+def _compile(path: Path, command, source_name: str, timeout_s: float):
     """Compile to a temporary name beside ``path`` and move it there."""
     tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
-    cmd = [compiler(), *FLAGS, f"-I{include_dir()}", str(SOURCE),
-           "-o", str(tmp)]
+    cmd = command(tmp)
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=timeout_s)
@@ -101,7 +111,7 @@ def _compile(path: Path, timeout_s: float):
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise NativeBuildError(
-            f"the C++ compiler failed to build {SOURCE.name} (exit "
+            f"the C++ compiler failed to build {source_name} (exit "
             f"{proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, path)

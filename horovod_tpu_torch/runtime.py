@@ -932,6 +932,21 @@ def get_process_set_ids_and_ranks() -> Dict[int, List[int]]:
             for i in st.process_set_table.ids()}
 
 
+def get_process_set_by_id(set_id: int) -> ProcessSet:
+    """Resolve a registered process set by its id (counterpart:
+    ``horovod_tpu/runtime.py`` ``get_process_set_by_id``; reference:
+    process_set.cc lookups): the TF op bridge carries the id through an
+    op attribute."""
+    st = _require_init()
+    try:
+        return st.process_set_table.get(set_id)
+    except KeyError:
+        raise ValueError(
+            f"process set id {set_id} is not registered (removed, or "
+            "from a previous init?) — compiled graphs carrying the id "
+            "must not outlive remove_process_set") from None
+
+
 def _setup_logging(cfg: Config):
     level = {
         "trace": logging.DEBUG, "debug": logging.DEBUG,

@@ -42,8 +42,9 @@ setup(
     package_data={"horovod_tpu.native": ["*.cc", "*.cpp"],
                   # the port's CUDA sources, compiled by nvcc at first use
                   "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
-                  # the port's native core, compiled by g++ at first use
-                  "horovod_tpu_torch.native": ["*.cpp"],
+                  # the port's native core and TF op bridge, compiled by
+                  # g++ at first use
+                  "horovod_tpu_torch.native": ["*.cpp", "*.cc"],
                   "horovod_tpu_torch.analysis": ["baseline.json"]},
     ext_modules=exts,
     entry_points={

@@ -1917,3 +1917,61 @@ def test_estimator_reference_is_the_fit_on_the_cpu(monkeypatch, capsys):
         dict(row, differing_leaves=["fc1_w"]))
     assert chip_smoke.estimator_problems(
         dict(row, checkpoint_devices=["cuda"]))
+
+
+ADAPTERS_ABSENT = """
+import json, sys
+sys.modules["tensorflow"] = None
+import chip_smoke
+chip_smoke.adapters_phase()
+"""
+
+
+def test_adapters_absent_branch_in_a_child():
+    """``adapters`` as the card runs it, TensorFlow hidden in a child
+    interpreter: the absent branch, every import rule holding, within its
+    seconds."""
+    import subprocess
+    import sys
+    root = pathlib.Path(chip_smoke.__file__).resolve().parent
+    res = subprocess.run([sys.executable, "-c", ADAPTERS_ABSENT], cwd=root,
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    row = json.loads(res.stdout.strip().splitlines()[-1])
+    assert row["phase"] == "adapters" and row["branch"] == "absent"
+    assert row["tensorflow"] == "absent" and row["loaded"] == []
+    assert set(row["messages"]) == set(chip_smoke.ADAPTERS_MISSING)
+    for what, package in chip_smoke.ADAPTERS_MISSING.items():
+        assert package in row["messages"][what]
+        assert "horovod_tpu_torch.torch" in row["messages"][what]
+    assert row["seconds"] < 60
+
+
+def test_adapters_present_branch_on_the_cpu(capsys):
+    """With TensorFlow (here): the toy's 3 steps at world 1 through the
+    port's adapter, eager and under ``jit_compile=True``, equal the plain
+    TF loop."""
+    pytest.importorskip("tensorflow")
+    row = chip_smoke.adapters_phase(device="cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "adapters" and line["branch"] == "present"
+    assert row["backend"] == "gloo"
+    assert row["max_abs_err"] == {"eager": 0.0, "jit": 0.0}
+
+
+def test_adapters_gates_fail_a_broken_rule():
+    good = {"loaded": [], "launched": 0, "errors": {
+        k: ["ImportError", f"needs {p}; use horovod_tpu_torch.torch"]
+        for k, p in chip_smoke.ADAPTERS_MISSING.items()}}
+    assert chip_smoke.adapters_absent_problems(good) == []
+    assert chip_smoke.adapters_absent_problems(
+        dict(good, loaded=["tensorflow"]))
+    assert chip_smoke.adapters_absent_problems(dict(good, launched=1))
+    for what in chip_smoke.ADAPTERS_MISSING:
+        errors = dict(good["errors"])
+        errors[what] = ["ModuleNotFoundError", "No module named x"]
+        assert chip_smoke.adapters_absent_problems(
+            dict(good, errors=errors))
+        errors[what] = ["ImportError", "no torch path named"]
+        assert chip_smoke.adapters_absent_problems(
+            dict(good, errors=errors))

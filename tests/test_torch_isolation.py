@@ -90,12 +90,35 @@ def test_importing_every_module_loads_no_jax():
               "analysis.divergence", "analysis.wire", "analysis.contracts",
               "analysis.recorder", "analysis.schedule"):
         assert f"horovod_tpu_torch.{m}" in mods
+    # the TF and Keras adapters, the bridge's build and the Keras
+    # estimator; the mxnet stub, which raises ImportError
+    for m in ("tensorflow", "tensorflow._xla_bridge", "tensorflow.elastic",
+              "keras", "keras.callbacks", "native.tf_build", "mxnet",
+              "estimator.keras_estimator"):
+        assert f"horovod_tpu_torch.{m}" in mods
+    # TensorFlow imports jax itself when it is installed
+    # (tensorflow/lite/python/util.py), so the modules that import
+    # TensorFlow load with jax hidden, as on the card's machine
+    with_tf = [m for m in mods
+               if m.split(".")[1:2] in (["tensorflow"], ["keras"])]
+    rest = [m for m in mods if m not in with_tf
+            and m != "horovod_tpu_torch.mxnet"]
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}:\n"
+        f"for m in {rest!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {with_tf!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad += [m for m in sys.modules if m == 'horovod_tpu'"
+        " or m.startswith('horovod_tpu.')]\n"
+        "try:\n"
+        "    import horovod_tpu_torch.mxnet\n"
+        "    bad.append('mxnet imported')\n"
+        "except ImportError:\n"
+        "    pass\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -158,7 +181,8 @@ def test_top_level_names_resolve_as_in_jax():
 
 
 @pytest.mark.parametrize("sub", ["runner", "data", "elastic", "optim",
-                                 "torch", "estimator"])
+                                 "torch", "estimator", "tensorflow",
+                                 "keras"])
 def test_subpackage_names_resolve_as_in_jax(sub):
     """Every public name of ``horovod_tpu.<sub>`` that is not a module
     (nor a helper its source imports from ``typing``, ``contextlib`` or
@@ -200,18 +224,20 @@ def test_subpackage_names_resolve_as_in_jax(sub):
         assert hvd.SyncBatchNorm is top.SyncBatchNorm
 
 
-#: public names of the JAX subpackages the port's lack: by design
+#: public names of the JAX subpackages the port's lack, all by design
 #: (``ArrayState``/``TpuState``: the port's ``TensorState``;
 #: ``fused_tail_reduce_tree``: the port's ``fused_reduce_tree`` takes the
 #: hierarchical path itself; ``scale_by_adam_lp``: an optax
-#: transformation, where the port has the optimizer ``AdamWLP``) or by
-#: ROADMAP.md item (the Keras estimator, with the TF/Keras adapters)
+#: transformation, where the port has the optimizer ``AdamWLP``).  The
+#: TF and Keras adapters lack none: their differences are in behaviour
+#: (ROADMAP.md §C: "one process" is ``size() == 1``, the bridge's own op
+#: names and build directory, a failed build raising on every member)
 SUB_MISSING = {
     "runner": set(), "data": set(),
     "elastic": {"ArrayState", "TpuState"},
     "optim": {"fused_tail_reduce_tree", "scale_by_adam_lp"},
-    "torch": set(),
-    "estimator": {"KerasEstimator", "KerasModel", "load_keras_model"},
+    "torch": set(), "estimator": set(), "tensorflow": set(),
+    "keras": set(),
 }
 
 

@@ -61,6 +61,19 @@ def launch(world, cases, tmp_path, port=None, env=None, timeout=300):
         port = None
 
 
+def retried(launch, attempts=LAUNCH_ATTEMPTS):
+    """``launch()``, started again when it raises RuntimeError (its
+    workers failed): for the JAX package's reference launches
+    (``horovod_tpu.runner.run``), whose port, chosen free, can be taken
+    before their workers bind it seconds later, as :func:`launch`'s can."""
+    for attempt in range(attempts):
+        try:
+            return launch()
+        except RuntimeError:
+            if attempt == attempts - 1:
+                raise
+
+
 class Worlds(dict):
     """``worlds[n]``: each rank's results of ``cases`` at world size ``n``,
     launched on the first read, so a failed launch of one world leaves
@@ -2137,11 +2150,21 @@ def case_health(hvd, rank, world):
     return out
 
 
+def _case(name):
+    """``case_<name>`` of this file, or ``case_<fn>`` of the module a
+    ``module:fn`` name names (a file beside this one)."""
+    if ":" in name:
+        import importlib
+        module, fn = name.split(":")
+        return getattr(importlib.import_module(module), f"case_{fn}")
+    return globals()[f"case_{name}"]
+
+
 def main(out_dir, cases):
     import horovod_tpu_torch as hvd
     hvd.init(device="cpu")
     rank, world = hvd.rank(), hvd.size()
-    results = {c: globals()[f"case_{c}"](hvd, rank, world) for c in cases}
+    results = {c: _case(c)(hvd, rank, world) for c in cases}
     results["stats"] = hvd.runtime._state().engine.stats()
     hvd.shutdown()
     (pathlib.Path(out_dir) / f"rank{rank}.pkl").write_bytes(
