@@ -40,7 +40,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from .. import DeviceLike, api, resolve_device, runtime
+from .. import DeviceLike, api, resolve_device, runtime, tracing
 from ..optim.overlap import grad_tap, tap_root
 from ..parallel import axis as ax
 from ..parallel.mesh import ParallelMesh
@@ -293,7 +293,9 @@ def make_dp_finetune_step(cfg: BertConfig, optimizer: Callable,
     leave it False when the optimizer reduces them itself
     (``hvd.DistributedOptimizer``).  The mesh is ``MeshConfig(dp=
     hvd.size())`` when the runtime is initialized, else one device:
-    ``device``, or the CUDA device when None.
+    ``device``, or the CUDA device when None.  Each call of ``step_fn``
+    and ``grads_fn`` records a ``step`` span with its phases
+    (``tracing.steps``).
     """
     pmesh = resolve_mesh(pmesh, device)
     device = pmesh.devices[0]
@@ -309,24 +311,32 @@ def make_dp_finetune_step(cfg: BertConfig, optimizer: Callable,
 
     def grads_fn(params, tokens, labels):
         """The loss and gradients of a step, averaged over dp."""
-        loss = loss_fn(params, tokens, labels, cfg)
-        grads = list(torch.autograd.grad(loss, tree_leaves(params)))
-        loss = loss.detach()
-        average(params, grads, loss)
+        with tracing.step():
+            with tracing.phase("forward"):
+                loss = loss_fn(params, tokens, labels, cfg)
+            with tracing.phase("backward"):
+                grads = list(torch.autograd.grad(loss, tree_leaves(params)))
+            loss = loss.detach()
+            average(params, grads, loss)
         it = iter(grads)
         return loss, tree_map(lambda _: next(it), params)
 
     def step_fn(params, opt_state, tokens, labels):
-        loss = loss_fn(params, tokens, labels, cfg)
-        loss.backward()
-        loss = loss.detach()
-        if reduce_grads:
-            average(params, [p.grad for p in tree_leaves(params)], loss)
-        elif ps is not None:
-            loss = api.allreduce(loss, op=runtime.Average, name="loss",
-                                 process_set=ps)
-        opt_state.step()
-        opt_state.zero_grad(set_to_none=True)
+        with tracing.step():
+            with tracing.phase("forward"):
+                loss = loss_fn(params, tokens, labels, cfg)
+            with tracing.phase("backward"):
+                loss.backward()
+            loss = loss.detach()
+            if reduce_grads:
+                average(params, [p.grad for p in tree_leaves(params)], loss)
+            elif ps is not None:
+                with tracing.phase("exchange"):
+                    loss = api.allreduce(loss, op=runtime.Average,
+                                         name="loss", process_set=ps)
+            with tracing.phase("optimizer"):
+                opt_state.step()
+                opt_state.zero_grad(set_to_none=True)
         return params, opt_state, loss
 
     def opt_init(params):

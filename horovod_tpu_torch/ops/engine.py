@@ -51,10 +51,19 @@ Under ``HOROVOD_TRACE`` (``tracing/``) the engine records the JAX engine's
 spans: a ``cycle`` envelope for each drained batch, the ``submit`` phase
 (the earliest entry's enqueue to the drain), ``fuse`` (the plan) and one
 ``dispatch`` a bucket, each tagged with the cycle's negotiation round and
-group.  While ``hvd.start_profiler`` runs, each dispatch is also a
+group, and with ``step``, the id of the training step
+(``tracing.steps``) whose entries it carries.  While a torch profiler
+records on the engine's thread, or ``hvd.start_profiler``'s every-thread
+capture runs, each dispatch is also a
 ``torch.profiler.record_function`` range named after its bucket
-(``hvd.<op>[<tensors>]``, JAX's ``TraceAnnotation``), so the ranges and
-the collectives' CUDA kernels land in one trace.
+(``hvd.<op>[<tensors>]``, JAX's ``TraceAnnotation``); a capture of the
+caller's thread alone (the benchmark's) sees no engine range, and
+``hvd.stop_profiler`` appends the ring's spans, on the profiler's clock,
+to what it writes.  ``stats()`` counts, for
+every rank's operator, ``wait_ms`` (host time the submitting threads
+spent blocked in ``Handle.synchronize`` or ``Handle.wait``) and
+``queue_ms`` (each cycle's enqueue to drain, the ``submit`` span's
+interval), which the step spans read.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ from .. import chaos as _chaos
 from .. import health as _health
 from .. import metrics as _metrics
 from .. import tracing as _tracing
+from ..tracing import steps as _steps
 from ..exceptions import HorovodInternalError, HorovodTpuError
 from ..runtime import ReduceOp
 from . import collectives
@@ -117,6 +127,13 @@ _m_wire_ratio = _metrics.gauge(
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _step_of(entries) -> dict:
+    """``{"step": id}`` of the newest training step among ``entries``, or
+    nothing when none was submitted inside one (span args)."""
+    sid = max((e.step for e in entries), default=-1)
+    return {"step": sid} if sid >= 0 else {}
+
+
 def _row_key(token: str, k: int, i: int) -> str:
     """Round ``aux`` key of tensor ``i`` of the ``k``-th entry with
     ``token`` (the same on every rank, whatever its submission order)."""
@@ -133,7 +150,7 @@ class TensorTableEntry:
     __slots__ = ("name", "op_type", "tensors", "process_set", "reduce_op",
                  "prescale", "postscale", "root_rank", "splits", "group_id",
                  "inplace", "handle", "enqueue_time", "ready", "peer_rows",
-                 "wire_format", "tail_policy")
+                 "wire_format", "tail_policy", "step")
 
     def __init__(self, name, op_type, tensors, process_set,
                  reduce_op=ReduceOp.AVERAGE, prescale=None, postscale=None,
@@ -159,6 +176,7 @@ class TensorTableEntry:
         self.tail_policy = tail_policy
         self.handle: Optional[Handle] = None
         self.enqueue_time = 0.0
+        self.step = -1                # the training step it was submitted in
         self.ready = None             # CUDA event on the submitter's stream
         # Allgatherv: per-tensor dim-0 sizes of every member, agreed by
         # negotiation
@@ -192,11 +210,14 @@ class Handle:
     ``synchronize()`` waits until the engine has dispatched the collective,
     then orders the caller's current CUDA stream after it and returns the
     result; ``poll()`` is true once the result is complete on the device.
+    The time a caller spends blocked in ``wait``/``synchronize`` goes to
+    ``engine``'s ``wait_ms``.
     """
 
-    def __init__(self, name: str, single: bool):
+    def __init__(self, name: str, single: bool, engine=None):
         self.name = name
         self._single = single
+        self._engine = engine
         self._event = threading.Event()
         self._result: Optional[Tuple[torch.Tensor, ...]] = None
         self._done = None             # CUDA event of the engine's stream
@@ -214,11 +235,20 @@ class Handle:
         return self._event.is_set() and (self._done is None
                                          or self._done.query())
 
+    def _block(self, timeout: Optional[float] = None) -> bool:
+        if self._event.is_set():
+            return True
+        t0 = time.perf_counter()
+        done = self._event.wait(timeout)
+        if self._engine is not None:
+            self._engine._waited(time.perf_counter() - t0)
+        return done
+
     def wait(self, timeout: Optional[float] = None) -> bool:
-        return self._event.wait(timeout)
+        return self._block(timeout)
 
     def synchronize(self):
-        self._event.wait()
+        self._block()
         if self._exc is not None:
             if isinstance(self._exc, HorovodTpuError):
                 raise self._exc
@@ -272,9 +302,8 @@ class CollectiveEngine:
         self._bytes = 0
         self._dispatch_s = 0.0    # host time planning and issuing buckets
         self._executes = 0        # cycles that planned a dispatch set
-        # set by hvd.start_profiler/stop_profiler: each dispatch is then a
-        # torch.profiler range
-        self.profiling = False
+        self._wait_s = 0.0        # callers blocked on handles
+        self._queue_s = 0.0       # each cycle's earliest enqueue to drain
         # device timing of allreduce phases (pack / reduce / unpack): off
         # unless a caller sets ``time_device``; read by device_ms()
         self.time_device = False
@@ -351,10 +380,12 @@ class CollectiveEngine:
                         f"runs on {self.device} over {self.backend}")
             # a grouped entry always resolves to a list, even of one
             e.handle = Handle(e.name, single=(len(e.tensors) == 1
-                                              and e.group_id == -1))
+                                              and e.group_id == -1),
+                              engine=self)
             e.wire_format = self.cfg.compression
             e.tail_policy = self.cfg.tail_policy
             e.enqueue_time, e.ready = now, ready
+            e.step = _steps.CURRENT
         handles = [e.handle for e in entries]
         if self._controller is not None and self._controller.joined:
             for e in entries:
@@ -515,17 +546,17 @@ class CollectiveEngine:
                 t1 = _tracing.now()
                 _tracing.span("cycle", f"cycle{self._cycle_count}",
                               t1 - (time.monotonic() - t_cycle), t1,
-                              entries=len(entries))
+                              entries=len(entries), **_step_of(entries))
             with self._cv:
                 self._cycle_active = False
                 self._cv.notify_all()
 
     def _run_cycle(self, entries: List[TensorTableEntry]):
         self._cycle_count += 1
-        t_drain = t_drain_mono = 0.0
+        t_drain, t_drain_mono = 0.0, time.monotonic()
         ctl_on = self._controller is not None and self._controller.enabled
         if _tracing.ACTIVE:
-            t_drain, t_drain_mono = _tracing.now(), time.monotonic()
+            t_drain = _tracing.now()
             # without negotiation every rank drains in lockstep, so the
             # cycle count correlates across ranks (group ""); with it a
             # cycle stays off the round path until its round is agreed
@@ -547,12 +578,16 @@ class CollectiveEngine:
                     if self._submit_gen == gen0 and not self._stop:
                         self._cv.wait(timeout=self._pace_s)
                 return
-        if _tracing.ACTIVE and entries:
+        if entries:
             # the submit phase: the earliest agreed entry's enqueue to the
             # drain, its age carried onto the buffer's clock
             age = t_drain_mono - min(e.enqueue_time for e in entries)
-            _tracing.span("submit", f"cycle{self._cycle_count}",
-                          t_drain - age, t_drain, entries=len(entries))
+            with self._lock:
+                self._queue_s += age
+            if _tracing.ACTIVE:
+                _tracing.span("submit", f"cycle{self._cycle_count}",
+                              t_drain - age, t_drain, entries=len(entries),
+                              **_step_of(entries))
         self._execute(entries)
 
     # -- cross-process negotiation (reference: ComputeResponseList) ---------
@@ -676,7 +711,7 @@ class CollectiveEngine:
             tail_policy=next((s[11] for s in sigs if s[11] != "strict"),
                              "strict"))
         entry.handle = Handle(entry.name, single=len(tensors) == 1
-                              and entry.group_id == -1)
+                              and entry.group_id == -1, engine=self)
         entry.enqueue_time = time.monotonic()
         self.timeline.negotiate_start(entry.name, op_type)
         return entry
@@ -741,7 +776,8 @@ class CollectiveEngine:
                 self._cache.put(sigs, plan)
         if _tracing.ACTIVE:
             _tracing.span("fuse", f"plan[{len(sigs)}]", t_fuse,
-                          _tracing.now(), buckets=len(plan), cached=cached)
+                          _tracing.now(), buckets=len(plan), cached=cached,
+                          **_step_of(entries))
         # the tuner's clock: from the cycle's start, batching window
         # included, when the background loop set it
         t_tune, self._cycle_started = (
@@ -866,11 +902,10 @@ class CollectiveEngine:
                                           "tail_policy": tail,
                                           "hierarchical": hier})
         t_disp = _tracing.now() if _tracing.ACTIVE else 0.0
-        # under hvd.start_profiler the dispatch is a profiler range (JAX's
-        # TraceAnnotation), beside the CUDA kernels it launches
-        rng = (torch.profiler.record_function(f"hvd.{op_type}[{len(bucket)}]")
-               if self.profiling else contextlib.nullcontext())
-        with rng:
+        # while a profiler records this thread (or start_profiler's every
+        # thread) the dispatch is a range
+        # (JAX's TraceAnnotation), beside the CUDA kernels it launches
+        with _steps.profiler_range(f"hvd.{op_type}[{len(bucket)}]"):
             self._dispatch_inner(entries, sigs, owner, base, bucket,
                                  results, ps, e0, eff, hier, tail,
                                  bucket_id)
@@ -879,7 +914,7 @@ class CollectiveEngine:
                           op=op_type, tensors=len(bucket),
                           bytes=sum(sigs[si].nbytes for si in bucket),
                           wire_format=eff, tail_policy=tail,
-                          hierarchical=hier)
+                          hierarchical=hier, **_step_of((e0,)))
         self.timeline.activity_end(names)
 
     def _dispatch_inner(self, entries, sigs, owner, base, bucket, results,
@@ -954,6 +989,16 @@ class CollectiveEngine:
                 raise HorovodInternalError(f"unknown op type {op_type}")
 
     # -- introspection ------------------------------------------------------
+    def _waited(self, seconds: float) -> None:
+        with self._lock:
+            self._wait_s += seconds
+
+    def exchange_s(self) -> Tuple[float, float]:
+        """``(wait, queue)`` seconds so far: the counters behind
+        ``stats()``'s ``wait_ms`` and ``queue_ms``."""
+        with self._lock:
+            return self._wait_s, self._queue_s
+
     def device_ms(self) -> Dict[str, float]:
         """Device milliseconds of each allreduce phase (pack, reduce,
         unpack) since the last call, from the events recorded while
@@ -975,6 +1020,8 @@ class CollectiveEngine:
                    "tensors": self._tensors,
                    "buckets": self._buckets, "bytes": self._bytes,
                    "dispatch_ms": 1e3 * self._dispatch_s,
+                   "wait_ms": 1e3 * self._wait_s,
+                   "queue_ms": 1e3 * self._queue_s,
                    "cache": self._cache.stats(),
                    "metrics": _metrics.snapshot()}
         if self._controller is not None:

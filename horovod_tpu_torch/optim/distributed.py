@@ -96,6 +96,7 @@ import torch
 import torch.distributed as dist
 
 from .. import api, runtime
+from .. import tracing as _tracing
 from ..analysis import recorder as _rec
 from ..compression import Compression, quantizable, resolve_wire_format
 from ..ops import collectives
@@ -1463,7 +1464,12 @@ def DistributedGradientTransform(
             if hl_enabled:
                 _health_step(grads, state, params, state.count)
             else:
-                apply_fn(reduce_fn(grads, state), state)
+                # inside a training step, its exchange and optimizer
+                # phases (tracing.steps; nothing outside one)
+                with _tracing.phase("exchange"):
+                    reduced = reduce_fn(grads, state)
+                with _tracing.phase("optimizer"):
+                    apply_fn(reduced, state)
             if recovery is not None:
                 _emit_recovery(state.count, state)
             return state

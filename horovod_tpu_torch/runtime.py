@@ -499,6 +499,10 @@ def init(comm=None, process_sets: Optional[Sequence[ProcessSet]] = None,
             stall_inspector=st.stall_inspector, autotuner=st.autotuner,
             core=core)
         st.engine.start()
+        # the step spans' counters, the span clock's anchor to the
+        # profiler's epoch clock and, under HOROVOD_TRACE, the collector
+        # hook
+        tracing.steps.install(st.engine)
         st.initialized = True
         if not _ATEXIT_REGISTERED:
             atexit.register(shutdown)
@@ -684,6 +688,8 @@ def shutdown():
             metrics.stop_exposition()
             if _PROFILER:
                 stop_profiler()
+            from . import tracing
+            tracing.steps.uninstall()
             if st.engine is not None:
                 st.engine.stop()
             if st.timeline is not None:
@@ -763,7 +769,8 @@ def stop_timeline():
     _require_init().timeline.close()
 
 
-#: the running ``start_profiler`` capture: ``[profile, logdir]``
+#: the running ``start_profiler`` capture: ``[profile, logdir, start]``
+#: (``start`` on the span buffer's clock)
 _PROFILER: list = []
 
 
@@ -772,9 +779,12 @@ def start_profiler(logdir: str):
     device, the card (JAX ``hvd.start_profiler`` over ``jax.profiler``).
     Until :func:`stop_profiler` each engine dispatch is a
     ``record_function`` range named after its bucket
-    (``hvd.<op>[<tensors>]``), so the collectives' ranges and the
-    kernels land in one trace, ranges from the engine's thread included
-    (the profiler is asked to record every thread)."""
+    (``hvd.<op>[<tensors>]``) and each phase of a training step one named
+    after the phase (``hvd.step``, ``hvd.forward``, ...), so the ranges
+    and the kernels land in one trace, ranges from the engine's thread
+    included (the profiler is asked to record every thread); the span
+    ring's spans join the trace at :func:`stop_profiler`."""
+    from . import tracing
     st = _require_init()
     if _PROFILER:
         raise RuntimeError("start_profiler: a capture is already running; "
@@ -789,27 +799,38 @@ def start_profiler(logdir: str):
         cfg = None   # a torch without it records the caller's thread only
     prof = profile(activities=acts, experimental_config=cfg)
     prof.start()
-    _PROFILER[:] = [prof, logdir]
-    st.engine.profiling = True
+    _PROFILER[:] = [prof, logdir, tracing.now()]
+    tracing.steps.PROFILING = True
 
 
 def stop_profiler() -> str:
     """Stop the capture and write it to
     ``<logdir>/hvd_profile.rank<r>.<pid>.json`` (a Chrome trace that
-    Perfetto and ``chrome://tracing`` load); returns the path."""
+    Perfetto and ``chrome://tracing`` load), with the span ring's spans of
+    the capture's interval appended under their own names on the trace's
+    own time base (its ``baseTimeNanoseconds`` where it has one), one
+    lane a category; returns the path."""
+    import json
+    from . import tracing
     st = _require_init()
     if not _PROFILER:
         raise RuntimeError("stop_profiler: no capture is running; call "
                            "start_profiler(logdir) first")
-    prof, logdir = _PROFILER
+    prof, logdir, t_lo = _PROFILER
     del _PROFILER[:]
-    if st.engine is not None:
-        st.engine.profiling = False
+    tracing.steps.PROFILING = False
     prof.stop()
+    t_hi = tracing.now()
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir,
                         f"hvd_profile.rank{st.rank}.{os.getpid()}.json")
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"].extend(tracing.profile_events(
+        t_lo, t_hi, int(trace.get("baseTimeNanoseconds", 0)), os.getpid()))
+    with open(path, "w") as f:
+        json.dump(trace, f)
     return path
 
 

@@ -23,6 +23,27 @@ gated each round*.
   and attributes the round's time to the gating (host, phase), a
   per-host gating-fraction table.
 
+The port adds the training step's own spans (:mod:`.steps`): a ``step``
+envelope a call of the data-parallel Llama and BERT steps with its
+``forward``, ``backward``, ``exchange`` and ``optimizer`` phases, the
+step's ``wait_ms``, ``queue_ms`` and ``gc_ms``, and one ``gc`` span a
+Python collection of the older generations; the engine's spans of a
+step's entries carry its id.
+
+One clock with the device trace: spans stay on ``time.monotonic`` (the
+merge's offsets rely on it), and the buffer keeps an anchor, a
+``(monotonic, time.time_ns())`` pair sampled at ``hvd.init()``, that maps
+a span onto the Unix-epoch clock of ``torch.profiler``'s events
+(``SpanBuffer.unix_ns``).  ``hvd.stop_profiler()`` appends the ring's
+spans of the capture's interval to the Chrome trace it writes
+(:func:`profile_events`), so the engine thread's spans sit beside the
+kernels.  While a torch profiler records on a thread (or
+``hvd.start_profiler``'s every-thread capture runs), the step's sites and
+the engine's dispatch open ``record_function`` ranges (``hvd.step``,
+``hvd.forward``, ``hvd.backward``, ``hvd.exchange``, ``hvd.optimizer``,
+``hvd.<op>[<tensors>]``), so a capture labels the device's idle
+stretches by the program's phase.
+
 Every instrumented site guards on ``tracing.ACTIVE``: one attribute load
 and a false branch under ``HOROVOD_TRACE=0``.  The knobs keep the JAX
 package's names and meanings: ``HOROVOD_TRACE`` (default on),
@@ -33,7 +54,7 @@ package's names and meanings: ``HOROVOD_TRACE`` (default on),
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, List, Optional
 
 from . import critical, merge  # noqa: F401  (re-export for driver/tools)
 from .span import DEFAULT_CAPACITY, PHASES, SpanBuffer  # noqa: F401
@@ -141,3 +162,38 @@ def init_from_env(environ=os.environ):
     global ACTIVE
     ACTIVE = _env_on(ENV_ENABLE, environ=environ)
     _BUFFER.set_capacity(_env_capacity(environ))
+
+
+#: Chrome-trace thread ids of the appended span lanes start here, above
+#: any OS thread id or device stream the profiler writes
+_LANE_TID = 1_000_000_000
+
+
+def profile_events(t_lo: float, t_hi: float, base_ns: int,
+                   pid: int) -> List[Dict]:
+    """The default buffer's spans that lie within ``[t_lo, t_hi]`` (its
+    clock), rendered by :func:`merge.chrome_trace` (one lane a category,
+    each span under its own name and category) and moved onto a
+    profiler's time base: microseconds after ``base_ns`` on the
+    Unix-epoch clock, under ``pid``."""
+    steps.flush_gc()
+    snap = _BUFFER.snapshot()
+    snap["spans"] = [s for s in snap["spans"]
+                     if t_lo <= s["t0"] and s["t1"] <= t_hi]
+    if not snap["spans"]:
+        return []
+    first = min(s["t0"] for s in snap["spans"])
+    shift_us = (_BUFFER.unix_ns(first) - base_ns) / 1e3
+    events: List[Dict] = []
+    for e in merge.chrome_trace({"local": (snap, 0.0, 0.0)})["traceEvents"]:
+        if e["ph"] == "M" and e["name"] == "process_name":
+            continue
+        e = dict(e, pid=pid, tid=_LANE_TID + e["tid"])
+        if e["ph"] == "X":
+            e["ts"] += shift_us
+        events.append(e)
+    return events
+
+
+from . import steps  # noqa: E402  (reads ACTIVE, now and span above)
+from .steps import phase, profiler_range, step  # noqa: E402,F401

@@ -14,7 +14,11 @@ Timestamps are seconds on the buffer's own ``clock`` (default
 ``time.monotonic`` — per-host, arbitrary epoch).  The driver-side
 merger (:mod:`.merge`) estimates each host's clock offset from RPC
 request/response timestamps and maps every span onto its own clock;
-nothing here needs wall-clock time or NTP.
+nothing here needs wall-clock time or NTP.  The port adds an anchor
+beside the ring (never in a snapshot): a ``(clock, time.time_ns())``
+pair sampled back to back (:meth:`SpanBuffer.set_anchor`, at
+``hvd.init()``), through which :meth:`SpanBuffer.unix_ns` puts a span on
+the Unix-epoch clock that ``torch.profiler``'s events use.
 
 Hot-path discipline (as in ``metrics``): instrumented sites guard
 on ``tracing.ACTIVE`` so a disabled tracer costs one false branch;
@@ -28,7 +32,7 @@ import socket
 import threading
 import time
 from collections import deque
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 #: Spans kept per worker (ring; oldest dropped).  HOROVOD_TRACE_BUFFER.
 DEFAULT_CAPACITY = 4096
@@ -66,6 +70,7 @@ class SpanBuffer:
         self._round = -1
         self._cycle = -1
         self._group = ""
+        self.set_anchor()
 
     # -- clock ---------------------------------------------------------------
     def now(self) -> float:
@@ -74,6 +79,20 @@ class SpanBuffer:
         skewed per-host clock and exercise the offset estimation the
         production path relies on."""
         return self._clock()
+
+    def set_anchor(self) -> Tuple[float, int]:
+        """Sample ``(clock, time.time_ns())`` back to back (the clock
+        read on both sides of the epoch read, their mean kept) and keep
+        it as :attr:`anchor`; returns it."""
+        a = self._clock()
+        unix = time.time_ns()
+        self.anchor = ((a + self._clock()) / 2.0, unix)
+        return self.anchor
+
+    def unix_ns(self, t: float) -> int:
+        """The buffer-clock time ``t`` on the Unix-epoch clock, in ns."""
+        mono, unix = self.anchor
+        return unix + round((t - mono) * 1e9)
 
     # -- identity / context ---------------------------------------------------
     def set_identity(self, process: Optional[int] = None,

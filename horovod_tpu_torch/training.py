@@ -64,7 +64,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from . import DeviceLike, api, resolve_device, runtime
+from . import DeviceLike, api, resolve_device, runtime, tracing
 from .models import llama as llama_mod
 from .models.llama import LlamaConfig, ParallelSpec
 from .ops import collectives
@@ -101,11 +101,13 @@ def sum_scaled_(tensors, names, ps, scale: float) -> None:
     """Allreduce ``tensors`` in place over ``ps`` in one engine submission
     (op Sum, postscale ``scale``), so one cycle plans them into buckets
     together; returns when every one is reduced.  ``names`` must be the
-    same on every rank."""
-    for h in api._allreduce_each_async_(tensors, names, op=runtime.Sum,
-                                        postscale_factor=scale,
-                                        process_set=ps):
-        h.synchronize()
+    same on every rank.  Inside a training step this is its ``exchange``
+    phase (``tracing.steps``)."""
+    with tracing.phase("exchange"):
+        for h in api._allreduce_each_async_(tensors, names, op=runtime.Sum,
+                                            postscale_factor=scale,
+                                            process_set=ps):
+            h.synchronize()
 
 
 def resolve_mesh(pmesh: Optional[ParallelMesh],
@@ -268,15 +270,20 @@ def make_llama_train_step(cfg: LlamaConfig,
         loss = loss.clone()
         paths, leaves = tree_paths(grads), tree_leaves(grads)
         rows = {}
-        if zero:
-            for path, g in sorted(zip(paths, leaves), key=lambda x: x[0]):
-                if g.dim() and g.shape[0] % dp == 0:
-                    r = collectives.reduce_scatter_flat(g.reshape(-1), ps)
-                    collectives._scale_(r, scale)
-                    rows[path] = r.view((g.shape[0] // dp,) + g.shape[1:])
-        rest = [(p, g) for p, g in zip(paths, leaves) if p not in rows]
-        sum_scaled_([g for _, g in rest] + [loss],
-                    [f"grad.{p}" for p, _ in rest] + ["loss"], ps, scale)
+        with tracing.phase("exchange"):   # the ZeRO scatters included
+            if zero:
+                for path, g in sorted(zip(paths, leaves),
+                                      key=lambda x: x[0]):
+                    if g.dim() and g.shape[0] % dp == 0:
+                        r = collectives.reduce_scatter_flat(g.reshape(-1),
+                                                            ps)
+                        collectives._scale_(r, scale)
+                        rows[path] = r.view((g.shape[0] // dp,)
+                                            + g.shape[1:])
+            rest = [(p, g) for p, g in zip(paths, leaves) if p not in rows]
+            sum_scaled_([g for _, g in rest] + [loss],
+                        [f"grad.{p}" for p, _ in rest] + ["loss"], ps,
+                        scale)
         if rows:
             it = iter(paths)
             grads = tree_map(lambda g: rows.get(next(it), g), grads)
@@ -296,15 +303,21 @@ def make_llama_train_step(cfg: LlamaConfig,
                                           process_set=ps, overlap=True)
 
         def step_fn(params, opt_state, tokens, targets):
-            leaves = tree_leaves(params)
-            with overlap_mod.overlapped_backprop(tx):
-                loss = local_loss(params, tokens, targets)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            it = iter(grads)
-            tx.update(tree_map(lambda _: next(it), params), opt_state,
-                      params)
-            loss = api.allreduce(loss.detach(), op=runtime.Average,
-                                 name="loss", process_set=ps)
+            # the transform's update holds the exchange and optimizer
+            # phases; the taps dispatch buckets inside the backward
+            with tracing.step():
+                leaves = tree_leaves(params)
+                with overlap_mod.overlapped_backprop(tx):
+                    with tracing.phase("forward"):
+                        loss = local_loss(params, tokens, targets)
+                    with tracing.phase("backward"):
+                        grads = torch.autograd.grad(loss, leaves,
+                                                    allow_unused=True)
+                it = iter(grads)
+                tx.update(tree_map(lambda _: next(it), params), opt_state,
+                          params)
+                loss = api.allreduce(loss.detach(), op=runtime.Average,
+                                     name="loss", process_set=ps)
             return params, opt_state, loss
 
         def opt_init(params):
@@ -312,11 +325,13 @@ def make_llama_train_step(cfg: LlamaConfig,
             return tx.init(params)
     else:
         def step_fn(params, opt_state, tokens, targets):
-            loss, grads = reduce_grads(
-                *loss_and_grads(params, tokens, targets), zero=use_zero)
-            _apply(params, grads, opt_state, use_zero)
-            if use_zero:
-                _gather_rows(params, opt_state.hvd_rows, ps)
+            with tracing.step():
+                loss, grads = reduce_grads(
+                    *loss_and_grads(params, tokens, targets), zero=use_zero)
+                with tracing.phase("optimizer"):
+                    _apply(params, grads, opt_state, use_zero)
+                    if use_zero:
+                        _gather_rows(params, opt_state.hvd_rows, ps)
             return params, opt_state, loss
 
         def opt_init(params):
@@ -340,8 +355,10 @@ def _loss_and_grads(local_loss, grad_accum: int):
     value_and_grad)."""
 
     def one_pass(params, tokens, targets):
-        loss = local_loss(params, tokens, targets)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
+        with tracing.phase("forward"):
+            loss = local_loss(params, tokens, targets)
+        with tracing.phase("backward"):
+            grads = torch.autograd.grad(loss, tree_leaves(params))
         it = iter(grads)
         return loss.detach(), tree_map(lambda _: next(it), params)
 

@@ -8,10 +8,13 @@ sites: the engine's spans from a world-2 gloo job
 (``tests/torch_ranks.py`` ``case_tracing``), the tail round's ``dcn``
 span, the ``/trace`` route, ``hvd.start_profiler``'s ranges from the
 engine thread, and the elastic driver's ``GET /trace/job`` with one
-worker unreachable.  Waits on a clock carry their own bounds (the
+worker unreachable.  Last the port's own step spans (``tracing/steps.py``):
+the data-parallel Llama step at worlds 1 and 2 and the BERT step, tracing
+off, the profiler's ranges, the collector hook and the shared clock.  Waits on a clock carry their own bounds (the
 scrape's budget, ``urlopen``'s timeout), well above what they need.
 """
 
+import contextlib
 import json
 import os
 import pathlib
@@ -334,7 +337,8 @@ def test_trace_route_serves_the_buffer():
 
 @pytest.fixture(scope="module")
 def traced_world(tmp_path_factory):
-    return tr.launch(2, ["tracing"], tmp_path_factory.mktemp("trace2"))
+    return tr.launch(2, ["tracing", "step_spans"],
+                     tmp_path_factory.mktemp("trace2"))
 
 
 def test_engine_spans_of_a_world_2_job(traced_world):
@@ -463,3 +467,234 @@ def test_elastic_driver_trace_job_with_a_worker_unreachable():
     assert spans and all(e["args"]["clock_err_us"] >= 0 for e in spans)
     assert critical.analyze(trace)["top"][0] == "host1"
     assert codes == [(200, True), (200, True)]
+
+
+# ---------------------------------------------------------------------------
+# the step spans (the port's own)
+# ---------------------------------------------------------------------------
+
+PHASE_NAMES = ["backward", "exchange", "forward", "optimizer"]
+
+
+def _tiny_llama_step(**kw):
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=2,
+                            n_heads=2, n_kv_heads=1, d_ff=64,
+                            max_seq_len=16, dtype=torch.float32,
+                            param_dtype=torch.float32)
+    ts = training.make_llama_train_step(cfg, device="cpu", **kw)
+    params, opt = ts.init_fn(0)
+    toks = torch.randint(0, 64, (2, 16), generator=torch.Generator()
+                         .manual_seed(0))
+    return lambda: ts.step_fn(params, opt, toks, toks)[2]
+
+
+def _tiny_bert():
+    from horovod_tpu_torch.models import bert
+    cfg = bert.BertConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=2,
+                          d_ff=64, max_seq_len=16, num_labels=4,
+                          dtype=torch.float32, param_dtype=torch.float32)
+    ts = bert.make_dp_finetune_step(cfg, bert.finetune_optimizer,
+                                    reduce_grads=True, device="cpu")
+    params, opt = ts.init_fn(0)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, 64, (4, 16), generator=gen)
+    labels = torch.randint(0, 4, (4,), generator=gen)
+    return ts, params, opt, toks, labels
+
+
+def _await_cycles(eng, c0):
+    """The cycle span closes after the handles resolve: wait for it."""
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and sum(
+            s["cat"] == "cycle" for s in tracing.buffer().snapshot()[
+                "spans"]) < eng.stats()["cycles"] - c0:
+        time.sleep(0.01)
+
+
+def _assert_step_spans(spans, n, phases=PHASE_NAMES):
+    """``n`` step spans, each with its phases nested inside it and naming
+    it their parent, and the engine's spans of its entries carrying its
+    id."""
+    steps = [s for s in spans if s["cat"] == "step" and s["name"] == "step"]
+    assert len(steps) == n
+    assert len({s["args"]["step"] for s in steps}) == n
+    for st in steps:
+        sid, a = st["args"]["step"], st["args"]
+        assert st["round"] == -1 and a["profiled"] is False
+        assert a["wait_ms"] >= 0 and a["queue_ms"] > 0 and a["gc_ms"] >= 0
+        kids = [s for s in spans if s["cat"] == "step"
+                and s["args"].get("parent") == sid]
+        assert sorted(k["name"] for k in kids) == phases
+        assert all(st["t0"] <= k["t0"] <= k["t1"] <= st["t1"] for k in kids)
+        mine = {s["cat"] for s in spans if s["args"].get("step") == sid
+                and s["cat"] not in ("step", "gc")}
+        assert {"submit", "cycle", "fuse", "dispatch"} <= mine
+    return steps
+
+
+def test_llama_step_spans_at_world_1():
+    """One ``step`` span a call of the data-parallel Llama step, with its
+    four phases and its engine spans; the engine counts the waits and the
+    queue."""
+    import horovod_tpu_torch as hvd
+    hvd.init(device="cpu")
+    try:
+        step = _tiny_llama_step()
+        eng = hvd.runtime._state().engine
+        tracing.buffer().clear()
+        c0, st0 = eng.stats()["cycles"], eng.stats()
+        for _ in range(3):
+            step()
+        _await_cycles(eng, c0)
+        st1 = eng.stats()
+        spans = tracing.buffer().snapshot()["spans"]
+    finally:
+        hvd.shutdown()
+    steps = _assert_step_spans(spans, 3)
+    assert st1["queue_ms"] > st0["queue_ms"]
+    assert st1["wait_ms"] - st0["wait_ms"] >= sum(
+        s["args"]["wait_ms"] for s in steps) - 1e-6
+
+
+def test_llama_step_spans_at_world_2(traced_world):
+    """The same on two gloo ranks: each rank's two steps."""
+    for res in traced_world:
+        _assert_step_spans(res["step_spans"]["snapshot"]["spans"], 2)
+
+
+def test_bert_step_and_grads_spans():
+    """BERT's ``step_fn`` and ``grads_fn`` record one step span a call;
+    ``grads_fn`` has no optimizer phase."""
+    import horovod_tpu_torch as hvd
+    hvd.init(device="cpu")
+    try:
+        ts, params, opt, toks, labels = _tiny_bert()
+        eng = hvd.runtime._state().engine
+        tracing.buffer().clear()
+        c0 = eng.stats()["cycles"]
+        ts.step_fn(params, opt, toks, labels)
+        ts.step_fn(params, opt, toks, labels)
+        _await_cycles(eng, c0)
+        stepped = tracing.buffer().snapshot()["spans"]
+        tracing.buffer().clear()
+        c0 = eng.stats()["cycles"]
+        ts.grads_fn(params, toks, labels)
+        _await_cycles(eng, c0)
+        graded = tracing.buffer().snapshot()["spans"]
+    finally:
+        hvd.shutdown()
+    _assert_step_spans(stepped, 2)
+    _assert_step_spans(graded, 1, ["backward", "exchange", "forward"])
+
+
+def _losses(n=3):
+    import horovod_tpu_torch as hvd
+    hvd.init(device="cpu")
+    try:
+        step = _tiny_llama_step()
+        tracing.buffer().clear()
+        return [step().item() for _ in range(n)], \
+            len(tracing.buffer()), tracing.ACTIVE
+    finally:
+        hvd.shutdown()
+
+
+def test_trace_off_records_nothing_and_the_losses_are_bitwise(monkeypatch):
+    on, n_on, active_on = _losses()
+    monkeypatch.setenv("HOROVOD_TRACE", "0")
+    try:
+        off, n_off, active_off = _losses()
+    finally:
+        monkeypatch.delenv("HOROVOD_TRACE")
+        tracing.init_from_env()
+    assert active_on and not active_off
+    assert n_on > 0 and n_off == 0
+    assert on == off
+
+
+def test_off_the_profiler_no_range_is_entered(monkeypatch):
+    """No ``record_function`` is built by a step or its engine dispatch
+    while no profiler records."""
+    import horovod_tpu_torch as hvd
+    built = []
+
+    def record_function(name, *a, **kw):
+        built.append(name)
+        return contextlib.nullcontext()
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    hvd.init(device="cpu")
+    try:
+        step = _tiny_llama_step()
+        step()
+    finally:
+        hvd.shutdown()
+    assert built == []
+
+
+def test_a_collection_inside_a_step_is_a_gc_span():
+    import gc
+    import horovod_tpu_torch as hvd
+
+    class Collecting(torch.optim.AdamW):
+        def step(self, closure=None):
+            gc.collect(0)
+            gc.collect()
+            return super().step(closure)
+    hvd.init(device="cpu")
+    try:
+        step = _tiny_llama_step(optimizer=lambda ps: Collecting(ps, lr=1e-3))
+        tracing.buffer().clear()
+        step()
+        spans = tracing.buffer().snapshot()["spans"]
+    finally:
+        hvd.shutdown()
+    (st,) = [s for s in spans if s["cat"] == "step" and s["name"] == "step"]
+    full = [s for s in spans if s["cat"] == "gc"
+            and s["args"]["generation"] == 2
+            and s["args"].get("step") == st["args"]["step"]]
+    assert full and all(st["t0"] <= s["t0"] <= st["t1"] for s in full)
+    # the young generation's collections are timed, not spanned
+    assert not [s for s in spans if s["cat"] == "gc"
+                and s["args"]["generation"] == 0]
+    assert st["args"]["gc_ms"] > 0
+    assert st["args"]["gc_ms"] >= 1e3 * sum(s["t1"] - s["t0"]
+                                           for s in full) - 1e-6
+    assert tracing.steps._on_gc not in gc.callbacks
+
+
+def test_profiler_range_and_ring_span_share_one_clock(tmp_path):
+    """Under ``hvd.start_profiler`` the step is an ``hvd.step`` range and a
+    ``step`` span marked profiled; in the written trace the two start
+    within 1 ms of each other, and the phases' ranges are there too."""
+    import horovod_tpu_torch as hvd
+    hvd.init(device="cpu")
+    try:
+        step = _tiny_llama_step()
+        step()
+        hvd.start_profiler(str(tmp_path / "prof"))
+        step()
+        path = hvd.stop_profiler()
+    finally:
+        hvd.shutdown()
+    events = [e for e in json.loads(pathlib.Path(path).read_text())[
+        "traceEvents"] if e.get("ph") == "X"]
+    ranges = [e for e in events if e["name"] == "hvd.step"
+              and e.get("cat") == "user_annotation"]
+    spans = [e for e in events if e["name"] == "step"
+             and e.get("cat") == "step"]
+    assert len(ranges) == len(spans) == 1
+    assert spans[0]["args"]["profiled"] is True
+    assert abs(ranges[0]["ts"] - spans[0]["ts"]) < 1000.0
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {f"hvd.{p}" for p in PHASE_NAMES} <= names
+
+
+def test_anchor_maps_the_buffer_clock_onto_the_epoch():
+    clock = [100.0]
+    buf = SpanBuffer(clock=lambda: clock[0])
+    mono, unix = buf.anchor
+    assert mono == 100.0 and abs(unix - time.time_ns()) < 5e9
+    assert buf.unix_ns(101.5) == unix + 1_500_000_000
+    assert "anchor" not in buf.snapshot()

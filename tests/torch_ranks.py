@@ -704,6 +704,33 @@ def case_tracing(hvd, rank, world):
                                            "buckets")}}
 
 
+def case_step_spans(hvd, rank, world):
+    """Two steps of a tiny data-parallel Llama (the engine's gradient
+    plane): the span ring's snapshot once every cycle span is in."""
+    import torch
+    from horovod_tpu_torch import tracing, training
+    from horovod_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=2,
+                            n_heads=2, n_kv_heads=1, d_ff=64,
+                            max_seq_len=16, dtype=torch.float32,
+                            param_dtype=torch.float32)
+    ts = training.make_llama_train_step(cfg, device="cpu")
+    params, opt = ts.init_fn(0)
+    gen = torch.Generator().manual_seed(rank)
+    toks = torch.randint(0, 64, (2, 16), generator=gen)
+    eng = hvd.runtime._state().engine
+    tracing.buffer().clear()
+    c0 = eng.stats()["cycles"]
+    for _ in range(2):
+        ts.step_fn(params, opt, toks, toks)
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and sum(
+            s["cat"] == "cycle" for s in tracing.buffer().snapshot()[
+                "spans"]) < eng.stats()["cycles"] - c0:
+        time.sleep(0.01)
+    return {"snapshot": tracing.buffer().snapshot()}
+
+
 # the overlap toy: tests/test_overlap.py's model with its layers unstacked
 TOY_L, TOY_D, TOY_V = 3, 8, 5
 OVERLAP_CONFIGS = {
